@@ -1,0 +1,17 @@
+"""granite-moe-1b-a400m [moe] — 24L d_model=1024 16H (GQA kv=8) expert
+d_ff=512, MoE 32 experts top-8, vocab=49155.
+[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=8,
+    d_ff=512,
+    vocab_size=49155,
+    head_dim=64,
+    moe=MoEConfig(num_experts=32, top_k=8),
+)

@@ -1,0 +1,212 @@
+"""Causal GQA flash-attention forward: a CUDA kernel for Hopper and its
+plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``,
+function ``flash_attention`` (body ``_flash_kernel``). The CUDA source is
+``src/repro_torch/csrc/flash_attention.cu``.
+
+What bounds it on an H100: at the serving shapes (S = 512, D = 64, 32 q
+heads over 4 kv heads) the work is about 1.07 GFLOP against about
+4.7 MB moved, some 230 operations per byte, just under the ~295 where
+the bf16 tensor cores take over: memory bounds it (about 1.4 us) and
+the tensor cores nearly do (about 1.1 us). This first kernel runs its two products on the CUDA cores, in f32 FMAs over
+bf16 values staged in shared memory, so it sits far above that bound;
+``wgmma``/TMA tiles are what would close the gap. What the design does
+for the bound it has: one CTA per (64-row q tile, head, batch) keeps Q,
+one K/V block and the P tile in shared memory, reads each K/V block once
+per q tile, and skips every kv block past the tile's last causal row.
+
+Differences from the TPU kernel, all deliberate:
+
+- q and kv lengths are separate and q row ``i`` sits at absolute
+  position ``q_offset + i`` (Sq <= Skv): chunked prefill runs one
+  chunk's rows against the whole context. The TPU kernel takes one
+  square S.
+- The kv walk is fixed: blocks of ``BLOCK_K`` keys from key 0, up to the
+  block of the tile's last row. A block that is fully masked for a row
+  is an exact no-op for it (p = 0, corr = 1), so every row's result
+  depends only on that row and its visible keys, whatever Sq, q_offset
+  or q tile it falls in. Chunked prefill therefore reproduces the
+  whole-prompt rows bit for bit.
+- q and k are rounded to bf16 for the scores and p is rounded to bf16
+  before the PV product, as the XLA flash path (``_flash_row``) does;
+  the TPU kernel multiplies in f32.
+
+The probe output counts, per (b, h, q tile), kv blocks visited and
+computed, with the TPU kernel's block-plan semantics (the causal skip is
+decided by the tile's last row).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+BLOCK_Q = 64
+BLOCK_K = 64
+HEAD_DIMS = (64, 128)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, _I, _I, ctypes.c_float, _I,
+                                       _P]}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bf16(x):
+    """Round to bf16 and compute on in f32: a bf16-input, f32-accumulate
+    product, as ``einsum(..., preferred_element_type=f32)`` in JAX."""
+    return x.to(torch.bfloat16).float()
+
+
+def _row_plan(Sq: int, Skv: int, q_offset: int,
+              causal: bool) -> List[Tuple[int, int, int]]:
+    """The kernel's block plan: (first row, end row, kv blocks computed)
+    for each q tile. The causal skip is decided by the tile's last row."""
+    nk = _cdiv(Skv, BLOCK_K)
+    rows = []
+    for r0 in range(0, Sq, BLOCK_Q):
+        r1 = min(r0 + BLOCK_Q, Sq)
+        n = min(nk, (q_offset + r1 - 1) // BLOCK_K + 1) if causal else nk
+        rows.append((r0, r1, n))
+    return rows
+
+
+def _flash_row(q_blk, k_ctx, v_ctx, q_offset: int, kv_chunk: int,
+               scale: float, causal: bool, kv_len: int):
+    """One q tile against its kv context, in whole ``kv_chunk`` blocks.
+
+    Port of ``repro.models.attention._flash_row``; keys at or past
+    ``kv_len`` are padding and masked. q_blk: (B, Sq, H, hd); k_ctx,
+    v_ctx: (B, Skv, H, hd), Skv % kv_chunk == 0. Returns (out
+    (B,Sq,H,hd) f32, m (B,H,Sq), l (B,H,Sq))."""
+    B, Sq, H, HD = q_blk.shape
+    dev = q_blk.device
+    qb = _bf16(q_blk)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m = torch.full((B, H, Sq), float("-inf"), device=dev)
+    l = torch.zeros((B, H, Sq), device=dev)
+    acc = torch.zeros((B, H, Sq, HD), device=dev)
+    for c0 in range(0, k_ctx.shape[1], kv_chunk):
+        k_c = _bf16(k_ctx[:, c0:c0 + kv_chunk])
+        v_c = _bf16(v_ctx[:, c0:c0 + kv_chunk])
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, k_c) * scale
+        k_pos = c0 + torch.arange(kv_chunk, device=dev)
+        mask = (k_pos < kv_len)[None, :]
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        s = s.masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe,
+                                     float("-inf")))
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", _bf16(p), v_c)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    l_safe = l.clamp_min(1e-37)
+    return (acc / l_safe[..., None]).transpose(1, 2), m, l_safe
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                          with_probe: bool = False):
+    """The kernel's function in plain PyTorch (port of ``_flash_fwd`` over
+    the kernel's row plan). Same arguments and results as
+    ``flash_attention``; kv is repeated per q head as ``_repeat_kv``
+    does."""
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    pad = _cdiv(Skv, BLOCK_K) * BLOCK_K - Skv
+    # (B, S, H, D) with kv repeated to every q head, zero-padded to whole
+    # kv blocks (the padding is masked)
+    kr = F.pad(k.repeat_interleave(rep, dim=1), (0, 0, 0, pad)).transpose(1, 2)
+    vr = F.pad(v.repeat_interleave(rep, dim=1), (0, 0, 0, pad)).transpose(1, 2)
+    qt = q.transpose(1, 2)
+    scale = 1.0 / math.sqrt(D)
+    plan = _row_plan(Sq, Skv, q_offset, causal)
+    outs = []
+    for (r0, r1, n) in plan:
+        o, _, _ = _flash_row(qt[:, r0:r1], kr[:, :n * BLOCK_K],
+                             vr[:, :n * BLOCK_K], q_offset + r0, BLOCK_K,
+                             scale, causal, Skv)
+        outs.append(o.to(q.dtype))
+    out = torch.cat(outs, dim=1).transpose(1, 2)
+    if not with_probe:
+        return out
+    nk = _cdiv(Skv, BLOCK_K)
+    counts = torch.tensor([[nk, n] for (_, _, n) in plan], dtype=torch.int32,
+                          device=q.device)
+    return out, counts.expand(B, H, len(plan), 2).contiguous()
+
+
+def _check(q, k, v, q_offset: int, causal: bool):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, H, S, D)")
+    B, H, Sq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"H {H} is not a multiple of Hkv {Hkv}")
+    if Sq == 0 or Skv == 0:
+        raise ValueError("empty sequence")
+    if causal and not (0 <= q_offset and q_offset + Sq <= Skv):
+        raise ValueError(f"q rows [{q_offset}, {q_offset + Sq}) lie outside "
+                         f"the {Skv} keys")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    with_probe: bool = False):
+    """Causal GQA flash attention.
+
+    q: (B, H, Sq, D); k, v: (B, Hkv, Skv, D), H % Hkv == 0, kv head
+    ``h // (H // Hkv)``; q row ``i`` sits at position ``q_offset + i``.
+    Returns (B, H, Sq, D) in q.dtype [, probe (B, H, ceil(Sq/64), 2)
+    int32 if with_probe].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16, D in (64, 128), contiguous) or raise.
+    """
+    _check(q, k, v, q_offset, causal)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset, with_probe=with_probe)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {q.device}")
+    B, H, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    out = torch.empty_like(q)
+    probe = (torch.empty((B, H, _cdiv(Sq, BLOCK_Q), 2), dtype=torch.int32,
+                         device=q.device) if with_probe else None)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    code = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        probe.data_ptr() if with_probe else None,
+        B, H, Hkv, Sq, Skv, D, q_offset, int(causal), 1.0 / math.sqrt(D),
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, "flash_attention_fwd")
+    flash_attention.launches += 1
+    return (out, probe) if with_probe else out
+
+
+flash_attention.launches = 0

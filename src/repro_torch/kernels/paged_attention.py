@@ -1,0 +1,160 @@
+"""Paged single-token GQA decode attention: a CUDA kernel for Hopper and
+its plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/paged_attention.py``,
+function ``paged_attention`` (body ``_paged_kernel``). The CUDA source
+is ``src/repro_torch/csrc/paged_attention.cu``.
+
+What bounds it on an H100: memory. Each visible K/V slot is read once
+and used for ``g = H / Hkv`` query rows with a few FLOPs per byte (at 8
+rows of 544 slots, 4 kv heads, head dim 64: about 4.5 MB of K/V, a bound
+near 1.3 us, far below the ~295 FLOP/byte where the tensor cores would
+matter). What the design does about it: one CTA per (kv head, batch row)
+serves all ``g`` query rows of its group, so each K/V page is read from
+device memory once for the group; the CTA walks its own page-table row
+(there is no scalar prefetch) and reads only slots ``<= pos[b]``, which
+is exact because the TPU kernel gives the masked slots exp(-inf) = 0.
+The page walk reads whole 16-byte vectors of a K row per thread; making
+the loads coalesced across a warp is work for a later kernel.
+
+It keeps the TPU kernel's exact *global* softmax, not flash:
+s = (bf16 q . bf16 k) * scale in f32; m = max, p = exp(s - m),
+l = sum p; o = sum bf16(p / l) * bf16 v in f32. Scores for the visible
+slots live in shared memory (g * s_max * 4 bytes); past the card's
+opt-in limit the wrapper allocates a global scratch instead.
+
+Determinism contract: every reduction is a fixed per-CTA order with no
+atomics, so the output for row b is bit-identical whatever the batch
+size, the padding lanes and where the pages sit in the pool.
+
+``pages_per_step`` is the TPU kernel's DMA-group depth (a DSE axis). It
+must divide the page-table width, as there; this kernel does not stage
+pages in groups, so it does not change the work.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 16                 # query rows per kv head the kernel serves
+# opt-in shared memory per block on sm_90 (H100/H200): 227 KB
+SMEM_OPTIN_BYTES = 232448
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _I, _I, ctypes.c_float,
+                                       _I, _I, _P]}
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def paged_attention_plain(q, pool_k, pool_v, pages, pos):
+    """The kernel's function in plain PyTorch: the dense-gather attend of
+    ``repro.engine.step._paged_attn_xla`` (gather every page of the row,
+    mask slots past ``pos``, one global softmax). Same arguments and
+    result as ``paged_attention``."""
+    B, kv, g, hd = q.shape
+    s_max = pages.shape[1] * pool_k.shape[1]
+    idx = pages.long()
+    kd = pool_k[idx].reshape(B, s_max, kv, hd)
+    vd = pool_v[idx].reshape(B, s_max, kv, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", _bf16(q), _bf16(kd)) * (
+        1.0 / math.sqrt(hd))
+    mask = (torch.arange(s_max, device=q.device)[None, :]
+            <= pos.long()[:, None])
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bkgs,bskh->bkgh", _bf16(p / l), _bf16(vd))
+
+
+def _check(q, pool_k, pool_v, pages, pos, pages_per_step: int):
+    if q.dim() != 4 or pool_k.dim() != 4 or pages.dim() != 2 or pos.dim() != 1:
+        raise ValueError("want q (B, kv, g, hd), pools (P, page, kv, hd), "
+                         "pages (B, n_pages), pos (B,)")
+    B, kv, g, hd = q.shape
+    if pool_k.shape != pool_v.shape or pool_k.shape[2:] != (kv, hd):
+        raise ValueError(f"pools {tuple(pool_k.shape)} / "
+                         f"{tuple(pool_v.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if pages.shape[0] != B or pos.shape[0] != B:
+        raise ValueError("pages / pos batch does not match q")
+    n_pages = pages.shape[1]
+    if pages_per_step < 1 or n_pages % pages_per_step:
+        raise ValueError(f"pages_per_step {pages_per_step} must divide "
+                         f"page-table width {n_pages}")
+    if len({t.device for t in (q, pool_k, pool_v, pages, pos)}) != 1:
+        raise ValueError("inputs lie on different devices")
+
+
+def paged_attention(q, pool_k, pool_v, pages, pos, *,
+                    pages_per_step: int = 1):
+    """Paged single-token GQA decode attention.
+
+    q:       (B, kv_heads, q_per_kv, head_dim), cast to bf16 inside
+    pool_k:  (num_pool_pages, page_size, kv_heads, head_dim) bf16
+    pool_v:  same shape as pool_k
+    pages:   (B, n_pages) int32 page-table rows into the pool
+    pos:     (B,) int32 current position (slots > pos are masked)
+
+    Returns (B, kv_heads, q_per_kv, head_dim) float32. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise. The
+    kernel clamps page ids into the pool.
+    """
+    _check(q, pool_k, pool_v, pages, pos, pages_per_step)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, pool_k, pool_v, pages, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"no paged-attention kernel for {q.device}")
+    B, kv, g, hd = q.shape
+    P, page_size = pool_k.shape[:2]
+    n_pages = pages.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if g > MAX_GROUP:
+        raise ValueError(f"{g} query rows per kv head > {MAX_GROUP}")
+    for name, t, dt in (("pool_k", pool_k, torch.bfloat16),
+                        ("pool_v", pool_v, torch.bfloat16),
+                        ("pages", pages, torch.int32),
+                        ("pos", pos, torch.int32)):
+        if t.dtype != dt:
+            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned (K rows are read "
+                         "as 16-byte vectors)")
+    qb = q.to(torch.bfloat16).contiguous()
+    s_max = n_pages * page_size
+    base = (g * hd + n_pages) * 4
+    scratch = None
+    smem = base + g * s_max * 4
+    if smem > SMEM_OPTIN_BYTES:
+        scratch = torch.empty((B, kv, g, s_max), dtype=torch.float32,
+                              device=q.device)
+        smem = base
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(f"page table of {n_pages} pages does not fit in "
+                         f"shared memory")
+    out = torch.empty((B, kv, g, hd), dtype=torch.float32, device=q.device)
+    lib = _build.load("paged_attention", _SIGNATURES)
+    code = lib.paged_attention_fwd(
+        qb.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pages.data_ptr(),
+        pos.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        B, kv, g, hd, page_size, n_pages, P, 1.0 / math.sqrt(hd), smem,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, code, "paged_attention_fwd")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,0 +1,62 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never quietly fall back to the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = (
+    "repro_torch", "repro_torch.configs", "repro_torch.configs.registry",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.transformer",
+    "repro_torch.models.model", "repro_torch.models.convert",
+    "repro_torch.kernels", "repro_torch.kernels.ref",
+    "repro_torch.kernels._build", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.paged_attention", "repro_torch.engine",
+    "repro_torch.engine.pagetable", "repro_torch.engine.step",
+    "repro_torch.engine.engine", "repro_torch.launch.serve",
+)
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO)
+
+
+def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
+    """With no GPU and no device="cpu", serve() and Model.init raise."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(batch=1, prompt_len=4, max_new=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(smoke_config("tinyllama-1.1b")).init(0)
+
+
+def test_serve_engine_and_legacy_loop_agree_on_cpu():
+    """serve() on the CPU: engine (whole and chunked prefill, kernel and
+    dense decode) and the legacy lock-step loop give one set of ids."""
+    from repro_torch.launch.serve import serve
+    kw = dict(batch=2, prompt_len=20, max_new=4, device="cpu")
+    base = serve(**kw, engine=False)
+    assert base.tokens.shape == (2, 4) and not base.stats
+    for over in (dict(), dict(engine_kernel=True),
+                 dict(engine_kernel=True, prefill_chunk=1)):
+        res = serve(**kw, **over)
+        assert (res.tokens == base.tokens).all(), over
+        assert res.stats["retraces"] == 0
+        assert torch.isfinite(res.first_logits[:, :257]).all()

@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Where the time goes when the PyTorch port serves on the GPU.
+
+    python3 tools/profile_torch_serve.py [--chunk N] [--dense]
+
+Serves tinyllama-1.1b at full width through the port's engine (8
+requests of 512 prompt tokens, 32 new tokens each, random weights from
+seed 0) once to warm up, once timed on the host clock, then once under
+``torch.profiler``, and reads the device timeline of the last run:
+device busy time (the union of kernel, memcpy and memset intervals),
+its share of the unprofiled wall time (the profiler slows the host, not
+the device), and device time by kernel name. The Chrome trace is
+written to build/profile/. Needs a CUDA device; fails if the trace holds
+no device activity.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _busy_us(intervals):
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(intervals):
+        if t1 <= end:
+            continue
+        busy += t1 - max(t0, end)
+        end = t1
+    return busy
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="prefill chunk quantum in pages (0 = whole prompt)")
+    ap.add_argument("--dense", action="store_true",
+                    help="decode through the plain version, not the kernel")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import _engine_serve
+    from repro_torch.models import Model
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(get_config("tinyllama-1.1b"))
+    params = model.init(0)
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, 32000, (8, 512), generator=gen,
+                            dtype=torch.int32).numpy()
+    kw = dict(engine_kernel=not args.dense, prefill_chunk=args.chunk)
+    _engine_serve(model, params, prompts, max_new=32, **kw)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _engine_serve(model, params, prompts, max_new=32, **kw)
+    torch.cuda.synchronize()
+    plain_us = (time.perf_counter() - t0) * 1e6    # the profiler slows the host
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = _engine_serve(model, params, prompts, max_new=32, **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out_dir = os.path.join(ROOT, "build", "profile")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "serve_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS and "dur" in e]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+    n_ops = sum(1 for e in events if e.get("cat") == "cpu_op")
+    ph = res.stats["phases"]
+    steps = sum(v["steps"] for v in ph.values())
+    print(f"card: {smi}")
+    print(f"serve (decode {'plain' if args.dense else 'kernel'}, chunk "
+          f"{args.chunk}): wall {plain_us / 1e3:.1f} ms unprofiled, "
+          f"{wall_us / 1e3:.1f} ms profiled; device busy {busy / 1e3:.1f} ms "
+          f"= {100 * busy / plain_us:.1f} % of the unprofiled wall (idle "
+          f"{100 * (1 - busy / plain_us):.1f} %); {len(dev)} device "
+          f"activities, {n_ops} host ops over {steps} engine steps "
+          f"({json.dumps({k: v['steps'] for k, v in ph.items()})})")
+    print("device time by kernel (ms, share of busy, calls):")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {us / 1e3:9.2f}  {100 * us / busy:5.1f} %  {n:6d}  "
+              f"{name[:110]}")
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
