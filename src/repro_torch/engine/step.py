@@ -43,7 +43,7 @@ def engine_compatible(cfg) -> bool:
     """Token-in/token-out dense attention stacks only: the paged KV layout
     has no analogue for SSM/hybrid recurrent state or frontend embeds,
     and MoE layers are not ported yet."""
-    return not unsupported(cfg)
+    return cfg.family != "ssm" and not unsupported(cfg)
 
 
 def _gather_last(model, p, x, last_idx):

@@ -26,6 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# opt-in shared memory per block on sm_90 (H100/H200): 227 KB
+SMEM_OPTIN_BYTES = 232448
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -42,8 +42,7 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16                 # query rows per kv head the kernel serves
-# opt-in shared memory per block on sm_90 (H100/H200): 227 KB
-SMEM_OPTIN_BYTES = 232448
+SMEM_OPTIN_BYTES = _build.SMEM_OPTIN_BYTES
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I,

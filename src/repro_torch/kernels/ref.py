@@ -1,8 +1,8 @@
-"""Plain-torch oracle for the flash-attention kernel.
+"""Plain-torch oracles for the flash-attention and SSD-scan kernels.
 
-Port of ``repro.kernels.ref.flash_attention_ref``: naive softmax
-attention with f32 statistics, the ground truth the kernel and its plain
-version are both held against.
+Ports of ``repro.kernels.ref``: naive softmax attention with f32
+statistics, and the exact sequential SSD recurrence. They are the ground
+truth the kernels and their plain versions are both held against.
 """
 from __future__ import annotations
 
@@ -28,3 +28,27 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return o.to(q.dtype)
+
+
+def ssd_ref(x, a, b, c):
+    """Sequential (exact) SSD recurrence.
+
+    x: (B, H, L, P) — discretized inputs (x * dt)
+    a: (B, H, L)    — discretized log decay (A * dt)
+    b, c: (B, G, L, N) with H % G == 0
+    Returns y (B, H, L, P) f32, final_state (B, H, P, N) f32.
+    """
+    B, H, L, P = x.shape
+    rep = H // b.shape[1]
+    b = b.repeat_interleave(rep, dim=1).float()         # (B, H, L, N)
+    c = c.repeat_interleave(rep, dim=1).float()
+    x, a = x.float(), a.float()
+    state = torch.zeros((B, H, P, b.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(L):
+        da = torch.exp(a[:, :, t])[..., None, None]
+        state = state * da + torch.einsum("bhp,bhn->bhpn", x[:, :, t],
+                                          b[:, :, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, c[:, :, t]))
+    return torch.stack(ys, dim=2), state

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 class Param(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Any, ...]          # logical axis names (len == len(shape))
-    init: str = "normal"           # normal | zeros | ones | embed
+    init: str = "normal"           # normal | zeros | ones | embed | ssm_a | ssm_dt
     scale: float = 1.0             # fan-in scaling multiplier
 
 
@@ -35,6 +35,17 @@ def _init_leaf(p: Param, gen: torch.Generator, dtype, device):
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
+    if p.init == "ssm_a":
+        # A_log init: log of uniform [1, 16] (mamba2 convention)
+        u = torch.rand(p.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        return torch.log(1.0 + 15.0 * u).to(dtype)
+    if p.init == "ssm_dt":
+        # dt bias: inverse softplus of uniform-log [1e-3, 1e-1]
+        u = torch.rand(p.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     if p.init not in ("normal", "embed"):
         raise ValueError(f"initializer {p.init!r} is not ported")
     fan_in = p.shape[0] if p.init == "embed" else (

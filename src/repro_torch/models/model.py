@@ -27,13 +27,14 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 def unsupported(cfg: ModelConfig) -> str:
     """Why this slice of the port cannot run ``cfg`` ('' if it can)."""
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "hybrid":
         return f"family {cfg.family!r}"
     if cfg.moe is not None:
         return "MoE layers"
     if cfg.frontend != "none":
         return f"frontend {cfg.frontend!r}"
-    if cfg.pos_emb != "rope":
+    want = "none" if cfg.family == "ssm" else "rope"
+    if cfg.pos_emb != want:
         return f"pos_emb {cfg.pos_emb!r}"
     return ""
 
@@ -101,7 +102,8 @@ class Model:
     # ----------------------------------------------------------- serving
     def prefill(self, params, batch, cache_len: int):
         """batch: {"tokens": (B, S)} -> (logits (B, V) at the last token,
-        cache {"k", "v"} of (L, B, cache_len, kv, hd))."""
+        cache): {"k", "v"} of (L, B, cache_len, kv, hd), or for the ssm
+        family {"conv", "ssd"} (see ``transformer.stack_prefill``)."""
         p = self._compute_cast(params)
         x = self._embed_in(p, batch)
         B, S, _ = x.shape

@@ -1,0 +1,144 @@
+"""Mamba-2 (SSD — state-space duality) block. [arXiv:2405.21060]
+
+Port of ``repro.models.ssm`` (the serving half: ``ssm_apply`` with its
+decode caches, and ``ssm_decode``). The SSD step of ``ssm_apply`` goes
+through ``kernels.ssd_scan``: the CUDA kernel on the card, which also
+returns the final state; its plain version, ``ssd_chunked_xla`` op for
+op, on the CPU. The JAX package reaches its Pallas kernel only with
+``use_kernel=True``, which no entry point passes and which cannot return
+the state; here prefill always takes the kernel.
+
+Layout:
+    x (b, l, h, p)   h = heads, p = head_dim
+    A (b, l, h)      discretized log-decay (dt * A)
+    B (b, l, g, n)   g = groups (GQA-style shared B/C), n = d_state
+    C (b, l, g, n)
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ssd_scan as kssd
+from repro_torch.models.layers import Param, rmsnorm
+
+
+def ssm_dims(cfg: ModelConfig) -> Dict[str, int]:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    heads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.n_groups * s.d_state
+    d_in_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + heads
+    return dict(d_inner=d_inner, heads=heads, conv_dim=conv_dim,
+                d_in_proj=d_in_proj, d_state=s.d_state, groups=s.n_groups,
+                head_dim=s.head_dim, conv_kernel=s.conv_kernel,
+                chunk=s.chunk_size)
+
+
+def ssm_schema(cfg: ModelConfig) -> Dict[str, Param]:
+    d = ssm_dims(cfg)
+    return {
+        "in_proj": Param((cfg.d_model, d["d_in_proj"]), ("embed", "ssm_inner")),
+        "conv_w": Param((d["conv_kernel"], d["conv_dim"]), ("conv", "ssm_inner")),
+        "conv_b": Param((d["conv_dim"],), ("ssm_inner",), init="zeros"),
+        "a_log": Param((d["heads"],), ("ssm_heads",), init="ssm_a"),
+        "d_skip": Param((d["heads"],), ("ssm_heads",), init="ones"),
+        "dt_bias": Param((d["heads"],), ("ssm_heads",), init="ssm_dt"),
+        "norm": Param((d["d_inner"],), ("ssm_inner",), init="zeros"),
+        "out_proj": Param((d["d_inner"], cfg.d_model), ("ssm_inner", "embed")),
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv along seq via K static shifts.
+
+    x: (B, S, C); w: (K, C); b: (C,)."""
+    K = w.shape[0]
+    out = x * w[-1]
+    for k in range(1, K):
+        shifted = F.pad(x, (0, 0, k, 0))[:, :-k]
+        out = out + shifted * w[-1 - k]
+    return out + b
+
+
+def ssm_apply(params, x, cfg: ModelConfig, *, return_state: bool = False):
+    """Full-sequence Mamba2 block forward. x: (B, S, d_model).
+
+    With ``return_state`` also returns (conv_state (B,K-1,conv_dim),
+    ssd_state (B,h,p,n)) — the decode caches after consuming the prefix.
+    """
+    d = ssm_dims(cfg)
+    B, S, _ = x.shape
+    di, g, n, h = d["d_inner"], d["groups"], d["d_state"], d["heads"]
+    zxbcdt = x @ params["in_proj"]
+    z, xbc_raw, dt = torch.split(zxbcdt, [di, d["conv_dim"], h], dim=-1)
+    xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"]))
+    xs, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    xs = xs.reshape(B, S, h, d["head_dim"])
+    b = b.reshape(B, S, g, n)
+    c = c.reshape(B, S, g, n)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    a = -torch.exp(params["a_log"].float())                     # (h,)
+    a_disc = (dt * a).float()                                   # (B,S,h)
+    x_disc = xs * dt[..., None].to(xs.dtype)
+    chunk = min(d["chunk"], S)           # the port has no tuning registry
+    pad = (-S) % chunk
+    if pad:
+        # zero-pad: a=0 (decay 1) with x=0 leaves state/output intact
+        x_disc = F.pad(x_disc, (0, 0, 0, 0, 0, pad))
+        a_disc = F.pad(a_disc, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, 0, 0, pad))
+    y, final_state = kssd.ssd_scan(x_disc, a_disc, b, c, chunk=chunk,
+                                   h_per_g=h // g, return_final_state=True)
+    if pad:
+        y = y[:, :S]
+    y = y + params["d_skip"][:, None].to(xs.dtype) * xs
+    y = y.reshape(B, S, di)
+    y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
+    out = y @ params["out_proj"]
+    if return_state:
+        K = d["conv_kernel"]
+        # the last K-1 conv inputs; a prompt shorter than that is
+        # preceded by the conv's zero history
+        hist = F.pad(xbc_raw, (0, 0, max(0, K - 1 - S), 0))
+        conv_state = hist[:, hist.shape[1] - (K - 1):]
+        return out, conv_state, final_state
+    return out
+
+
+def ssm_decode(params, x, conv_state, ssd_state, cfg: ModelConfig):
+    """Single-token decode. x: (B,1,d); conv_state: (B,K-1,conv_dim);
+    ssd_state: (B,h,p,n). Returns (out, new_conv_state, new_ssd_state)."""
+    d = ssm_dims(cfg)
+    B = x.shape[0]
+    di, g, n, h, p = (d["d_inner"], d["groups"], d["d_state"], d["heads"],
+                      d["head_dim"])
+    zxbcdt = (x @ params["in_proj"])[:, 0]
+    z, xbc, dt = torch.split(zxbcdt, [di, d["conv_dim"], h], dim=-1)
+    w = params["conv_w"]                                        # (K, C)
+    hist = torch.cat([conv_state, xbc[:, None]], dim=1)         # (B,K,C)
+    y_conv = torch.einsum("bkc,kc->bc", hist.float(), w.float()).to(
+        hist.dtype) + params["conv_b"]
+    new_conv_state = hist[:, 1:]
+    xbc = F.silu(y_conv)
+    xs, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    xs = xs.reshape(B, h, p)
+    e = h // g
+    # head h reads group h // e, as in the prefill scan
+    b = b.reshape(B, g, n).repeat_interleave(e, dim=1)          # (B,h,n)
+    c = c.reshape(B, g, n).repeat_interleave(e, dim=1)
+    dt = F.softplus(dt.float() + params["dt_bias"])             # (B,h)
+    a = -torch.exp(params["a_log"].float())
+    da = torch.exp(dt * a)                                      # (B,h)
+    bx = torch.einsum("bhn,bhp->bhpn", b.float(), xs.float() * dt[..., None])
+    new_state = ssd_state * da[..., None, None] + bx            # (B,h,p,n)
+    y = torch.einsum("bhpn,bhn->bhp", new_state, c.float())
+    y = y.to(xs.dtype) + params["d_skip"][:, None].to(xs.dtype) * xs
+    y = y.reshape(B, di)
+    y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
+    out = (y @ params["out_proj"])[:, None]
+    return out, new_conv_state, new_state

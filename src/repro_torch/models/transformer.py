@@ -1,9 +1,9 @@
-"""Dense decoder blocks and layer stacks (prefill, decode).
+"""Decoder blocks and layer stacks (prefill, decode).
 
-Port of the dense branches of ``repro.models.transformer``. Layer
-parameters stay stacked along a leading layer axis, as the JAX schema
-has them; a Python loop over layers takes the place of ``lax.scan``.
-The ssm/hybrid/MoE families are not ported.
+Port of the dense and ``ssm`` branches of ``repro.models.transformer``.
+Layer parameters stay stacked along a leading layer axis, as the JAX
+schema has them; a Python loop over layers takes the place of
+``lax.scan``. The hybrid and MoE families are not ported.
 """
 from __future__ import annotations
 
@@ -13,12 +13,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (index_tree, mlp_apply, mlp_schema,
                                        rmsnorm, rmsnorm_schema, stack_schema)
 
 
 def block_schema(cfg: ModelConfig) -> Dict[str, Any]:
     """Schema of ONE layer of the homogeneous stack."""
+    if cfg.family == "ssm":
+        return {"ln": rmsnorm_schema(cfg.d_model),
+                "ssm": ssm_mod.ssm_schema(cfg)}
     return {
         "ln1": rmsnorm_schema(cfg.d_model),
         "attn": attn.attention_schema(cfg),
@@ -41,7 +45,11 @@ def stack_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
     """Forward pass that also builds the serving cache.
 
     Returns (x, {"k", "v"}) with cache leaves (L, B, cache_len, kv, hd)
-    in ``kv_cache_dtype``; rows past the prompt are zero."""
+    in ``kv_cache_dtype``; rows past the prompt are zero. The ssm family
+    returns {"conv": (L, B, K-1, conv_dim) in the compute dtype, "ssd":
+    (L, B, h, p, n) f32}, the decode caches after the prompt."""
+    if cfg.family == "ssm":
+        return _stack_prefill_ssm(params, x, cfg)
     B, S, _ = x.shape
     L = cfg.num_layers
     shape = (L, B, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -61,10 +69,38 @@ def stack_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
 def stack_decode(params, cache, x, pos: int, cfg: ModelConfig):
     """One decode step through the stack; the cache is updated in place.
     Returns (x, cache)."""
+    if cfg.family == "ssm":
+        return _stack_decode_ssm(params, cache, x, cfg)
     for li in range(cfg.num_layers):
         lp = index_tree(params["layers"], li)
         a, _, _ = attn.attn_decode(
             lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
             cache["k"][li], cache["v"][li], pos, cfg)
         x = mlp_residual(lp, x + a, cfg)
+    return rmsnorm(x, params["ln_f"], cfg.norm_eps), cache
+
+
+def _stack_prefill_ssm(params, x, cfg: ModelConfig):
+    convs, ssds = [], []
+    for li in range(cfg.num_layers):
+        lp = index_tree(params["layers"], li)
+        y, conv_s, ssd_s = ssm_mod.ssm_apply(
+            lp["ssm"], rmsnorm(x, lp["ln"], cfg.norm_eps), cfg,
+            return_state=True)
+        x = x + y
+        convs.append(conv_s)
+        ssds.append(ssd_s)
+    cache = {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}
+    return rmsnorm(x, params["ln_f"], cfg.norm_eps), cache
+
+
+def _stack_decode_ssm(params, cache, x, cfg: ModelConfig):
+    for li in range(cfg.num_layers):
+        lp = index_tree(params["layers"], li)
+        y, conv_s, ssd_s = ssm_mod.ssm_decode(
+            lp["ssm"], rmsnorm(x, lp["ln"], cfg.norm_eps),
+            cache["conv"][li], cache["ssd"][li], cfg)
+        x = x + y
+        cache["conv"][li] = conv_s
+        cache["ssd"][li] = ssd_s
     return rmsnorm(x, params["ln_f"], cfg.norm_eps), cache

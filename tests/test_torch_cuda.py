@@ -2,7 +2,9 @@
 
 Edge shapes the serving path does not reach (ragged tiles, q offsets off
 the block grid, head dim 128, non-causal, the paged kernel's global
-score scratch). Every test needs an NVIDIA GPU and nvcc and skips
+score scratch; for the SSD scan: f32 inputs, N of 64, sub-chunks
+that are not a multiple of the kernel's 64-row tile, several groups,
+strided b/c views). Every test needs an NVIDIA GPU and nvcc and skips
 without them. On the card, with no JAX installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -12,12 +14,19 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.ref import ssd_ref
 
 pytestmark = pytest.mark.cuda
 
 # bf16 outputs of |x| <~ 3: a few bf16 ulps (see chip_smoke.py)
 FLASH_ATOL = 3e-2
 PAGED_ATOL = 1e-3
+# SSD scan, relative to max |value|: y rounded once to bf16 against an f32
+# computation of the same bf16 inputs, one bf16 ulp; f32 y and the f32
+# state, f32 summation order
+SSD_BF16_RTOL = 8e-3
+SSD_F32_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -89,3 +98,77 @@ def test_paged_kernel_matches_plain(dev, hd, n_pages):
     ref = pa.paged_attention_plain(q, pool_k, pool_v, pages, pos)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= PAGED_ATOL
+
+
+def _ssd_inputs(B, L, H, P, G, N, dtype, dev, seed):
+    """dt log-uniform in [1e-3, 1e-1], A in [1, 16]: x = N(0,1) dt,
+    a = -A dt (f32), b and c N(0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.exp(torch.empty((B, L, H), device=dev).uniform_(
+        -6.9078, -2.3026, generator=gen))
+    A = torch.empty((H,), device=dev).uniform_(1.0, 16.0, generator=gen)
+    x = (torch.randn((B, L, H, P), generator=gen, device=dev)
+         * dt[..., None]).to(dtype)
+    b = torch.randn((B, L, G, N), generator=gen, device=dev).to(dtype)
+    c = torch.randn((B, L, G, N), generator=gen, device=dev).to(dtype)
+    return x, -A * dt, b, c
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,pipeline,dtype", [
+    (2, 384, 4, 64, 2, 128, 192, 2, torch.bfloat16),   # Q=96: ragged tile
+    (1, 200, 2, 64, 1, 64, 200, 1, torch.bfloat16),    # Q=200, N=64
+    (2, 256, 8, 64, 4, 64, 128, 1, torch.float32),     # f32, 4 groups
+    (1, 64, 2, 64, 2, 128, 16, 1, torch.float32),      # Q=16 < one warp run
+])
+def test_ssd_kernel_matches_plain(dev, B, L, H, P, G, N, chunk, pipeline,
+                                  dtype):
+    x, a, b, c = _ssd_inputs(B, L, H, P, G, N, dtype, dev, seed=L)
+    y, s = ssd.ssd_scan(x, a, b, c, chunk=chunk, pipeline=pipeline,
+                        h_per_g=H // G, return_final_state=True)
+    py, ps = ssd.ssd_scan_plain(x.float(), a, b.float(), c.float(),
+                                chunk=chunk, pipeline=pipeline,
+                                h_per_g=H // G, return_final_state=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    tol = SSD_BF16_RTOL if dtype == torch.bfloat16 else SSD_F32_RTOL
+    assert _rel(y, py) <= tol
+    assert _rel(s, ps) <= SSD_F32_RTOL
+
+
+def test_ssd_kernel_matches_ref_on_strided_views(dev):
+    """b and c as the column views of one conv output, as ``ssm_apply``
+    hands them over; against the exact recurrence."""
+    B, L, H, P, G, N = 2, 96, 4, 64, 2, 128
+    x, a, _, _ = _ssd_inputs(B, L, H, P, G, N, torch.float32, dev, seed=5)
+    bc = torch.randn((B, L, 2 * G * N + 8), device=dev)
+    b = bc[..., :G * N].reshape(B, L, G, N)
+    c = bc[..., G * N:2 * G * N].reshape(B, L, G, N)
+    y, s = ssd.ssd_scan(x, a, b, c, chunk=32, h_per_g=H // G,
+                        return_final_state=True)
+    ry, rs = ssd_ref(x.permute(0, 2, 1, 3), a.permute(0, 2, 1),
+                     b.permute(0, 2, 1, 3), c.permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+    assert _rel(y, ry.permute(0, 2, 1, 3)) <= SSD_F32_RTOL
+    assert _rel(s, rs) <= SSD_F32_RTOL
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(dev):
+    x, a, b, c = _ssd_inputs(1, 32, 2, 16, 1, 128, torch.bfloat16, dev, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd.ssd_scan(x, a, b, c, chunk=32, h_per_g=2)
+    x, a, b, c = _ssd_inputs(1, 32, 2, 64, 1, 16, torch.bfloat16, dev, 0)
+    with pytest.raises(ValueError, match="state dim"):
+        ssd.ssd_scan(x, a, b, c, chunk=32, h_per_g=2)
+    x, a, b, c = _ssd_inputs(1, 32, 2, 64, 1, 64, torch.float16, dev, 0)
+    with pytest.raises(ValueError, match="share one of"):
+        ssd.ssd_scan(x, a, b, c, chunk=32, h_per_g=2)
+    x, a, b, c = _ssd_inputs(1, 32, 2, 64, 1, 64, torch.bfloat16, dev, 0)
+    with pytest.raises(ValueError, match="a must be"):
+        ssd.ssd_scan(x, a.to(torch.bfloat16), b, c, chunk=32, h_per_g=2)
+    with pytest.raises(ValueError, match="different devices"):
+        ssd.ssd_scan(x, a.cpu(), b, c, chunk=32, h_per_g=2)

@@ -14,9 +14,11 @@ PORT_MODULES = (
     "repro_torch.models", "repro_torch.models.layers",
     "repro_torch.models.attention", "repro_torch.models.transformer",
     "repro_torch.models.model", "repro_torch.models.convert",
+    "repro_torch.models.ssm",
     "repro_torch.kernels", "repro_torch.kernels.ref",
     "repro_torch.kernels._build", "repro_torch.kernels.flash_attention",
-    "repro_torch.kernels.paged_attention", "repro_torch.engine",
+    "repro_torch.kernels.paged_attention", "repro_torch.kernels.ssd_scan",
+    "repro_torch.engine",
     "repro_torch.engine.pagetable", "repro_torch.engine.step",
     "repro_torch.engine.engine", "repro_torch.launch.serve",
 )

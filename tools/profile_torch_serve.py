@@ -2,11 +2,14 @@
 """Where the time goes when the PyTorch port serves on the GPU.
 
     python3 tools/profile_torch_serve.py [--chunk N] [--dense]
+    python3 tools/profile_torch_serve.py --arch mamba2-370m
 
 Serves tinyllama-1.1b at full width through the port's engine (8
 requests of 512 prompt tokens, 32 new tokens each, random weights from
-seed 0) once to warm up, once timed on the host clock, then once under
-``torch.profiler``, and reads the device timeline of the last run:
+seed 0), or mamba2-370m at full width through the legacy lock-step loop
+(8 x 1024 prompt tokens, 32 new tokens; the engine takes attention
+models only), once to warm up, once timed on the host clock, then once
+under ``torch.profiler``, and reads the device timeline of the last run:
 device busy time (the union of kernel, memcpy and memset intervals),
 its share of the unprofiled wall time (the profiler slows the host, not
 the device), and device time by kernel name. The Chrome trace is
@@ -27,6 +30,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+PROMPT_LEN = {"tinyllama-1.1b": 512, "mamba2-370m": 1024}
 
 
 def _busy_us(intervals):
@@ -41,6 +45,8 @@ def _busy_us(intervals):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    choices=sorted(PROMPT_LEN))
     ap.add_argument("--chunk", type=int, default=0,
                     help="prefill chunk quantum in pages (0 = whole prompt)")
     ap.add_argument("--dense", action="store_true",
@@ -52,29 +58,53 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.serve import _engine_serve
+    from repro_torch.engine import engine_compatible
+    from repro_torch.launch.serve import _engine_serve, _legacy_serve
     from repro_torch.models import Model
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = Model(get_config("tinyllama-1.1b"))
+    cfg = get_config(args.arch)
+    model = Model(cfg)
     params = model.init(0)
     gen = torch.Generator().manual_seed(1)
-    prompts = torch.randint(0, 32000, (8, 512), generator=gen,
-                            dtype=torch.int32).numpy()
-    kw = dict(engine_kernel=not args.dense, prefill_chunk=args.chunk)
-    _engine_serve(model, params, prompts, max_new=32, **kw)   # warm-up
+    prompts = torch.randint(0, cfg.vocab_size, (8, PROMPT_LEN[args.arch]),
+                            generator=gen, dtype=torch.int32).numpy()
+    if engine_compatible(cfg):
+        def run():
+            return _engine_serve(model, params, prompts, max_new=32,
+                                 engine_kernel=not args.dense,
+                                 prefill_chunk=args.chunk)
+        path_name = (f"engine, decode {'plain' if args.dense else 'kernel'}, "
+                     f"chunk {args.chunk}")
+    else:
+        def run():
+            return _legacy_serve(model, params, prompts, max_new=32,
+                                 device=torch.device("cuda", 0))
+        path_name = "legacy loop"
+    run()                                          # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _engine_serve(model, params, prompts, max_new=32, **kw)
+    run()
     torch.cuda.synchronize()
     plain_us = (time.perf_counter() - t0) * 1e6    # the profiler slows the host
+    prefill_note = ""
+    if not engine_compatible(cfg):
+        cparams = model._compute_cast(params)
+        tokens = torch.as_tensor(prompts, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(cparams, {"tokens": tokens}, prompts.shape[1] + 31)
+        torch.cuda.synchronize()
+        prefill_note = (f"; the prefill alone {(time.perf_counter() - t0) * 1e3:.1f}"
+                        f" ms unprofiled")
+        del cparams
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = _engine_serve(model, params, prompts, max_new=32, **kw)
+        res = run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     out_dir = os.path.join(ROOT, "build", "profile")
@@ -92,16 +122,18 @@ def main() -> int:
         by_name[e["name"]][0] += e["dur"]
         by_name[e["name"]][1] += 1
     n_ops = sum(1 for e in events if e.get("cat") == "cpu_op")
-    ph = res.stats["phases"]
+    ph = (res.stats["phases"] if res.stats else
+          {"prefill": {"steps": 1}, "decode": {"steps": 31}})
     steps = sum(v["steps"] for v in ph.values())
     print(f"card: {smi}")
-    print(f"serve (decode {'plain' if args.dense else 'kernel'}, chunk "
-          f"{args.chunk}): wall {plain_us / 1e3:.1f} ms unprofiled, "
+    print(f"serve {args.arch} ({path_name}): wall {plain_us / 1e3:.1f} ms "
+          f"unprofiled, "
           f"{wall_us / 1e3:.1f} ms profiled; device busy {busy / 1e3:.1f} ms "
           f"= {100 * busy / plain_us:.1f} % of the unprofiled wall (idle "
           f"{100 * (1 - busy / plain_us):.1f} %); {len(dev)} device "
-          f"activities, {n_ops} host ops over {steps} engine steps "
-          f"({json.dumps({k: v['steps'] for k, v in ph.items()})})")
+          f"activities, {n_ops} host ops over {steps} steps "
+          f"({json.dumps({k: v['steps'] for k, v in ph.items()})})"
+          f"{prefill_note}")
     print("device time by kernel (ms, share of busy, calls):")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / 1e3:9.2f}  {100 * us / busy:5.1f} %  {n:6d}  "
