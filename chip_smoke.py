@@ -24,7 +24,12 @@
    engine refuses the ssm family) with 8 x 1024 prompt tokens and 32 new
    tokens; the SSD launches must equal 48 x the prefill steps;
 8. times each kernel (CUDA events, median) beside its plain version, a
-   library call where one computes the same function, and its bound.
+   library call where one computes the same function (attention: SDPA
+   under its flash backend), and its bound, at the main path's shapes:
+   flash for the whole prefill and for a chunk (Sq=128 at q offset 384),
+   paged with all 8 rows at pos 543 and with random positions; and
+   counts the tensor-core instructions (HMMA, HGMMA) in each library's
+   SASS (cuobjdump): the flash kernel must have some.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -45,6 +51,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s and dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# spin of the timing hold, ~20 ms at the H100's ~1.98 GHz boost clock
+HOLD_CYCLES = 40_000_000
 
 # kernel vs plain version, bf16 outputs of |x| <~ 3: a few bf16 ulps
 # (2^-8 relative), since both round p to bf16 after maxima and sums
@@ -76,22 +84,87 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median device time of one call, CUDA events, after warm-up."""
+def time_ms(fn, reps: int = 30, warmup: int = 3, hold: bool = True) -> float:
+    """Median device time of one call, CUDA events around each call,
+    after warm-up. With ``hold`` the stream first spins for ~20 ms
+    (``torch.cuda._sleep``) so that the host enqueues every call before
+    the first runs, and the host's own cost per call stays out of the
+    time; without it each call is timed alone, host in the loop, which
+    adds the host's cost wherever it exceeds the device's."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
+    for e0, e1 in events:
         e0.record()
         fn()
         e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+        if not hold:
+            e1.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(e0.elapsed_time(e1) for e0, e1 in events)
+
+
+def host_us(fn, reps: int = 50, batches: int = 7) -> float:
+    """Host time of one call (enqueue only: the stream is held, so no
+    call waits for the device): the median over ``batches`` of the mean
+    over ``reps`` calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(batches):
+        torch.cuda._sleep(HOLD_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        means.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(means)
+
+
+def sass_counts(so) -> dict:
+    """Tensor-core instructions in a built library's SASS."""
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    return {name: len(re.findall(rf"\b{name}\b", sass))
+            for name in ("HMMA", "HGMMA", "LDSM", "LDGSTS")}
+
+
+def sdpa_flash(torch, F, q, k, v, q_offset: int):
+    """One SDPA call under its flash backend on the kernel's inputs: is
+    causal (lower right when Sq < Skv, i.e. q rows at q_offset + i). GQA
+    by ``enable_gqa``, or, if the backend refuses it, K/V expanded to the
+    q heads outside the timed call. Returns (fn, how)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+    Sq, Skv = q.shape[2], k.shape[2]
+    assert q_offset == Skv - Sq
+
+    def call(kk, vv, gqa):
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            if Sq == Skv:
+                return F.scaled_dot_product_attention(
+                    q, kk, vv, is_causal=True, enable_gqa=gqa)
+            return F.scaled_dot_product_attention(
+                q, kk, vv, attn_mask=causal_lower_right(Sq, Skv),
+                enable_gqa=gqa)
+    try:
+        call(k, v, True)
+        return (lambda: call(k, v, True)), "flash backend, enable_gqa"
+    except RuntimeError:
+        rep = q.shape[1] // k.shape[1]
+        ke, ve = (t.repeat_interleave(rep, dim=1) for t in (k, v))
+        call(ke, ve, False)
+        return ((lambda: call(ke, ve, False)),
+                "flash backend, K/V expanded to the q heads")
 
 
 def bound(nbytes: float, flops: float):
@@ -128,8 +201,14 @@ def check_flash(torch, fa, flash_attention_ref, dev):
     assert same
     pairs = S * (S + 1) // 2                       # visible (q, k) pairs
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel())
+    # the chunked step: rows 384-511 against 512 keys
+    qc = q[:, :, 384:].contiguous()
+    c_pairs = sum(range(385, S + 1))
+    c_bytes = 2 * (2 * qc.numel() + k.numel() + v.numel())
     return dict(inputs=(q, k, v), err=err,
-                bound=bound(nbytes, 4.0 * B * H * D * pairs))
+                bound=bound(nbytes, 4.0 * B * H * D * pairs),
+                chunk_inputs=(qc, k, v),
+                chunk_bound=bound(c_bytes, 4.0 * B * H * D * c_pairs))
 
 
 def check_paged(torch, pa, dev):
@@ -168,11 +247,26 @@ def check_paged(torch, pa, dev):
     print(f"paged: permuted pool placement gives a bitwise-equal output: "
           f"{moved}")
     assert moved
-    visible = int((pos.long() + 1).clamp(max=s_max).sum())
-    nbytes = (2 * q.numel() + 2 * 2 * visible * kv * hd + 4 * pages.numel()
-              + 4 * pos.numel() + 4 * out.numel())
-    return dict(inputs=(q, pool_k, pool_v, pages, pos), err=err,
-                bound=bound(nbytes, 4.0 * kv * g * hd * visible))
+    # the serve's own shape: every row at its last decode position
+    full = ((torch.randperm(P - 1, generator=cpu)[:B * npg] + 1).reshape(
+        B, npg).to(torch.int32).to(dev),
+        torch.full((B,), s_max - 1, dtype=torch.int32, device=dev))
+    err_full = (pa.paged_attention(q, pool_k, pool_v, *full)
+                - pa.paged_attention_plain(q, pool_k, pool_v, *full)
+                ).abs().max().item()
+    print(f"paged: all {B} rows at pos {s_max - 1}: max |kernel - plain| "
+          f"{err_full:.3e} (atol {PAGED_ATOL})")
+    assert err_full <= PAGED_ATOL
+
+    def paged_bound(pos):
+        visible = int((pos.long() + 1).clamp(max=s_max).sum())
+        nbytes = (2 * q.numel() + 2 * 2 * visible * kv * hd
+                  + 4 * pages.numel() + 4 * pos.numel() + 4 * out.numel())
+        return bound(nbytes, 4.0 * kv * g * hd * visible)
+    return dict(inputs=(q, pool_k, pool_v, pages, pos), err=max(err, err_full),
+                bound=paged_bound(pos),
+                serve_inputs=(q, pool_k, pool_v) + full,
+                serve_bound=paged_bound(full[1]))
 
 
 def ssd_inputs(torch, dev, B, L, H, P, G, N, seed):
@@ -391,6 +485,11 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    sass = {name: sass_counts(so) for name, so in libs.items()}
+    for name, counts in sass.items():
+        print(f"  {name}: SASS {counts}")
+    assert sass["flash_attention"]["HMMA"] + sass["flash_attention"][
+        "HGMMA"] > 0, "the flash kernel runs no tensor-core instruction"
 
     flash = check_flash(torch, fa, flash_attention_ref, dev)
     paged = check_paged(torch, pa, dev)
@@ -402,12 +501,40 @@ def main() -> int:
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
+    fl_alone = time_ms(lambda: fa.flash_attention(q, k, v), hold=False)
     fl_plain = time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5)
-    fl_lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    pin = paged["inputs"]
-    pg_ms = time_ms(lambda: pa.paged_attention(*pin))
-    pg_plain = time_ms(lambda: pa.paged_attention_plain(*pin), reps=5)
+    sdpa, how = sdpa_flash(torch, F, q, k, v, 0)
+    fl_lib = time_ms(sdpa)
+    d_lib = (sdpa().float() - fa.flash_attention(q, k, v).float()
+             ).abs().max().item()
+    qc, kc, vc = flash["chunk_inputs"]
+    ch_ms = time_ms(lambda: fa.flash_attention(qc, kc, vc, q_offset=384))
+    ch_plain = time_ms(lambda: fa.flash_attention_plain(qc, kc, vc,
+                                                        q_offset=384), reps=5)
+    sdpa_c, how_c = sdpa_flash(torch, F, qc, kc, vc, 384)
+    ch_lib = time_ms(sdpa_c)
+    d_lib_c = (sdpa_c().float() - fa.flash_attention(
+        qc, kc, vc, q_offset=384).float()).abs().max().item()
+    print(f"SDPA ({how}) vs the kernel: max |diff| {d_lib:.3e}; chunk "
+          f"({how_c}): {d_lib_c:.3e}")
+    print(f"flash chunk Sq=128 at q_offset 384, Skv=512: {ch_ms * 1e3:.1f} us "
+          f"(bound {flash['chunk_bound'][0] * 1e3:.2f} us by "
+          f"{flash['chunk_bound'][1]}), plain {ch_plain * 1e3:.1f} us, SDPA "
+          f"{ch_lib * 1e3:.1f} us")
+    pin, sin_ = paged["inputs"], paged["serve_inputs"]
+    pg_ms = time_ms(lambda: pa.paged_attention(*sin_))
+    pg_alone = time_ms(lambda: pa.paged_attention(*sin_), hold=False)
+    pg_plain = time_ms(lambda: pa.paged_attention_plain(*sin_), reps=5)
+    pr_ms = time_ms(lambda: pa.paged_attention(*pin))
+    pr_plain = time_ms(lambda: pa.paged_attention_plain(*pin), reps=5)
+    print(f"paged at random pos: {pr_ms * 1e3:.1f} us "
+          f"(bound {paged['bound'][0] * 1e3:.2f} us by {paged['bound'][1]}),"
+          f" plain {pr_plain * 1e3:.1f} us")
+    print(f"timed alone, host in the loop: flash "
+          f"{fl_alone * 1e3:.1f} us, paged {pg_alone * 1e3:.1f} us; host "
+          f"time per wrapper call: flash "
+          f"{host_us(lambda: fa.flash_attention(q, k, v)):.1f} us, paged "
+          f"{host_us(lambda: pa.paged_attention(*sin_)):.1f} us")
     sin, skw = scan["inputs"], dict(chunk=scan["chunk"],
                                     h_per_g=scan["h_per_g"],
                                     return_final_state=True)
@@ -424,8 +551,8 @@ def main() -> int:
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention.py:94",
              launches=paged_launches, max_abs_err=paged["err"], ms=pg_ms,
-             plain_ms=pg_plain, bound_ms=paged["bound"][0],
-             bound_by=paged["bound"][1], library_ms=None),
+             plain_ms=pg_plain, bound_ms=paged["serve_bound"][0],
+             bound_by=paged["serve_bound"][1], library_ms=None),
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:83",

@@ -9,12 +9,19 @@ What bounds it on an H100: at the serving shapes (S = 512, D = 64, 32 q
 heads over 4 kv heads) the work is about 1.07 GFLOP against about
 4.7 MB moved, some 230 operations per byte, just under the ~295 where
 the bf16 tensor cores take over: memory bounds it (about 1.4 us) and
-the tensor cores nearly do (about 1.1 us). This first kernel runs its two products on the CUDA cores, in f32 FMAs over
-bf16 values staged in shared memory, so it sits far above that bound;
-``wgmma``/TMA tiles are what would close the gap. What the design does
-for the bound it has: one CTA per (64-row q tile, head, batch) keeps Q,
-one K/V block and the P tile in shared memory, reads each K/V block once
-per q tile, and skips every kv block past the tile's last causal row.
+the tensor cores nearly do (about 1.1 us). What the design does about
+it: both products run on the tensor cores (``mma.sync`` m16n8k16, bf16
+operands fed by ``ldmatrix``, f32 accumulators); a 64-row q tile has two
+groups of four warps of 16 q rows, one on the even kv blocks and one on
+the odd, merged at the end in a fixed order, which halves the longest
+chain of blocks (the causal tail); p stays in registers between the two
+products (the score accumulator, rounded to bf16, is the A operand of
+PV); each group double-buffers its K/V blocks in shared memory by
+``cp.async``, so its next block loads while one computes; every kv block
+past the tile's last causal row is skipped, and the heaviest tiles
+launch first. At the serving shape it is latency-bound, not bound by
+bytes or operations: each block is a chain of dependent tensor-core
+products, shuffles and exponentials.
 
 Differences from the TPU kernel, all deliberate:
 

@@ -9,23 +9,32 @@ What bounds it on an H100: memory. Each visible K/V slot is read once
 and used for ``g = H / Hkv`` query rows with a few FLOPs per byte (at 8
 rows of 544 slots, 4 kv heads, head dim 64: about 4.5 MB of K/V, a bound
 near 1.3 us, far below the ~295 FLOP/byte where the tensor cores would
-matter). What the design does about it: one CTA per (kv head, batch row)
-serves all ``g`` query rows of its group, so each K/V page is read from
-device memory once for the group; the CTA walks its own page-table row
-(there is no scalar prefetch) and reads only slots ``<= pos[b]``, which
-is exact because the TPU kernel gives the masked slots exp(-inf) = 0.
-The page walk reads whole 16-byte vectors of a K row per thread; making
-the loads coalesced across a warp is work for a later kernel.
+matter), and at the serving shape the call is short enough that launch
+latency and the length of each CTA's chain of dependent loads count as
+much as the bytes. What the design does about it: each row's visible
+slots are cut into tiles of ``TILE_SLOTS`` slots from slot 0 and each
+launch takes one CTA per (slot tile, kv head, batch row), 288 CTAs at the
+serving shape on 132 SMs; inside a CTA each warp reads whole K/V rows as
+16-byte vectors, ``head_dim / 8`` lanes to a row, so every load of a warp
+is coalesced, and all ``g`` query rows of the group use each row once it
+is read. Only slots ``<= pos[b]`` are read, which is exact because the
+TPU kernel gives the masked slots exp(-inf) = 0; each CTA walks its own
+page-table entries (there is no scalar prefetch).
 
 It keeps the TPU kernel's exact *global* softmax, not flash:
 s = (bf16 q . bf16 k) * scale in f32; m = max, p = exp(s - m),
-l = sum p; o = sum bf16(p / l) * bf16 v in f32. Scores for the visible
-slots live in shared memory (g * s_max * 4 bytes); past the card's
-opt-in limit the wrapper allocates a global scratch instead.
+l = sum p; o = sum bf16(p / l) * bf16 v in f32, in two launches. The
+first writes each tile's m_i = max s and l_i = sum exp(s - m_i); the
+second, launched as a programmatic dependent launch, reads its K/V rows
+and recomputes its tile's scores while the first runs, then takes
+m = max_i m_i and l = sum_i exp(m_i - m) l_i, forms its tile's partial
+sum of bf16(exp(s - m) / l) * bf16 v, and the last CTA of a (row, kv
+head) to arrive (an integer counter) sums the partials in tile order.
 
-Determinism contract: every reduction is a fixed per-CTA order with no
-atomics, so the output for row b is bit-identical whatever the batch
-size, the padding lanes and where the pages sit in the pool.
+Determinism contract: no floating-point atomics, and every reduction runs
+in an order fixed by ``pos[b]`` alone, so the output for row b is
+bit-identical whatever the batch size, the padding lanes and where the
+pages sit in the pool.
 
 ``pages_per_step`` is the TPU kernel's DMA-group depth (a DSE axis). It
 must divide the page-table width, as there; this kernel does not stage
@@ -42,12 +51,12 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16                 # query rows per kv head the kernel serves
-SMEM_OPTIN_BYTES = _build.SMEM_OPTIN_BYTES
+TILE_SLOTS = 64                # slots per CTA (TS in the CUDA source)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _I, _I, _I, ctypes.c_float,
-                                       _I, _I, _P]}
+                                       _I, _P]}
 
 
 def _bf16(x):
@@ -132,24 +141,19 @@ def paged_attention(q, pool_k, pool_v, pages, pos, *,
         raise ValueError("pools must be 16-byte aligned (K rows are read "
                          "as 16-byte vectors)")
     qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:          # q rows are read as 16-byte vectors
+        qb = qb.clone()
     s_max = n_pages * page_size
-    base = (g * hd + n_pages) * 4
-    scratch = None
-    smem = base + g * s_max * 4
-    if smem > SMEM_OPTIN_BYTES:
-        scratch = torch.empty((B, kv, g, s_max), dtype=torch.float32,
-                              device=q.device)
-        smem = base
-    if smem > SMEM_OPTIN_BYTES:
-        raise ValueError(f"page table of {n_pages} pages does not fit in "
-                         f"shared memory")
+    nt = -(-s_max // TILE_SLOTS)
+    # partial outputs, tile maxima and sums, arrival counters
+    scratch = torch.empty(B * kv * (g * (nt * hd + 2 * nt) + 1),
+                          dtype=torch.float32, device=q.device)
     out = torch.empty((B, kv, g, hd), dtype=torch.float32, device=q.device)
     lib = _build.load("paged_attention", _SIGNATURES)
     code = lib.paged_attention_fwd(
         qb.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pages.data_ptr(),
-        pos.data_ptr(), out.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        B, kv, g, hd, page_size, n_pages, P, 1.0 / math.sqrt(hd), smem,
+        pos.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, kv, g, hd, page_size, n_pages, P, 1.0 / math.sqrt(hd),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_attention_fwd")
     paged_attention.launches += 1

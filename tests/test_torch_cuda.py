@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Edge shapes the serving path does not reach (ragged tiles, q offsets off
-the block grid, head dim 128, non-causal, the paged kernel's global
-score scratch; for the SSD scan: f32 inputs, N of 64, sub-chunks
+the block grid, head dim 128, non-causal, many double-buffered kv
+blocks, one q row, H == Hkv; for the paged kernel: positions at slot-tile
+boundaries, page sizes 8 and 32, groups of 1 and 16, long rows, bitwise
+invariance to batching and page placement; for the SSD scan: f32 inputs, N of 64, sub-chunks
 that are not a multiple of the kernel's 64-row tile, several groups,
 strided b/c views). Every test needs an NVIDIA GPU and nvcc and skips
 without them. On the card, with no JAX installed:
@@ -44,6 +46,12 @@ def _bf16(shape, gen, dev):
     (2, 4, 2, 100, 300, 128, 200, True),
     (1, 8, 8, 70, 130, 64, 0, False),
     (3, 6, 3, 1, 65, 64, 64, True),
+    (1, 4, 2, 4096, 4096, 128, 0, True),     # 64 double-buffered kv blocks
+    (1, 4, 2, 256, 4096, 128, 3840, True),   # a chunk at the end of 4096
+    (2, 8, 4, 1, 1000, 64, 999, True),       # one q row, ragged kv
+    (2, 4, 4, 200, 200, 128, 0, True),       # H == Hkv
+    (1, 8, 2, 37, 300, 64, 263, True),       # Sq not a multiple of 16
+    (1, 2, 1, 150, 150, 64, 0, False),
 ])
 def test_flash_kernel_matches_plain(dev, B, H, Hkv, Sq, Skv, D, q_offset,
                                     causal):
@@ -82,8 +90,7 @@ def test_flash_kernel_rejects_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("hd,n_pages", [(64, 34), (128, 520)])
 def test_paged_kernel_matches_plain(dev, hd, n_pages):
-    """(128, 520): 8 rows x 8320 slots of scores exceed shared memory, so
-    the wrapper hands the kernel a global scratch."""
+    """(128, 520): rows of 8320 slots, 130 slot tiles each."""
     B, kv, g, ps = 3, 2, 8, 16
     P = B * n_pages + 1
     gen = torch.Generator(device=dev).manual_seed(hd)
@@ -98,6 +105,63 @@ def test_paged_kernel_matches_plain(dev, hd, n_pages):
     ref = pa.paged_attention_plain(q, pool_k, pool_v, pages, pos)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= PAGED_ATOL
+
+
+def _paged_case(dev, B, kv, g, hd, ps, n_pages, pos, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cpu = torch.Generator().manual_seed(seed)
+    P = B * n_pages + 1
+    q = _bf16((B, kv, g, hd), gen, dev)
+    pool_k, pool_v = _bf16((P, ps, kv, hd), gen, dev), _bf16((P, ps, kv, hd),
+                                                             gen, dev)
+    pages = (torch.randperm(P - 1, generator=cpu)[:B * n_pages] + 1).reshape(
+        B, n_pages).to(torch.int32).to(dev)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    return q, pool_k, pool_v, pages, pos
+
+
+@pytest.mark.parametrize("g,ps,n_pages", [
+    (8, 16, 34),     # the serving shape
+    (8, 8, 40),      # pages of 8
+    (8, 32, 9),      # pages of 32
+    (1, 16, 12),     # one query row per kv head
+    (16, 16, 12),    # the largest group the kernel takes
+])
+def test_paged_kernel_tile_boundaries(dev, g, ps, n_pages):
+    """pos at 0 and either side of each slot-tile boundary."""
+    T = pa.TILE_SLOTS
+    pos = [0, T - 1, T, T + 1, 2 * T - 1, 2 * T, ps * n_pages - 1, 1]
+    args = _paged_case(dev, len(pos), 4, g, 64, ps, n_pages, pos, seed=g + ps)
+    out = pa.paged_attention(*args)
+    ref = pa.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= PAGED_ATOL
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_paged_kernel_bitwise_invariant(dev, B):
+    """Row b of a batch-B call equals the B=1 call on row b; moving the
+    pages in the pool, or widening the page table past pos, changes no
+    bit."""
+    n_pages, ps = 34, 16
+    pos = [543, 64, 127, 0, 300, 511, 65, 200][:B]
+    q, pool_k, pool_v, pages, pos = _paged_case(dev, B, 4, 8, 64, ps,
+                                                n_pages, pos, seed=B)
+    out = pa.paged_attention(q, pool_k, pool_v, pages, pos)
+    for b in range(B):
+        one = pa.paged_attention(q[b:b + 1], pool_k, pool_v, pages[b:b + 1],
+                                 pos[b:b + 1])
+        assert torch.equal(one, out[b:b + 1]), b
+    P = pool_k.shape[0]
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(B)).to(dev)
+    moved_k, moved_v = torch.empty_like(pool_k), torch.empty_like(pool_v)
+    moved_k[perm], moved_v[perm] = pool_k, pool_v
+    moved = pa.paged_attention(q, moved_k, moved_v,
+                               perm[pages.long()].to(torch.int32), pos)
+    assert torch.equal(moved, out)
+    wide = torch.cat([pages, pages[:, :6]], dim=1)     # 40 pages, same rows
+    assert torch.equal(pa.paged_attention(q, pool_k, pool_v, wide, pos), out)
 
 
 def _ssd_inputs(B, L, H, P, G, N, dtype, dev, seed):

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels at the serving path's shapes.
+
+    python3 tools/bench_torch_kernels.py [--src DIR] [--label NAME]
+
+Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``),
+so that two versions of the kernels can be held against each other in
+one run on one card, e.g. the parent commit unpacked under ``build/``:
+
+    for s in build/parent/src src src build/parent/src; do
+        python3 tools/bench_torch_kernels.py --src $s; done
+
+Shapes (tinyllama-1.1b, the main path of ``chip_smoke.py``):
+flash for the whole prefill (B=1, 32 q heads over 4 kv heads, S=512,
+D=64) and for a chunked step (Sq=128 at q offset 384, Skv=512); paged
+decode with all 8 rows at pos 543 and with random positions (34 pages of
+16, a pool of 274 pages, 4 kv heads x 8 q rows, head dim 64). For each:
+the median device time of one call with the stream held (the host's cost
+per call stays out, ``chip_smoke.time_ms``) and the host time of one
+wrapper call (``chip_smoke.host_us``). Prints the card, then one JSON
+line. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_torch_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    assert os.path.abspath(fa.__file__).startswith(os.path.abspath(args.src))
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((1, 32, 512, 64), (1, 4, 512, 64),
+                             (1, 4, 512, 64)))
+    qc = q[:, :, 384:].contiguous()
+    B, kv, g, hd, ps, npg, P = 8, 4, 8, 64, 16, 34, 274
+    cpu = torch.Generator().manual_seed(1)
+    qd = torch.randn((B, kv, g, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pool_k, pool_v = (torch.randn((P, ps, kv, hd), generator=gen, device=dev
+                                  ).to(torch.bfloat16) for _ in range(2))
+    pages = (torch.randperm(P - 1, generator=cpu)[:B * npg] + 1).reshape(
+        B, npg).to(torch.int32).to(dev)
+    full = torch.full((B,), ps * npg - 1, dtype=torch.int32, device=dev)
+    rand = torch.randint(0, ps * npg, (B,), generator=cpu,
+                         dtype=torch.int32).to(dev)
+    calls = {
+        "flash_prefill": lambda: fa.flash_attention(q, k, v),
+        "flash_chunk": lambda: fa.flash_attention(qc, k, v, q_offset=384),
+        "paged_pos543": lambda: pa.paged_attention(qd, pool_k, pool_v, pages,
+                                                   full),
+        "paged_random_pos": lambda: pa.paged_attention(qd, pool_k, pool_v,
+                                                       pages, rand),
+    }
+    res = {}
+    for name, fn in calls.items():
+        res[name] = dict(us=chip_smoke.time_ms(fn, reps=50) * 1e3,
+                         host_us=chip_smoke.host_us(fn))
+    smi = chip_smoke.nvidia_smi()
+    print(f"card: {smi}")
+    print(json.dumps({"label": args.label or args.src, "card": smi,
+                      "kernels": res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,7 +12,8 @@ models only), once to warm up, once timed on the host clock, then once
 under ``torch.profiler``, and reads the device timeline of the last run:
 device busy time (the union of kernel, memcpy and memset intervals),
 its share of the unprofiled wall time (the profiler slows the host, not
-the device), and device time by kernel name. The Chrome trace is
+the device), device time by kernel name, and the time of each of the
+port's own kernels. The Chrome trace is
 written to build/profile/. Needs a CUDA device; fails if the trace holds
 no device activity.
 """
@@ -30,6 +31,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# kernel names from src/repro_torch/csrc
+PORT_KERNELS = ("flash_fwd_kernel", "paged_stats_kernel",
+                "paged_output_kernel", "paged_attention_kernel",
+                "ssd_scan_kernel")
 PROMPT_LEN = {"tinyllama-1.1b": 512, "mamba2-370m": 1024}
 
 
@@ -138,6 +143,11 @@ def main() -> int:
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / 1e3:9.2f}  {100 * us / busy:5.1f} %  {n:6d}  "
               f"{name[:110]}")
+    print("the port's own kernels (ms, share of busy, calls, us per call):")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        if any(k in name for k in PORT_KERNELS):
+            print(f"  {us / 1e3:9.2f}  {100 * us / busy:5.1f} %  {n:6d}  "
+                  f"{us / n:8.2f}  {name[:90]}")
     print(smi)
     return 0
 
