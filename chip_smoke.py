@@ -12,24 +12,27 @@
    counts equal the plain version's;
 4. holds the paged-attention kernel against its plain version and checks
    that each row is bitwise invariant to batching and page placement;
-5. holds the SSD-scan kernel against its plain version (y and the final
-   state) at the mamba2-370m serving shape, with two groups and a
-   pipeline of 2, and, padded as ssm_apply pads, against the exact
-   recurrence; checks that each row is bitwise invariant to batching;
+5. holds the SSD-scan kernels (chunk states and their carry, then the
+   chunk scan) against their plain version (y and the final state) at
+   the mamba2-370m serving shape, with two groups and a pipeline of 2,
+   and, padded as ssm_apply pads, against the exact recurrence; checks
+   that each row is bitwise invariant to batching;
 6. serves tinyllama-1.1b at full width (random weights from a seed)
    through the engine: whole-prompt prefill with the decode kernel,
    chunked prefill, dense decode, and the legacy loop; the launch
    counters are zeroed before each run and must equal 22 x the steps;
 7. serves mamba2-370m at full width (48 layers, the legacy loop: the
    engine refuses the ssm family) with 8 x 1024 prompt tokens and 32 new
-   tokens; the SSD launches must equal 48 x the prefill steps;
+   tokens; the SSD wrapper calls must equal 48 x the prefill steps
+   (each call launches the kernels of ssd_scan.KERNELS);
 8. times each kernel (CUDA events, median) beside its plain version, a
    library call where one computes the same function (attention: SDPA
    under its flash backend), and its bound, at the main path's shapes:
    flash for the whole prefill and for a chunk (Sq=128 at q offset 384),
-   paged with all 8 rows at pos 543 and with random positions; and
-   counts the tensor-core instructions (HMMA, HGMMA) in each library's
-   SASS (cuobjdump): the flash kernel must have some.
+   paged with all 8 rows at pos 543 and with random positions, the SSD
+   scan at the mamba2-370m prefill shape; and counts the tensor-core
+   instructions (HMMA, HGMMA) in each library's SASS (cuobjdump): the
+   flash and SSD kernels must have some.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -63,13 +66,15 @@ FLASH_REF_ATOL = 6e-2
 # paged kernel vs plain version, f32 outputs: summation order, and a
 # rare bf16 flip of p / l (weights ~1/544 each)
 PAGED_ATOL = 1e-3
-# SSD kernel, relative to max |value|. Against its plain version on the
-# same bf16 inputs: the plain version rounds cbl, the chunk states and
-# prev_states to bf16 where the kernel keeps f32, a few bf16 ulps on y,
-# and on the state about one bf16 rounding of the chunk states. Against
-# the plain version (or the exact recurrence) on f32 copies of the same
-# inputs: y is rounded once to bf16, one bf16 ulp; the state is f32 on
-# both sides, f32 summation order over up to 1024 steps.
+# SSD kernels, relative to max |value|. Against their plain version on
+# the same bf16 inputs: the plain version also rounds the decay, the
+# decayed x and the chunk states to bf16, where the kernels keep them to
+# f32 precision (the decayed x split into bf16 parts), a few bf16 ulps on
+# y, and on the state about one bf16 rounding of the chunk states.
+# Against the plain version (or the exact recurrence) on f32 copies of
+# the same inputs: y is rounded once to bf16 (and L and prev once each,
+# as the plain version rounds them), within one bf16 ulp of max |y|; the
+# state is f32 on both sides, f32 summation order over up to 1024 steps.
 SSD_RTOL = dict(y=2e-2, state=1e-2)
 SSD_F32_RTOL = dict(y=8e-3, state=2e-5)
 
@@ -360,7 +365,7 @@ def check_ssd(torch, ssd, ssd_ref, dev):
                 bound=bound(nbytes, flops))
 
 
-def serve_ssm(torch, counters, serve):
+def serve_ssm(torch, counters, serve, ssd_kernels):
     """mamba2-370m at full width through serve(): one legacy prefill of
     48 SSD-kernel layers, then the recurrent decode in plain PyTorch."""
     L = 48
@@ -375,10 +380,13 @@ def serve_ssm(torch, counters, serve):
     assert res.tokens.shape == (BATCH, MAX_NEW) and not res.stats
     assert ((res.tokens >= 0) & (res.tokens < V)).all()
     assert torch.isfinite(res.first_logits[:, :V]).all()
+    per_call = len(ssd_kernels)
     print(f"serve [{SSM_ARCH}]: {res.seconds * 1e3:.1f} ms, "
           f"{BATCH * MAX_NEW / res.seconds:.1f} tokens/s; 1 prefill step of "
           f"{BATCH} x {SSM_PROMPT}, {MAX_NEW - 1} decode steps; launches "
-          f"flash, paged, ssd {got} (want (0, 0, {L}))")
+          f"flash, paged, ssd {got} (want (0, 0, {L})); SSD kernel launches "
+          f"{per_call} x {got[2]} = {per_call * got[2]} "
+          f"({', '.join(ssd_kernels)})")
     assert got == (0, 0, L)
     return got[2]
 
@@ -488,15 +496,17 @@ def main() -> int:
     sass = {name: sass_counts(so) for name, so in libs.items()}
     for name, counts in sass.items():
         print(f"  {name}: SASS {counts}")
-    assert sass["flash_attention"]["HMMA"] + sass["flash_attention"][
-        "HGMMA"] > 0, "the flash kernel runs no tensor-core instruction"
+    for name in ("flash_attention", "ssd_scan"):
+        assert sass[name]["HMMA"] + sass[name]["HGMMA"] > 0, (
+            f"the {name} kernels run no tensor-core instruction")
 
     flash = check_flash(torch, fa, flash_attention_ref, dev)
     paged = check_paged(torch, pa, dev)
     scan = check_ssd(torch, ssd, ssd_ref, dev)
     flash_launches, paged_launches = serve_runs(torch, fa, pa, ssd, serve)
     ssd_launches = serve_ssm(
-        torch, (fa.flash_attention, pa.paged_attention, ssd.ssd_scan), serve)
+        torch, (fa.flash_attention, pa.paged_attention, ssd.ssd_scan), serve,
+        ssd.KERNELS)
     ssm_consistency(torch, dev)
 
     q, k, v = flash["inputs"]
@@ -539,7 +549,11 @@ def main() -> int:
                                     h_per_g=scan["h_per_g"],
                                     return_final_state=True)
     sc_ms = time_ms(lambda: ssd.ssd_scan(*sin, **skw))
+    sc_alone = time_ms(lambda: ssd.ssd_scan(*sin, **skw), hold=False)
     sc_plain = time_ms(lambda: ssd.ssd_scan_plain(*sin, **skw), reps=5)
+    print(f"ssd timed alone, host in the loop: {sc_alone * 1e3:.1f} us; host "
+          f"time per wrapper call: "
+          f"{host_us(lambda: ssd.ssd_scan(*sin, **skw)):.1f} us")
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",

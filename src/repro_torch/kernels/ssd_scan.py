@@ -1,4 +1,4 @@
-"""Mamba-2 SSD chunked scan: a CUDA kernel for Hopper and its plain
+"""Mamba-2 SSD chunked scan: CUDA kernels for Hopper and their plain
 PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py``, function
@@ -20,35 +20,74 @@ What bounds it on an H100: memory. At the serving shape (B=8, L=1024,
 H=32, P=64, G=1, N=128, chunk 256, bf16) x and y are 33.5 MB each, b and
 c 4.2 MB, a 1 MB and the final state 8.4 MB: ~80 MB, ~24 us at
 3.35 TB/s; the least work (c.b once per group and chunk, causal triangle
-only) is ~13 GFLOP, ~13 us on the bf16 tensor cores. What the design does
-about it: one CTA per (b, h) walks its chunks in order, carrying the
-state in shared memory, so every x, a, y element and the state cross
-device memory once; b and c are read once per head from the 50 MB L2.
-This first kernel runs its products on the CUDA cores in f32 and
-recomputes c.b for every head of a group, so it sits far above the
-bound; tensor-core tiles and sharing c.b across heads are later work.
+only) is ~13 GFLOP, ~13 us on the bf16 tensor cores.
 
-Layout: the wrapper hands the kernel the model layout, x (B, L, H, P),
-a (B, L, H), b/c (B, L, G, N), through their strides (the last dim must
-be unit-stride). It does not transpose to (B, H, L, P) as the JAX adapter
-(``ops._ssd_jit``) does: that would move x and y through device memory
-once more (67 MB at the serving shape, more than the kernel's own
-traffic), and b/c arrive as strided views of the conv output.
+The design: two launches (``KERNELS``), so that only the f32 carry runs
+in chunk order and the rest spreads over 256-1024 CTAs.
 
-Rounding contract. The kernel casts x, b, c to f32 and keeps every
-intermediate in f32, as the TPU kernel does; y is rounded once to x's
-dtype and the state stays f32. The plain version is the JAX serving
-path's ``ssd_chunked_xla`` op for op, which rounds ``cbl``,
-``decay_states``, the chunk states and ``prev_states`` to x's dtype. In
-bf16 the two therefore differ by a few bf16 ulps of those intermediates
-(``chip_smoke.py`` allows 2e-2 of max|y| on y and 1e-2 of max|state| on
-the state); against the plain version run on f32 copies of the same
-inputs, only f32 summation order and y's final rounding separate them
-(1 bf16 ulp of max|y|, 2e-5 of max|state| at L=1024).
+1. ``ssd_state_kernel``, a CTA per (half of the state rows, pair of heads
+   of one group, batch row), 256 at the serving shape, streams the
+   sequence in tiles of 64 steps: a_cs over each chunk (taken here only,
+   by one routine, and written to scratch for the scan), the chunk's own
+   state ``S = sum_k exp(a_cs[-1]-a_cs[k]) x_k b_k^T`` on the tensor
+   cores (one b tile for both heads), and at each chunk's end the f32
+   carry in chunk order, ``prev[c] = state; state = exp(a_cs[-1]) state
+   + S``, kept in registers, as the old single kernel carried it. prev is
+   written in x's dtype, the final state in f32. (The chunk states and
+   the carry were two passes in a first version; fused, S never goes to
+   device memory.)
+2. ``ssd_chunk_scan_kernel``, a CTA per (64-row q tile, chunk, batch row,
+   group, block of 4 heads of the group), 1024 at the serving shape,
+   heaviest q tiles first, two CTAs an SM: the c . b^T tile once per key
+   tile for every head of the block (8x per group and chunk at
+   mamba2-370m, not 32x), masked by the decay for k <= q only, then
+   ``y = exp(a_cs[q]) c_q . prev^T + (c.b^T o decay) x``. The decay is
+   taken per element only on each warp's diagonal block of 16 keys (the
+   exponent clamped to <= 0, so the value the select discards above the
+   diagonal cannot overflow); below it, it is ``exp(a_cs[q]-a_cs[kend])
+   exp(a_cs[kend]-a_cs[k])`` (kend the 16-key block's last step), two
+   factors <= 1 for a <= 0 taken once a tile; above it the products are
+   skipped. y leaves through shared memory in 16-byte rows.
 
-Determinism contract: one CTA per (b, h), fixed loop orders and no
-atomics, so row b of a batched call is bitwise equal to a batch-1 call
-on row b.
+bf16 products run on the tensor cores (``mma.sync.m16n8k16``, bf16
+operands by ``ldmatrix``, f32 accumulators) over 64-row tiles staged by
+16-byte ``cp.async`` (rows past the chunk zero-filled, so any Q works).
+x, b, c must be unit-stride in their last dim with 16-byte aligned rows
+(base pointer and strides); a view that is not raises ``ValueError``.
+The f32 instantiation runs the same kernels with every product as f32
+FMAs on the CUDA cores. Scratch per call (allocated here): a_cs
+(B, H, L) f32 and prev (B, H, nc-1, P, N) in x's dtype.
+
+Layout: the wrapper hands the kernels the model layout, x (B, L, H, P),
+a (B, L, H), b/c (B, L, G, N), through their strides. It does not
+transpose to (B, H, L, P) as the JAX adapter (``ops._ssd_jit``) does:
+that would move x and y through device memory once more, and b/c arrive
+as strided views of the conv output.
+
+Rounding contract (bf16 inputs). x, b, c are exact in bf16, so c . b^T,
+c . prev^T and the products into S are exact products summed in f32.
+Where bf16 rounds:
+- ``v = exp(a_cs[-1]-a_cs[k]) x_k`` (f32) is split into three bf16 parts
+  (``p1 = bf16(v)``, ``p2 = bf16(v - p1)``, ``p3 = bf16(v - p1 - p2)``,
+  together v exactly) and S takes the three products: S and the f32
+  carry meet 2e-5 of max|state| against the plain version on f32 copies
+  (two parts, hi/lo, also meet it at the serving shape, but not 1e-5 in
+  every case of ``tests/test_torch_cuda.py``);
+- ``L = (c . b^T) o decay`` is rounded once to bf16 for the L x product,
+  and prev once to bf16 (stored so) for the c . prev^T product; the
+  plain version rounds both (``cbl``, ``prev_states``) as well;
+- y is rounded once to bf16 from its f32 accumulator.
+y then meets 8e-3 of max|y| against f32 copies and ``ssd_ref``
+(``tests/test_torch_ssm.py`` emulates this arithmetic on the CPU and
+holds it to those bounds). Against the plain version on the same bf16
+inputs, which also rounds the decay, the decayed x and the chunk states
+to bf16, ``chip_smoke.py`` allows 2e-2 (y) and 1e-2 (state). f32 inputs
+stay in f32 throughout (1e-5 against the plain version on the card).
+
+Determinism contract: every CTA works on one batch row, in fixed loop
+orders, with no atomics, and a_cs is taken by one routine and read by
+both kernels; so row b of a batched call is bitwise equal to a batch-1
+call on row b.
 """
 from __future__ import annotations
 
@@ -61,11 +100,12 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (64,)              # P the kernel takes (mamba2, zamba2)
 STATE_DIMS = (64, 128)         # N the kernel takes (zamba2, mamba2)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # x / b / c / y
-TILE = 64                      # rows per shared-memory tile (csrc TILE)
+# the kernels one call launches, in order (csrc/ssd_scan.cu)
+KERNELS = ("ssd_state_kernel", "ssd_chunk_scan_kernel")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"ssd_scan_fwd": [_P] * 6 + [_I] * 8 + [_L] * 12
-               + [_I, _I, _P]}
+_SIGNATURES = {"ssd_scan_fwd": [_P] * 8 + [_I] * 8 + [_L] * 12 + [_I, _P],
+               "ssd_scan_smem": [_I, _I, _I]}
 
 
 def _check(x, a, b, c, chunk: int, pipeline: int, h_per_g: int) -> int:
@@ -166,7 +206,8 @@ def ssd_scan(x, a, b, c, *, chunk: int, h_per_g: int, pipeline: int = 1,
     TPU kernel's ``pipeline`` does. Returns y (B, L, H, P) in x's dtype
     and, with ``return_final_state``, the f32 state after the last step,
     (B, H, P, N). CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise.
+    the two kernels of ``KERNELS`` or raise. ``launches`` counts calls
+    that launched them.
     """
     Q = _check(x, a, b, c, chunk, pipeline, h_per_g)
     if x.device.type == "cpu":
@@ -189,22 +230,31 @@ def ssd_scan(x, a, b, c, *, chunk: int, h_per_g: int, pipeline: int = 1,
     for name, t in (("x", x), ("b", b), ("c", c)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be unit-stride in its last dim")
-    smem = 4 * (P * (N + 1) + 2 * TILE * (N + 1) + TILE * P
-                + TILE * (TILE + 1) + Q)
-    if smem > _build.SMEM_OPTIN_BYTES:
+        if (t.data_ptr() % 16 or any(
+                st * t.element_size() % 16
+                for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+            raise ValueError(f"rows of {name} are not 16-byte aligned "
+                             f"(strides {t.stride()}): the kernels copy "
+                             f"them by 16-byte cp.async")
+    lib = _build.load("ssd_scan", _SIGNATURES)
+    if lib.ssd_scan_smem(DTYPES[x.dtype], N, Q) > _build.SMEM_OPTIN_BYTES:
         raise ValueError(f"sub-chunk of {Q} steps does not fit in shared "
                          f"memory")
-    y = torch.empty((B, L, H, P), dtype=x.dtype, device=x.device)
-    state = (torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    nc = L // Q
+    dev = x.device
+    y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
+    state = (torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
              if return_final_state else None)
-    lib = _build.load("ssd_scan", _SIGNATURES)
+    acs = torch.empty((B, H, L), dtype=torch.float32, device=dev)
+    prev = torch.empty((B, H, max(nc - 1, 1), P, N), dtype=x.dtype,
+                       device=dev)
     code = lib.ssd_scan_fwd(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
-        state.data_ptr() if state is not None else None,
+        state.data_ptr() if state is not None else None, acs.data_ptr(),
+        prev.data_ptr(),
         B, L, H, G, P, N, Q, DTYPES[x.dtype],
         *x.stride()[:3], *a.stride(), *b.stride()[:3], *c.stride()[:3],
-        smem, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "ssd_scan_fwd")
     ssd_scan.launches += 1
     return (y, state) if return_final_state else y

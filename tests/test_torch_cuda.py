@@ -5,8 +5,9 @@ the block grid, head dim 128, non-causal, many double-buffered kv
 blocks, one q row, H == Hkv; for the paged kernel: positions at slot-tile
 boundaries, page sizes 8 and 32, groups of 1 and 16, long rows, bitwise
 invariance to batching and page placement; for the SSD scan: f32 inputs, N of 64, sub-chunks
-that are not a multiple of the kernel's 64-row tile, several groups,
-strided b/c views). Every test needs an NVIDIA GPU and nvcc and skips
+that are not a multiple of the kernels' 64-row tile, one chunk and 16
+chunks, one head a group and partial head blocks, the zero-padded tail,
+strided b/c views aligned and not, bitwise invariance to batching). Every test needs an NVIDIA GPU and nvcc and skips
 without them. On the card, with no JAX installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -183,15 +184,11 @@ def _rel(got, want):
             / want.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("B,L,H,P,G,N,chunk,pipeline,dtype", [
-    (2, 384, 4, 64, 2, 128, 192, 2, torch.bfloat16),   # Q=96: ragged tile
-    (1, 200, 2, 64, 1, 64, 200, 1, torch.bfloat16),    # Q=200, N=64
-    (2, 256, 8, 64, 4, 64, 128, 1, torch.float32),     # f32, 4 groups
-    (1, 64, 2, 64, 2, 128, 16, 1, torch.float32),      # Q=16 < one warp run
-])
-def test_ssd_kernel_matches_plain(dev, B, L, H, P, G, N, chunk, pipeline,
-                                  dtype):
-    x, a, b, c = _ssd_inputs(B, L, H, P, G, N, dtype, dev, seed=L)
+def _ssd_vs_plain(dev, B, L, H, P, G, N, chunk, pipeline, dtype, seed):
+    """The kernels against the plain version on f32 copies of the same
+    inputs: y at one bf16 ulp (bf16) or f32 order (f32), the f32 state
+    at f32 order."""
+    x, a, b, c = _ssd_inputs(B, L, H, P, G, N, dtype, dev, seed=seed)
     y, s = ssd.ssd_scan(x, a, b, c, chunk=chunk, pipeline=pipeline,
                         h_per_g=H // G, return_final_state=True)
     py, ps = ssd.ssd_scan_plain(x.float(), a, b.float(), c.float(),
@@ -202,6 +199,92 @@ def test_ssd_kernel_matches_plain(dev, B, L, H, P, G, N, chunk, pipeline,
     tol = SSD_BF16_RTOL if dtype == torch.bfloat16 else SSD_F32_RTOL
     assert _rel(y, py) <= tol
     assert _rel(s, ps) <= SSD_F32_RTOL
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,pipeline,dtype", [
+    (2, 384, 4, 64, 2, 128, 192, 2, torch.bfloat16),   # Q=96: ragged tile
+    (1, 200, 2, 64, 1, 64, 200, 1, torch.bfloat16),    # Q=200, N=64
+    (2, 256, 8, 64, 4, 64, 128, 1, torch.float32),     # f32, 4 groups
+    (1, 64, 2, 64, 2, 128, 16, 1, torch.float32),      # Q=16 < one warp run
+])
+def test_ssd_kernel_matches_plain(dev, B, L, H, P, G, N, chunk, pipeline,
+                                  dtype):
+    _ssd_vs_plain(dev, B, L, H, P, G, N, chunk, pipeline, dtype, seed=L)
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk,pipeline,dtype", [
+    (2, 256, 8, 64, 1, 128, 256, 1, torch.bfloat16),   # one chunk: L == Q
+    (1, 4096, 4, 64, 1, 128, 256, 1, torch.bfloat16),  # 16 chunks
+    (2, 256, 4, 64, 4, 64, 128, 1, torch.bfloat16),    # h_per_g = 1
+    (2, 512, 6, 64, 2, 128, 256, 2, torch.bfloat16),   # 3 heads a group
+    (1, 512, 6, 64, 1, 64, 256, 1, torch.bfloat16),    # head blocks 4 + 2
+    (1, 512, 6, 64, 2, 128, 128, 1, torch.float32),    # f32, 3 heads a group
+    (2, 1024, 32, 64, 1, 128, 256, 1, torch.bfloat16),  # the serving widths
+])
+def test_ssd_kernel_decomposition(dev, B, L, H, P, G, N, chunk, pipeline,
+                                  dtype):
+    """Chunk counts, head blocks and groups of the three-pass design."""
+    _ssd_vs_plain(dev, B, L, H, P, G, N, chunk, pipeline, dtype, seed=L + H)
+
+
+@pytest.mark.parametrize("N", [64, 128])
+def test_ssd_kernel_zero_padded_tail(dev, N):
+    """S=300 padded to 512 with a=0, x=0 (as ``ssm_apply`` pads): the
+    first S outputs and the state are the unpadded recurrence's."""
+    B, S, H, P, G, chunk = 2, 300, 4, 64, 1, 256
+    x, a, b, c = _ssd_inputs(B, S, H, P, G, N, torch.bfloat16, dev, seed=N)
+    pad = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, 512 - S))
+           for t in (x, a, b, c)]
+    y, s = ssd.ssd_scan(*pad, chunk=chunk, h_per_g=H // G,
+                        return_final_state=True)
+    ry, rs = ssd_ref(x.permute(0, 2, 1, 3), a.permute(0, 2, 1),
+                     b.permute(0, 2, 1, 3), c.permute(0, 2, 1, 3))
+    torch.cuda.synchronize()
+    assert _rel(y[:, :S], ry.permute(0, 2, 1, 3)) <= SSD_BF16_RTOL
+    assert _rel(s, rs) <= SSD_F32_RTOL
+
+
+def test_ssd_kernel_strided_bf16_views_aligned_and_not(dev):
+    """b and c as column views of one bf16 conv output: rows of 16-byte
+    multiples run through the kernels; a row stride that is not raises
+    ``ValueError`` and launches nothing (no fallback)."""
+    B, L, H, P, G, N = 2, 256, 4, 64, 2, 128
+    x, a, _, _ = _ssd_inputs(B, L, H, P, G, N, torch.bfloat16, dev, seed=9)
+    for extra, aligned in ((8, True), (1, False)):
+        bc = torch.randn((B, L, 2 * G * N + extra), device=dev).to(
+            torch.bfloat16)
+        b = bc[..., :G * N].reshape(B, L, G, N)
+        c = bc[..., G * N:2 * G * N].reshape(B, L, G, N)
+        before = ssd.ssd_scan.launches
+        if not aligned:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                ssd.ssd_scan(x, a, b, c, chunk=128, h_per_g=H // G)
+            assert ssd.ssd_scan.launches == before
+            continue
+        y, s = ssd.ssd_scan(x, a, b, c, chunk=128, h_per_g=H // G,
+                            return_final_state=True)
+        py, ps = ssd.ssd_scan_plain(x.float(), a, b.float(), c.float(),
+                                    chunk=128, h_per_g=H // G,
+                                    return_final_state=True)
+        torch.cuda.synchronize()
+        assert ssd.ssd_scan.launches == before + 1
+        assert _rel(y, py) <= SSD_BF16_RTOL
+        assert _rel(s, ps) <= SSD_F32_RTOL
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_ssd_kernel_bitwise_batch_invariant(dev, B):
+    """Row b of a batch-B call equals the B=1 call on row b, y and the
+    state, bit for bit."""
+    H, P, G, N, L, chunk = 8, 64, 1, 128, 512, 256
+    x, a, b, c = _ssd_inputs(B, L, H, P, G, N, torch.bfloat16, dev, seed=B)
+    y, s = ssd.ssd_scan(x, a, b, c, chunk=chunk, h_per_g=H // G,
+                        return_final_state=True)
+    for i in range(B):
+        yi, si = ssd.ssd_scan(x[i:i + 1], a[i:i + 1], b[i:i + 1],
+                              c[i:i + 1], chunk=chunk, h_per_g=H // G,
+                              return_final_state=True)
+        assert torch.equal(yi, y[i:i + 1]) and torch.equal(si, s[i:i + 1]), i
 
 
 def test_ssd_kernel_matches_ref_on_strided_views(dev):

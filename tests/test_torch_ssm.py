@@ -172,6 +172,81 @@ def test_ssd_scan_rejects_bad_arguments():
     assert kssd.ssd_scan.launches == 0       # the plain version never counts
 
 
+def _emulate_cuda_rounding(x, a, b, c, chunk, h_per_g, parts=3):
+    """The CUDA kernels' arithmetic on bf16 inputs, in plain f32 torch,
+    with bf16 rounding exactly where the kernels take it: the chunk
+    states take v = exp(a_cs[-1] - a_cs) x split into ``parts`` bf16
+    parts (each the rounding of what the parts before it left) and sum
+    the products of all parts; the carry is f32 and prev is stored in
+    bf16; the chunk scan rounds L = (c.b^T) o decay to bf16 and y once at
+    the end. Every other product is exact bf16 x bf16 summed in f32 (the
+    tensor cores'); f32 summation order, and the factored form of the
+    decay below the diagonal (equal up to f32 rounding), are not
+    emulated."""
+    def r(t):
+        return t.to(torch.bfloat16).float()
+    B, L, H, P = x.shape
+    N, Q = b.shape[3], chunk
+    nc = L // Q
+    xf = x.float().reshape(B, nc, Q, H, P)
+    bh, ch = (t.float().repeat_interleave(h_per_g, dim=2).reshape(
+        B, nc, Q, H, N) for t in (b, c))
+    acs = torch.cumsum(a.reshape(B, nc, Q, H), dim=2)
+    # pass 1: the chunk states
+    v = torch.exp(acs[:, :, -1:] - acs)[..., None] * xf
+    S = torch.zeros(())
+    for _ in range(parts):
+        part = r(v)
+        S = S + torch.einsum("bcqhp,bcqhn->bchpn", part, bh)
+        v = v - part
+    # pass 2: the f32 carry in chunk order, prev stored in bf16
+    state = torch.zeros((B, H, P, N))
+    prev = []
+    for ci in range(nc):
+        prev.append(state)
+        state = state * torch.exp(acs[:, ci, -1])[..., None, None] + S[:, ci]
+    prev = r(torch.stack(prev, dim=1))                       # (B,nc,H,P,N)
+    # pass 3: y = exp(a_cs[q]) c_q . prev^T + bf16((c . b^T) o decay) x
+    at = acs.permute(0, 1, 3, 2)                             # (B,nc,H,Q)
+    seg = at[..., :, None] - at[..., None, :]
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()
+    decay = torch.where(causal, torch.exp(seg), torch.zeros(()))
+    cb = torch.einsum("bcqhn,bckhn->bchqk", ch, bh)
+    y = torch.einsum("bchqk,bckhp->bcqhp", r(cb * decay), xf)
+    y = y + torch.exp(acs)[..., None] * torch.einsum(
+        "bcqhn,bchpn->bcqhp", ch, prev)
+    return y.reshape(B, L, H, P).to(torch.bfloat16), state
+
+
+def test_cuda_rounding_plan_meets_the_f32_contract():
+    """The kernels' rounding plan, emulated on the CPU at the serving
+    chunk (B=1, L=1024, H=2, N=128, chunk 256), held against the exact
+    recurrence and the plain version on f32 copies of the same bf16
+    inputs at chip_smoke.py's SSD_F32_RTOL: y 8e-3 (one bf16 ulp of y,
+    plus L and prev rounded once), state 2e-5 (the three-part split holds
+    the decayed x exactly; two parts, ~16 bits, also meet it here).
+    Rounded once to bf16 instead, the state misses its bound: the split
+    is needed."""
+    B, L, H, P, G, N, chunk = 1, 1024, 2, 64, 1, 128, 256
+    x, a, b, c = (torch.from_numpy(v) for v in _inputs(B, L, H, P, G, N,
+                                                       seed=11))
+    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
+    ry, rs = _jax_ref(x.float().numpy(), a.numpy(), b.float().numpy(),
+                      c.float().numpy())
+    py, ps = kssd.ssd_scan_plain(x.float(), a, b.float(), c.float(),
+                                 chunk=chunk, h_per_g=H // G,
+                                 return_final_state=True)
+    for parts in (3, 2):
+        y, s = _emulate_cuda_rounding(x, a, b, c, chunk, H // G, parts)
+        assert torch.isfinite(y.float()).all() and y.dtype == torch.bfloat16
+        assert _rel(y.float().numpy(), ry) <= 8e-3
+        assert _rel(s.numpy(), rs) <= 2e-5
+        assert _rel(y.float().numpy(), py.numpy()) <= 8e-3
+        assert _rel(s.numpy(), ps.numpy()) <= 2e-5
+    _, s_one = _emulate_cuda_rounding(x, a, b, c, chunk, H // G, parts=1)
+    assert _rel(s_one.numpy(), rs) > 2e-5
+
+
 # ------------------------------------------------ (c) block vs JAX block
 
 def _block_pair(dtype):

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where the attention kernels' time goes: time cut-down copies of them.
+"""Where the kernels' time goes: time cut-down copies of them.
 
-    python3 tools/ablate_torch_kernels.py
+    python3 tools/ablate_torch_kernels.py [--only flash_attention,paged_attention,ssd_scan]
 
-Each variant is a copy of ``src/repro_torch/csrc/<kernel>.cu`` with one
-early return inserted after an anchor line of the source, so that the
-kernel skips everything after that point. The copies are built with
+Each variant is a copy of ``src/repro_torch/csrc/<kernel>.cu`` with edits:
+an anchor line of the source after which an early return is inserted,
+so that the kernel skips everything after that point, or an (old, new)
+pair of source text replaced once (a product removed, a loop cut). The
+copies are built with
 nvcc (the port's flags, one process each, in parallel) into
 ``build/ablate/`` and swapped, one at a time, into the wrapper's library
 cache (``_build._LIBS``); the wrapper then launches them as it launches
 the real kernel. A variant's outputs are wrong by design: only its times
 are read. Shapes: flash for the whole tinyllama-1.1b prefill (B=1, 32 q
 heads over 4 kv heads, S=512, D=64), paged decode with all 8 rows at pos
-543 (34 pages of 16, 4 kv heads x 8 q rows, head dim 64). For each
+543 (34 pages of 16, 4 kv heads x 8 q rows, head dim 64), the SSD scan of
+one mamba2-370m prefill layer (B=8, L=1024, 32 heads of 64, N=128, chunk
+256, bf16, with the final state). For each
 variant: the median device time of one call with the stream held
 (``chip_smoke.time_ms``, which includes the ~4 us that events and the
 launch add to any call) and each kernel's own duration under
@@ -22,6 +26,7 @@ Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -36,7 +41,8 @@ import chip_smoke  # noqa: E402
 OUT = os.path.join(ROOT, "build", "ablate")
 RETURN = "  if (threadIdx.x < 0xffffffffu) return;  // ablation\n"
 
-# kernel source -> variant -> anchor lines after which the return goes
+# kernel source -> variant -> edits: anchor lines after which the return
+# goes, or (old, new) source text replaced once
 VARIANTS = {
     "flash_attention": {
         "full": [],
@@ -67,23 +73,50 @@ VARIANTS = {
         "output without the last-CTA sum": [
             "    part[idx] = s;\n  }\n"],
     },
+    "ssd_scan": {
+        "full": [],
+        "state kernel without its products": [(
+            "              mma_bf16(acc[2 * np], xa[q], r[0], r[1]);\n"
+            "              mma_bf16(acc[2 * np + 1], xa[q], r[2], r[3]);\n", "")],
+        "state kernel without split and products": [
+            ("      for (int i = tid; i < nh * T * PH / 2; i += THREADS) {",
+             "      for (int i = tid; i < 0; i += THREADS) {"),
+            ("              mma_bf16(acc[2 * np], xa[q], r[0], r[1]);\n"
+             "              mma_bf16(acc[2 * np + 1], xa[q], r[2], r[3]);\n", "")],
+        "scan without c.prev^T": [(
+            "  // y = exp(a_cs[q]) c_q . prev^T (prev is 0 for the first chunk)\n"
+            "  if (ci > 0) {", "  if (ci < 0) {")],
+        "scan without c.b^T": [(
+            "            mma_bf16(cb[2 * np], ca, r[0], r[1]);\n"
+            "            mma_bf16(cb[2 * np + 1], ca, r[2], r[3]);\n", "")],
+        "scan without L x": [(
+            "            mma_bf16(acc[w][2 * dp], la, r[0], r[1]);\n"
+            "            mma_bf16(acc[w][2 * dp + 1], la, r[2], r[3]);\n", "")],
+        "scan without its key-tile loop": [(
+            "  for (int kt = 0; kt <= qt; ++kt) {\n"
+            "    const int k0 = kt * T;\n",
+            "  for (int kt = 0; kt < 0; ++kt) {\n"
+            "    const int k0 = kt * T;\n")],
+    },
 }
 
 
-def _variant_source(kernel: str, anchors) -> str:
+def _variant_source(kernel: str, edits) -> str:
     src = open(os.path.join(ROOT, "src", "repro_torch", "csrc",
                             f"{kernel}.cu")).read()
-    for anchor in anchors:
-        if src.count(anchor) != 1:
-            raise RuntimeError(f"{kernel}: anchor not found once: {anchor!r}")
-        src = src.replace(anchor, anchor + RETURN)
+    for edit in edits:
+        old, new = (edit, edit + RETURN) if isinstance(edit, str) else edit
+        if src.count(old) != 1:
+            raise RuntimeError(f"{kernel}: edit anchor not found once: {old!r}")
+        src = src.replace(old, new)
     return src
 
 
-def _build_all(build):
+def _build_all(build, kernels):
     os.makedirs(OUT, exist_ok=True)
     jobs = {}
-    for kernel, variants in VARIANTS.items():
+    for kernel in kernels:
+        variants = VARIANTS[kernel]
         for name, anchors in variants.items():
             stem = f"{kernel}-{name.replace(' ', '_')}"
             cu, so = os.path.join(OUT, stem + ".cu"), os.path.join(OUT, stem + ".so")
@@ -133,6 +166,10 @@ def _kernel_us(torch, fn, n=30):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=",".join(VARIANTS),
+                    help="comma-separated kernels to ablate")
+    kernels = ap.parse_args().only.split(",")
     import torch
     if not torch.cuda.is_available():
         print("ablate_torch_kernels: no CUDA device", file=sys.stderr)
@@ -141,8 +178,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
 
-    libs = _build_all(_build)
+    libs = _build_all(_build, kernels)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -157,7 +195,12 @@ def main() -> int:
                             )[:B * npg] + 1).reshape(B, npg).to(
         torch.int32).to(dev)
     pos = torch.full((B,), ps * npg - 1, dtype=torch.int32, device=dev)
+    sx, sa, sb, sc = chip_smoke.ssd_inputs(torch, dev, 8, 1024, 32, 64, 1,
+                                           128, seed=2)
     calls = {
+        "ssd_scan": (lambda: ssd.ssd_scan(sx, sa, sb, sc, chunk=256,
+                                          h_per_g=32, return_final_state=True),
+                     ssd._SIGNATURES),
         "flash_attention": (lambda: fa.flash_attention(q, k, v),
                             fa._SIGNATURES),
         "paged_attention": (lambda: pa.paged_attention(qd, pool_k, pool_v,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's attention kernels at the serving path's shapes.
+"""Time the port's kernels at the serving paths' shapes.
 
     python3 tools/bench_torch_kernels.py [--src DIR] [--label NAME]
 
@@ -14,7 +14,9 @@ Shapes (tinyllama-1.1b, the main path of ``chip_smoke.py``):
 flash for the whole prefill (B=1, 32 q heads over 4 kv heads, S=512,
 D=64) and for a chunked step (Sq=128 at q offset 384, Skv=512); paged
 decode with all 8 rows at pos 543 and with random positions (34 pages of
-16, a pool of 274 pages, 4 kv heads x 8 q rows, head dim 64). For each:
+16, a pool of 274 pages, 4 kv heads x 8 q rows, head dim 64); the SSD
+scan of one mamba2-370m prefill layer (B=8, L=1024, 32 heads of 64, one
+group, N=128, chunk 256, bf16, with the final state). For each:
 the median device time of one call with the stream held (the host's cost
 per call stays out, ``chip_smoke.time_ms``) and the host time of one
 wrapper call (``chip_smoke.host_us``). Prints the card, then one JSON
@@ -44,6 +46,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ssd
     assert os.path.abspath(fa.__file__).startswith(os.path.abspath(args.src))
 
     dev = torch.device("cuda", 0)
@@ -63,6 +66,8 @@ def main() -> int:
     full = torch.full((B,), ps * npg - 1, dtype=torch.int32, device=dev)
     rand = torch.randint(0, ps * npg, (B,), generator=cpu,
                          dtype=torch.int32).to(dev)
+    sx, sa, sb, sc = chip_smoke.ssd_inputs(torch, dev, 8, 1024, 32, 64, 1,
+                                           128, seed=2)
     calls = {
         "flash_prefill": lambda: fa.flash_attention(q, k, v),
         "flash_chunk": lambda: fa.flash_attention(qc, k, v, q_offset=384),
@@ -70,6 +75,9 @@ def main() -> int:
                                                    full),
         "paged_random_pos": lambda: pa.paged_attention(qd, pool_k, pool_v,
                                                        pages, rand),
+        "ssd_prefill": lambda: ssd.ssd_scan(sx, sa, sb, sc, chunk=256,
+                                            h_per_g=32,
+                                            return_final_state=True),
     }
     res = {}
     for name, fn in calls.items():

@@ -2,7 +2,8 @@
 """Where the time goes when the PyTorch port serves on the GPU.
 
     python3 tools/profile_torch_serve.py [--chunk N] [--dense]
-    python3 tools/profile_torch_serve.py --arch mamba2-370m
+    python3 tools/profile_torch_serve.py --arch mamba2-370m \
+        [--src DIR] [--save-tokens PATH] [--compare-tokens PATH]
 
 Serves tinyllama-1.1b at full width through the port's engine (8
 requests of 512 prompt tokens, 32 new tokens each, random weights from
@@ -14,8 +15,12 @@ device busy time (the union of kernel, memcpy and memset intervals),
 its share of the unprofiled wall time (the profiler slows the host, not
 the device), device time by kernel name, and the time of each of the
 port's own kernels. The Chrome trace is
-written to build/profile/. Needs a CUDA device; fails if the trace holds
-no device activity.
+written to build/profile/. ``--src`` imports ``repro_torch`` from another
+tree (e.g. the parent commit unpacked under build/), and
+``--save-tokens`` writes the sampled token ids (.npy) and
+``--compare-tokens`` prints how many of them equal a saved run's, so that
+two trees' serves can be compared. Needs a CUDA device; fails if the trace holds no
+device activity.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel names from src/repro_torch/csrc
 PORT_KERNELS = ("flash_fwd_kernel", "paged_stats_kernel",
                 "paged_output_kernel", "paged_attention_kernel",
-                "ssd_scan_kernel")
+                "ssd_state_kernel", "ssd_chunk_scan_kernel")
 PROMPT_LEN = {"tinyllama-1.1b": 512, "mamba2-370m": 1024}
 
 
@@ -56,7 +61,14 @@ def main() -> int:
                     help="prefill chunk quantum in pages (0 = whole prompt)")
     ap.add_argument("--dense", action="store_true",
                     help="decode through the plain version, not the kernel")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the tree to import repro_torch from")
+    ap.add_argument("--save-tokens", default=None,
+                    help="write the sampled token ids here (.npy)")
+    ap.add_argument("--compare-tokens", default=None,
+                    help="token ids (.npy) of another run to compare with")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
@@ -148,6 +160,18 @@ def main() -> int:
         if any(k in name for k in PORT_KERNELS):
             print(f"  {us / 1e3:9.2f}  {100 * us / busy:5.1f} %  {n:6d}  "
                   f"{us / n:8.2f}  {name[:90]}")
+    import numpy as np
+    tokens = np.asarray(res.tokens)
+    if args.save_tokens:
+        np.save(args.save_tokens, tokens)
+    if args.compare_tokens:
+        other = np.load(args.compare_tokens)
+        same = tokens == other
+        first = [int(np.argmin(r)) if not r.all() else r.size for r in same]
+        print(f"token ids equal to {args.compare_tokens}: {int(same.sum())}/"
+              f"{same.size}; first step equal in {int(same[:, 0].sum())}/"
+              f"{len(same)} rows; first differing step per row {first} "
+              f"({same.shape[1]} = none)")
     print(smi)
     return 0
 
