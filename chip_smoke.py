@@ -25,14 +25,31 @@
    engine refuses the ssm family) with 8 x 1024 prompt tokens and 32 new
    tokens; the SSD wrapper calls must equal 48 x the prefill steps
    (each call launches the kernels of ssd_scan.KERNELS);
-8. times each kernel (CUDA events, median) beside its plain version, a
+8. probes the port's full-width prefills and decode step with
+   ``repro_torch.core.probe`` (every scope a probe): the tinyllama-1.1b
+   prefill (8 x 512) and ``decode_step``, and the mamba2-370m prefill
+   (8 x 1024). In model mode the device record must equal the oracle's,
+   the probed logits and caches must equal the unprobed ones bitwise,
+   and the flash (SSD) wrapper must launch 22 (48) times inside the
+   probed prefill; in wallclock mode (``%globaltimer``) the calls must
+   equal the oracle's, every ring interval must lie inside its parent
+   probe's and start <= end. Holds the probe-events kernel against its
+   plain version over a sequence of transitions (integer equality) and
+   prints the report's top rows, the probe's overhead (probed against
+   unprobed wall time, and its parts: the host's bookkeeping with the
+   launches made no-ops, the argument check, the probe kernels' device
+   time; transitions and launches per call, state bytes), the host time
+   of a scope marker with no probe, and the resolution of
+   ``%globaltimer``;
+9. times each kernel (CUDA events, median) beside its plain version, a
    library call where one computes the same function (attention: SDPA
    under its flash backend), and its bound, at the main path's shapes:
    flash for the whole prefill and for a chunk (Sq=128 at q offset 384),
    paged with all 8 rows at pos 543 and with random positions, the SSD
-   scan at the mamba2-370m prefill shape; and counts the tensor-core
-   instructions (HMMA, HGMMA) in each library's SASS (cuobjdump): the
-   flash and SSD kernels must have some.
+   scan at the mamba2-370m prefill shape, one probe transition (two
+   events); and counts the tensor-core instructions (HMMA, HGMMA) in
+   each library's SASS (cuobjdump): the flash and SSD kernels must have
+   some.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -412,6 +429,225 @@ def ssm_consistency(torch, dev):
           f"max |diff| / max |logit| {err:.3e}; same argmax {same}")
 
 
+def walls_ms(torch, fns: dict, reps: int = 9) -> dict:
+    """Median wall time (ms) of one call of each function, host in the
+    loop, device synced after each call; the functions take turns, so
+    that a slow spell of the shared host falls on all of them."""
+    ts = {k: [] for k in fns}
+    for k, fn in fns.items():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts[k].append(time.perf_counter() - t0)
+    return {k: statistics.median(v) * 1e3 for k, v in ts.items()}
+
+
+def _flat(out):
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _flat(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _parent(paths, i):
+    """Index of the nearest probed ancestor of probe i, or None."""
+    p = paths[i]
+    while "/" in p:
+        p = p.rsplit("/", 1)[0]
+        if p in paths:
+            return paths.index(p)
+    return None
+
+
+def check_probe_events(torch, kpe, dev):
+    """The probe-events kernel against its plain version (run on copies
+    of the same state on the card) over 60 random transitions, model
+    clock, two of five probes spilling: integer equality."""
+    import random
+    rnd = random.Random(5)
+    n, depth = 5, 3
+    spill = (False, True, False, True, False)
+    ks = {k: torch.zeros(sh, dtype=torch.int64, device=dev) for k, sh in
+          (("cycle", ()), ("cnt", (3, n)), ("calls", (n,)),
+           ("ring", (n, depth, 2)))}
+    ps = {k: v.clone() for k, v in ks.items()}
+    open_ = set()
+    for _ in range(60):
+        exits = sorted(p for p in open_ if rnd.random() < 0.5)
+        enters = sorted(p for p in set(range(n)) - open_ - set(exits)
+                        if rnd.random() < 0.5)
+        open_ = (open_ - set(exits)) | set(enters)
+        codes = ([kpe.encode(p, False, spill[p]) for p in exits]
+                 + [kpe.encode(p, True, spill[p]) for p in enters])
+        seg = rnd.randrange(1 << 40)
+        kpe.probe_events(ks, codes, seg)
+        kpe.probe_events_plain(ps, codes, seg)
+    torch.cuda.synchronize()
+    err = max((ks[k] - ps[k]).abs().max().item() for k in ks)
+    print(f"probe_events: 60 transitions, kernel == plain (int64): "
+          f"{err == 0} (max |diff| {err})")
+    assert err == 0
+    # one typical transition: exit a probe, enter its sibling
+    codes = [kpe.encode(0, False, False), kpe.encode(2, True, False)]
+    nbytes = 2 * 8 + len(codes) * 6 * 8     # clock, then per event
+    return dict(state=ks, codes=codes, err=err, bound=bound(nbytes, 0.0))
+
+
+def probe_program(torch, name, fn, make, counters, want, kpe):
+    """Probe one full-width program in both cycle sources; returns the
+    numbers the report prints."""
+    from repro_torch.core import ProbeConfig, decode_record, probe
+    cfg = ProbeConfig(inline="off_all", max_probes=64)
+    pf = probe(fn, cfg)
+    t0 = time.perf_counter()
+    pf.ensure_built(*make())
+    capture_s = time.perf_counter() - t0
+    plain = _flat(fn(*make()))
+    args = make()
+    for c in counters.values():
+        c.launches = 0
+    kpe.probe_events.launches = 0
+    out, rec = pf(*args)
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    pe_launches = kpe.probe_events.launches
+    same = all(torch.equal(a, b) for a, b in zip(_flat(out), plain))
+    dec = decode_record(rec)
+    oc = pf.oracle(*make())
+    exact = (dec["cycle"] == oc.cycle and all(
+        int(dec[k][i]) == getattr(oc, k)[i]
+        for k in ("starts", "ends", "totals", "calls")
+        for i in range(len(oc.calls))) and all(
+        [tuple(r) for r in dec["ring"][i].tolist()] == oc.ring[i]
+        for i in range(len(oc.calls))))
+    stats = pf.last_run
+    print(f"probe [{name}] model clock: {len(pf.probe_paths())} probes, "
+          f"capture {capture_s * 1e3:.0f} ms; record == oracle: {exact}; "
+          f"outputs bitwise == unprobed: {same}; launches {got} (want "
+          f"{want}); {stats['transitions']} transitions, "
+          f"{stats['launches']} probe_events launches "
+          f"(counter {pe_launches}); state {pf.resource_bytes()} bytes; "
+          f"span {dec['cycle']} cycles")
+    assert exact and same and got == want
+    assert pe_launches == stats["launches"]
+    for line in pf.report(rec).table().splitlines()[:14]:
+        print(f"  {line}")
+
+    pw = probe(fn, cfg.replace(cycle_source="wallclock"))
+    pw.ensure_built(*make())
+    _, wrec = pw(*make())
+    wd = decode_record(wrec)
+    assert pw.probe_paths() == pf.probe_paths()
+    calls_ok = [int(c) for c in wd["calls"]] == oc.calls
+    paths = list(pw.probe_paths())
+    nested = True
+    for i in range(len(paths)):
+        kept = min(int(wd["calls"][i]), cfg.buffer_depth)
+        ring = wd["ring"][i][:kept]
+        nested &= bool((ring[:, 0] <= ring[:, 1]).all())
+        nested &= bool(wd["starts"][i] <= wd["ends"][i])
+        par = _parent(paths, i)
+        if par is None:
+            continue
+        pr = wd["ring"][par][:min(int(wd["calls"][par]), cfg.buffer_depth)]
+        nested &= all(((pr[:, 0] <= s) & (e <= pr[:, 1])).any()
+                      for s, e in ring)
+    totals = {p: int(t) for p, t in zip(paths, wd["totals"])}
+    calls = {p: int(c) for p, c in zip(paths, wd["calls"])}
+    print(f"probe [{name}] wallclock: calls == oracle: {calls_ok}; ring "
+          f"intervals inside their parents', start <= end: {nested}")
+    assert calls_ok and nested
+    rows = sorted(paths, key=lambda p: -totals[p])[:8]
+    for p in rows:
+        print(f"  {p:<40} {calls[p]:>4} calls {totals[p] / 1e3:>10.1f} us "
+              f"({totals[p] / 1e3 / max(calls[p], 1):.1f} us a call)")
+    launcher = kpe.Launcher.__call__
+
+    def no_launch():            # the host's bookkeeping alone
+        kpe.Launcher.__call__ = lambda self, codes, seg=0, wallclock=0: None
+        try:
+            pf(*args)
+        finally:
+            kpe.Launcher.__call__ = launcher
+    w = walls_ms(torch, dict(unprobed=lambda: fn(*args),
+                             model=lambda: pf(*args),
+                             wallclock=lambda: pw(*args),
+                             no_launch=no_launch,
+                             ensure_built=lambda: pf.ensure_built(*args)))
+    print(f"probe [{name}] wall per call (median of 9, in turns): unprobed "
+          f"{w['unprobed']:.2f} ms, probed (model clock) {w['model']:.2f} "
+          f"ms, probed (wallclock) {w['wallclock']:.2f} ms; probed with the "
+          f"probe_events launches made no-ops {w['no_launch']:.2f} ms; "
+          f"ensure_built alone {w['ensure_built']:.3f} ms")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pf(*args)
+        torch.cuda.synchronize()
+    pe = [e for e in prof.key_averages() if "probe_events" in e.key]
+    dev_us = sum(getattr(e, "device_time_total", 0) for e in pe)
+    print(f"probe [{name}] probe_events kernels under torch.profiler: "
+          f"{sum(e.count for e in pe)}, {dev_us:.1f} us of device time")
+    return dict(launches=pe_launches, wall=totals, calls=calls)
+
+
+def probe_phase(torch, fa, ssd, kpe, dev):
+    """The probe core over the full-width serving programs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import scope
+    from repro_torch.models import Model
+    counters = dict(flash=fa.flash_attention, ssd=ssd.ssd_scan)
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    m = Model(get_config(ARCH))
+    p = m._compute_cast(m.init(0, dev))
+    V, cache_len = m.cfg.vocab_size, PROMPT + MAX_NEW
+    toks = torch.randint(0, V, (BATCH, PROMPT), device=dev, generator=gen,
+                         dtype=torch.int32)
+    res = probe_program(
+        torch, f"{ARCH} prefill {BATCH}x{PROMPT}",
+        lambda p_, b: m.prefill(p_, b, cache_len),
+        lambda: (p, {"tokens": toks}), counters, dict(flash=22, ssd=0), kpe)
+    _, cache = m.prefill(p, {"tokens": toks}, cache_len)
+    step = {"tokens": toks[:, -1:], "pos": PROMPT}
+    probe_program(
+        torch, f"{ARCH} decode_step at pos {PROMPT}", m.decode_step,
+        lambda: (p, {k: v.clone() for k, v in cache.items()}, step),
+        counters, dict(flash=0, ssd=0), kpe)
+    del m, p, cache
+
+    m = Model(get_config(SSM_ARCH))
+    p = m._compute_cast(m.init(0, dev))
+    toks = torch.randint(0, m.cfg.vocab_size, (BATCH, SSM_PROMPT),
+                         device=dev, generator=gen, dtype=torch.int32)
+    sres = probe_program(
+        torch, f"{SSM_ARCH} prefill {BATCH}x{SSM_PROMPT}",
+        lambda p_, b: m.prefill(p_, b, SSM_PROMPT + MAX_NEW),
+        lambda: (p, {"tokens": toks}), counters, dict(flash=0, ssd=48), kpe)
+    del m, p
+
+    steps = kpe.globaltimer_steps(dev)
+    nz = steps[steps > 0]
+    print(f"%globaltimer steps seen by one spinning thread: min "
+          f"{int(nz.min())} ns, median {int(nz.median())} ns, max "
+          f"{int(nz.max())} ns over {nz.numel()} steps")
+    n = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with scope.named_scope("x"):
+            pass
+    marker_ns = (time.perf_counter() - t0) / n * 1e9
+    print(f"host time of one named_scope enter + exit with no probe: "
+          f"{marker_ns:.0f} ns")
+    return dict(launches=res["launches"], flash_wall=res["wall"],
+                flash_calls=res["calls"], ssd_wall=sres["wall"],
+                ssd_calls=sres["calls"])
+
+
 def serve_runs(torch, fa, pa, ssd, serve):
     """Full-width serving through the port's entry point. Returns the
     launch counts of the main path (whole prefill + decode kernel)."""
@@ -472,6 +708,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import probe_events as kpe
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
     from repro_torch.launch.serve import serve
@@ -499,6 +736,7 @@ def main() -> int:
     for name in ("flash_attention", "ssd_scan"):
         assert sass[name]["HMMA"] + sass[name]["HGMMA"] > 0, (
             f"the {name} kernels run no tensor-core instruction")
+    pev = check_probe_events(torch, kpe, dev)
 
     flash = check_flash(torch, fa, flash_attention_ref, dev)
     paged = check_paged(torch, pa, dev)
@@ -508,6 +746,7 @@ def main() -> int:
         torch, (fa.flash_attention, pa.paged_attention, ssd.ssd_scan), serve,
         ssd.KERNELS)
     ssm_consistency(torch, dev)
+    probed = probe_phase(torch, fa, ssd, kpe, dev)
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -554,6 +793,25 @@ def main() -> int:
     print(f"ssd timed alone, host in the loop: {sc_alone * 1e3:.1f} us; host "
           f"time per wrapper call: "
           f"{host_us(lambda: ssd.ssd_scan(*sin, **skw)):.1f} us")
+    fw = probed["flash_wall"]["layers/scan#0/layer/attn/flash"]
+    fc = probed["flash_calls"]["layers/scan#0/layer/attn/flash"]
+    qf, kf, vf = (torch.randn((BATCH,) + t.shape[1:], device=dev).to(
+        torch.bfloat16) for t in flash["inputs"])
+    fl8_ms = time_ms(lambda: fa.flash_attention(qf, kf, vf))
+    sw = probed["ssd_wall"]["layers/scan#0/layer/ssd"]
+    sc_calls = probed["ssd_calls"]["layers/scan#0/layer/ssd"]
+    print(f"wallclock probe totals beside the kernel times: attn/flash "
+          f"{fw / fc / 1e3:.1f} us a call (the kernel alone at B={BATCH}: "
+          f"{fl8_ms * 1e3:.1f} us), ssd {sw / sc_calls / 1e3:.1f} us a call "
+          f"(the kernels alone: {sc_ms * 1e3:.1f} us)")
+    pst, pcodes = pev["state"], pev["codes"]
+    launch = kpe.Launcher(pst)      # as the instrumented run launches it
+    pe_ms = time_ms(lambda: launch(pcodes, 7))
+    # the plain version reads the state on the host: no stream hold
+    pe_plain = time_ms(lambda: kpe.probe_events_plain(pst, pcodes, 7),
+                       reps=5, hold=False)
+    print(f"probe_events one transition: host time per launch "
+          f"{host_us(lambda: launch(pcodes, 7)):.1f} us")
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -573,6 +831,12 @@ def main() -> int:
              launches=ssd_launches, max_abs_err=scan["err"], ms=sc_ms,
              plain_ms=sc_plain, bound_ms=scan["bound"][0],
              bound_by=scan["bound"][1], library_ms=None),
+        dict(name="probe_events", route="cuda",
+             source="src/repro_torch/csrc/probe_events.cu",
+             replaces="src/repro/core/instrument.py:292",
+             launches=probed["launches"], max_abs_err=float(pev["err"]),
+             ms=pe_ms, plain_ms=pe_plain, bound_ms=pev["bound"][0],
+             bound_by=pev["bound"][1], library_ms=None),
     ]
     for kn in kernels:
         print(f"{kn['name']}: {kn['ms'] * 1e3:.1f} us (bound "

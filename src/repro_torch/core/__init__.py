@@ -1,0 +1,33 @@
+"""repro_torch.core — RealProbe for eager PyTorch functions on an H100.
+
+Port of ``repro.core``'s probe path::
+
+    from repro_torch.core import probe, ProbeConfig, scope
+
+    def step(x, w):
+        with scope.named_scope("layers"):
+            for _ in scope.scan(8):
+                x = torch.tanh(x @ w) + x
+        with scope.named_scope("head"):
+            return torch.sum(x * x)
+
+    pf = probe(step, ProbeConfig(), device="cpu")
+    out, record = pf(x, w)        # outputs bit-identical to step(x, w)
+    print(pf.report(record).table())
+
+Stages (paper Fig 3):
+  1 pragma      pragma.probe / ProbeConfig; scope markers (scope)
+  2 extraction  hierarchy.capture (one run under a dispatch mode)
+  3 IP          instrument.Runner + kernels.probe_events (+ buffer spill)
+  5 results     report (table / timeline / bump chart), oracle (ILA)
+"""
+from repro_torch.core import scope
+from repro_torch.core.hierarchy import Hierarchy, capture
+from repro_torch.core.instrument import decode_record, init_state
+from repro_torch.core.oracle import Oracle
+from repro_torch.core.pragma import ProbeConfig, ProbedFunction, probe
+from repro_torch.core.report import Report, bump_chart
+
+__all__ = ["scope", "probe", "ProbeConfig", "ProbedFunction", "Hierarchy",
+           "capture", "Oracle", "Report", "bump_chart", "decode_record",
+           "init_state"]

@@ -1,0 +1,154 @@
+"""Deterministic H100 analytical cycle model (the profiler's model clock).
+
+Port of ``repro.core.costmodel`` for eager PyTorch: every aten operation
+that reaches the dispatcher gets an integer cycle cost from its FLOPs
+and bytes against the constants below, the same formula
+(``roofline_cycles``) as the JAX package. The same table drives the
+capture's segment cycles (``core.hierarchy``), the oracle's live count
+(``core.oracle``) and the static estimate of each scope.
+
+Constants: the NVIDIA H100 SXM data sheet, as ``chip_smoke.py`` prices
+each kernel's bound: 989e12 dense bf16 tensor-core FLOP/s, 3.35e12 B/s
+HBM3, a 1.98 GHz boost clock. The interconnect term (NVLink, 450e9 B/s
+per direction) keeps the formula's shape; no operation of this slice
+prices communication.
+
+Pricing of an aten operation (``op_cost``), as ``eqn_cost`` prices a
+jaxpr primitive:
+
+- ``mm``/``bmm``/``addmm``/``baddbmm``/``addbmm``/``linear``: 2 M N K
+  FLOPs (times the batch);
+- transcendentals (exp, log, tanh, sigmoid, silu, softplus, rsqrt, ...):
+  8 FLOPs per output element;
+- reductions (sum, mean, amax, argmax, cumsum, ...): the input's size;
+- anything else: its output's size;
+- bytes: every tensor read plus every tensor written (an in-place
+  operation counts its target on both sides).
+
+Views (``view``, ``t``, ``transpose``, ``expand``, ``select``, ``slice``,
+``_unsafe_view``, ...) cost 0 cycles: in PyTorch they move no bytes and
+only change a tensor's metadata. (JAX prices a reshape by its bytes,
+since XLA may copy; the two clocks differ there on purpose.) A hand
+kernel's region (``scope.kernel_region``) is priced once from the FLOPs
+and bytes its wrapper states, whatever route runs it.
+
+Host read-outs (``_local_scalar_dense``: ``.item()``, ``bool(t)``) are
+not device operations here: the markers read branch predicates with
+them, which a jaxpr does not.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Iterable
+
+import torch
+
+# -------------------------------------------------- hardware constants
+PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12                  # HBM3 bytes/s
+LINK_BW = 450e9                   # NVLink bytes/s per direction
+CLOCK_HZ = 1.98e9                 # boost clock
+
+FLOPS_PER_CYCLE = PEAK_FLOPS_BF16 / CLOCK_HZ      # ~499495
+HBM_BYTES_PER_CYCLE = HBM_BW / CLOCK_HZ           # ~1692
+LINK_BYTES_PER_CYCLE = LINK_BW / CLOCK_HZ         # ~227
+
+_MATMUL = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "linear", "matmul"}
+_TRANSCENDENTAL = {
+    "exp", "exp2", "log", "log2", "log10", "log1p", "expm1", "tanh",
+    "sigmoid", "silu", "gelu", "softplus", "erf", "erfc", "erfinv", "sin",
+    "cos", "tan", "pow", "rsqrt", "sqrt", "atan2", "digamma", "lgamma",
+    "_softmax", "_log_softmax", "logit", "mish", "elu", "selu",
+}
+_REDUCTION = {
+    "sum", "mean", "amax", "amin", "max", "min", "aminmax", "argmax",
+    "argmin", "prod", "var", "var_mean", "std", "std_mean", "norm",
+    "linalg_vector_norm", "any", "all", "cumsum", "cumprod", "cummax",
+    "cummin", "logcumsumexp", "logsumexp", "nansum", "count_nonzero",
+}
+_SORT = {"sort", "topk", "argsort", "kthvalue", "median"}
+# aliases the schema does not mark as views
+_FREE = {"_unsafe_view", "_reshape_alias", "lift_fresh_copy"}
+# host read-outs: not device operations (see the module docstring)
+SKIP = {"_local_scalar_dense"}
+
+
+def roofline_cycles(flops: int, total_bytes: int, comm_bytes: int = 0) -> int:
+    """The model's single cycle formula: the max of the compute, memory
+    and interconnect terms, never below one cycle."""
+    return max(1, int(math.ceil(max(flops / FLOPS_PER_CYCLE,
+                                    total_bytes / HBM_BYTES_PER_CYCLE,
+                                    comm_bytes / LINK_BYTES_PER_CYCLE))))
+
+
+@dataclass(frozen=True)
+class OpCost:
+    flops: int
+    bytes: int
+    comm_bytes: int
+    cycles: int
+
+
+FREE = OpCost(0, 0, 0, 0)
+
+
+def _tensors(x: Any) -> Iterable[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _tensors(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from _tensors(y)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _matmul_flops(name: str, args) -> int:
+    if name in ("addmm", "baddbmm", "addbmm"):
+        a, b = args[1], args[2]
+    else:
+        a, b = args[0], args[1]
+    if name == "linear":                 # x (..., K) @ w (N, K)^T
+        return 2 * a.numel() * b.shape[0]
+    # (..., M, K) @ (..., K, N): 2 * batch * M * N * K
+    return 2 * a.numel() * b.shape[-1]
+
+
+def is_view(func) -> bool:
+    return bool(getattr(func, "is_view", False)) or (
+        func.overloadpacket.__name__ in _FREE)
+
+
+def op_cost(func, args, kwargs, out) -> OpCost:
+    """Flat cost of one aten operation (``func`` an ``OpOverload``)."""
+    if is_view(func):
+        return FREE
+    name = func.overloadpacket.__name__
+    ins = list(_tensors(args)) + list(_tensors(kwargs))
+    outs = list(_tensors(out))
+    total_bytes = sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs)
+    if name in _MATMUL:
+        flops = _matmul_flops(name, args)
+    elif name in _TRANSCENDENTAL:
+        flops = 8 * max((t.numel() for t in outs), default=0)
+    elif name in _REDUCTION:
+        flops = max((t.numel() for t in ins), default=0)
+    elif name in _SORT:
+        n = max((t.numel() for t in ins), default=1)
+        flops = int(n * max(1, math.log2(max(n, 2))))
+    else:
+        flops = max((t.numel() for t in outs), default=0)
+    return OpCost(flops=int(flops), bytes=int(total_bytes), comm_bytes=0,
+                  cycles=roofline_cycles(int(flops), int(total_bytes)))
+
+
+def kernel_cost(flops: float, nbytes: float) -> OpCost:
+    """Cost of one hand-kernel region from its stated FLOPs and bytes."""
+    f, b = int(flops), int(nbytes)
+    return OpCost(flops=f, bytes=b, comm_bytes=0,
+                  cycles=roofline_cycles(f, b))

@@ -1,0 +1,293 @@
+"""Scope-hierarchy capture from one eager run (the C-to-RTL analogue).
+
+Port of ``repro.core.hierarchy``. JAX extracts the hierarchy from a
+traced jaxpr; eager PyTorch has no trace, so ``capture`` runs the
+function ONCE under a recording ``TorchDispatchMode`` with the scope
+markers (``core.scope``) live, and records:
+
+- a ``ScopeNode`` tree with the JAX package's kinds (``root``, ``scope``,
+  ``loop``, ``while``, ``cond``), ``trip_count``, ``dynamic``,
+  ``n_eqns`` (aten operations of one visit), ``own_cycles``,
+  ``static_cycles`` and ``source`` (file:line of the first user frame
+  outside ``repro_torch.core``, the kernel wrappers and torch, taken
+  once per scope: the mapping-table payload);
+- the segment table in place of ``EqnInfo``: for each (site, ordinal)
+  (``core.scope``) the cycles and the number of operations of that
+  stretch of one visit, and the event that ends it. The instrumented run
+  (``core.instrument``) advances its clock from this table alone.
+
+Every aten operation is priced by ``core.costmodel``. A hand kernel's
+region is ONE operation; nothing inside it is recorded. A visit that
+repeats a site (a loop iteration, a scope in a loop) must repeat its
+segments exactly; one that does not (data-dependent shapes) raises,
+since the table could not price it. A capture runs every branch of a
+``scope.switch``/``cond`` (the taken one's result is returned), so the
+tree holds every branch, as the jaxpr does.
+"""
+from __future__ import annotations
+
+import os
+import sys
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.core import costmodel as cm
+from repro_torch.core import scope as sc
+
+_CORE_DIR = os.path.dirname(os.path.abspath(__file__)) + os.sep
+_KERNELS_DIR = os.path.join(os.path.dirname(_CORE_DIR[:-1]), "kernels") + os.sep
+_TORCH_DIR = os.sep + "torch" + os.sep
+_LOOP_KINDS = ("scan", "while", "cond")
+
+
+@dataclass
+class ScopeNode:
+    name: str
+    path: str
+    kind: str = "scope"               # scope | loop | while | cond | root
+    trip_count: Optional[int] = None  # scan loops
+    dynamic: bool = False             # subtree contains while/cond
+    n_eqns: int = 0                   # aten ops directly here, one visit
+    own_cycles: int = 0               # direct-op cycles per single visit
+    static_cycles: int = 0            # subtree cycles per single visit
+    source: str = ""                  # file:line of the first op
+    children: "Dict[str, ScopeNode]" = field(default_factory=dict)
+
+    def walk(self):
+        yield self
+        for c in self.children.values():
+            yield from c.walk()
+
+    def find(self, path: str) -> Optional["ScopeNode"]:
+        if path in ("", "/"):
+            return self
+        node = self
+        for seg in path.strip("/").split("/"):
+            node = node.children.get(seg)
+            if node is None:
+                return None
+        return node
+
+
+@dataclass(frozen=True)
+class Segment:
+    """One stretch of a visit between two marker events."""
+    cycles: int                       # priced cycles of its operations
+    n_ops: int                        # operations (views included)
+    nxt: tuple                        # the event that ends it
+
+    @property
+    def triggers(self) -> bool:
+        """Does the stretch run anything at its path (an operation, or a
+        loop / branch point, which JAX counts as an equation)?"""
+        return self.n_ops > 0 or self.nxt[0] in _LOOP_KINDS
+
+
+@dataclass
+class Hierarchy:
+    root: ScopeNode
+    sites: sc.SiteTable
+    segments: Dict[Tuple[int, int], Segment]
+    ops: Dict[str, List[Tuple[str, int]]]   # path -> (op, cycles), one visit
+
+    def node(self, path: str) -> Optional[ScopeNode]:
+        return self.root.find(path)
+
+    def all_paths(self) -> List[str]:
+        return [n.path for n in self.root.walk() if n.path]
+
+    def mapping_table(self) -> List[Dict[str, Any]]:
+        """The C-to-RTL mapping table: scope -> source, kind, static cost."""
+        return [dict(path=n.path or "/", kind=n.kind, source=n.source,
+                     n_eqns=n.n_eqns, static_cycles=n.static_cycles,
+                     trip_count=n.trip_count, dynamic=n.dynamic)
+                for n in self.root.walk()]
+
+
+def user_source() -> str:
+    """file:line of the innermost frame outside ``repro_torch.core``,
+    the kernel wrappers (``repro_torch.kernels``) and torch."""
+    f = sys._getframe(1)
+    while f is not None:
+        fn = f.f_code.co_filename
+        if not (fn.startswith(_CORE_DIR) or fn.startswith(_KERNELS_DIR)
+                or _TORCH_DIR in fn):
+            return f"{os.path.basename(fn)}:{f.f_lineno}"
+        f = f.f_back
+    return ""
+
+
+class _OpMode(TorchDispatchMode):
+    """Hands every aten operation, after it ran, to ``rec.op``."""
+
+    def __init__(self, rec):
+        super().__init__()
+        self.rec = rec
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.rec.op(func, args, kwargs, out)
+        return out
+
+
+class _Region:
+    """A kernel region: one priced operation, nothing inside recorded."""
+    __slots__ = ("rec", "name", "cost")
+
+    def __init__(self, rec, name, cost):
+        self.rec, self.name, self.cost = rec, name, cost
+
+    def __enter__(self):
+        self.rec.priced(self.name, cm.kernel_cost(*self.cost()))
+        self.rec.in_kernel = True
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.in_kernel = False
+        return False
+
+
+class OpTracker(sc.Tracker):
+    """A tracker that sees every operation (capture and oracle)."""
+
+    def __enter__(self):
+        super().__enter__()
+        self._mode = _OpMode(self)
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._mode.__exit__(exc_type, exc, tb)
+        return super().__exit__(exc_type, exc, tb)
+
+    def op(self, func, args, kwargs, out) -> None:
+        if self.in_kernel or func.overloadpacket.__name__ in cm.SKIP:
+            return
+        self.priced(func.overloadpacket.__name__,
+                    cm.op_cost(func, args, kwargs, out))
+
+    def kernel(self, name, cost):
+        return sc._NULL if self.in_kernel else _Region(self, name, cost)
+
+    def priced(self, name: str, cost: cm.OpCost) -> None: ...
+
+
+class Capture(OpTracker):
+    def __init__(self):
+        super().__init__()
+        self.tree = ScopeNode(name="", path="", kind="root")
+        self.segments: Dict[Tuple[int, int], Segment] = {}
+        self.ops: Dict[str, List[Tuple[str, int]]] = {}
+        self._acc: Dict[int, list] = {}
+        self._touched: set = {""}
+        self._first: set = set()       # sites whose first visit is done
+
+    # -- tree ------------------------------------------------------------
+    def _ensure(self, path: str, kind: str = "scope",
+                source: Optional[str] = None) -> ScopeNode:
+        node = self.tree
+        cur = ""
+        for seg in path.split("/"):
+            cur = f"{cur}/{seg}" if cur else seg
+            nxt = node.children.get(seg)
+            if nxt is None:
+                nxt = node.children[seg] = ScopeNode(name=seg, path=cur)
+                nxt.source = user_source() if source is None else source
+            node = nxt
+        if kind != "scope":
+            node.kind = kind
+        return node
+
+    def _touch(self, path: str) -> None:
+        if path not in self._touched:
+            self._ensure(path)
+            self._touched.add(path)
+
+    def nodes(self, path, kind, children):
+        node = self._ensure(path, kind)
+        node.dynamic = kind in ("while", "cond")
+        for c in children:
+            self._ensure(f"{path}/{c}", source="")
+        self._touched.add(path)
+
+    def iteration(self, loop_path, length):
+        self.tree.find(loop_path).trip_count = length
+
+    # -- segments --------------------------------------------------------
+    def seg_begin(self, f):
+        self._acc[id(f)] = [0, 0, f.site in self._first]
+
+    def priced(self, name, cost):
+        f = self.top
+        acc = self._acc[id(f)]
+        acc[0] += cost.cycles
+        acc[1] += 1
+        self._touch(f.path)
+        if not acc[2]:
+            self.ops.setdefault(f.path, []).append((name, cost.cycles))
+
+    def trigger(self, f):
+        self._touch(f.path)
+
+    def seg_end(self, f, nxt):
+        cyc, n_ops, _ = self._acc[id(f)]
+        seg = Segment(cycles=cyc, n_ops=n_ops, nxt=nxt)
+        key = (f.site, f.ord)
+        old = self.segments.get(key)
+        if old is None:
+            self.segments[key] = seg
+            if n_ops:
+                node = self.tree.find(f.path)
+                node.n_eqns += n_ops
+                node.own_cycles += cyc
+        elif old != seg:
+            raise RuntimeError(
+                f"two visits of {f.path or '/'} differ at segment {f.ord} "
+                f"({old} then {seg}): shapes or control flow that depend "
+                f"on data cannot be priced from one capture")
+
+    def frame_close(self, f):
+        self._first.add(f.site)
+        self._acc.pop(id(f), None)
+
+    # -- branches: every branch runs once, the taken one's result counts -
+    def switch(self, index, branches, operands):
+        parent = self.top
+        sid, path = self._loop_site(parent, "cond")
+        self.nodes(path, "cond", tuple(f"branch{i}"
+                                       for i in range(len(branches))))
+        out = None
+        for i, fn in enumerate(branches):
+            res = self.run_branch(sid, path, i, fn, operands, parent)
+            if i == index:
+                out = res
+        self._resume(parent)
+        return out
+
+    # -- result ------------------------------------------------------------
+    def hierarchy(self) -> Hierarchy:
+        def finalize(node: ScopeNode) -> Tuple[int, bool]:
+            total, dyn = node.own_cycles, node.dynamic
+            for c in node.children.values():
+                sub, d = finalize(c)
+                mult = c.trip_count if (c.kind == "loop" and
+                                        c.trip_count) else 1
+                total += sub * mult
+                dyn = dyn or d or c.kind in ("while", "cond")
+            node.static_cycles, node.dynamic = total, dyn
+            return total, dyn
+
+        finalize(self.tree)
+        return Hierarchy(root=self.tree, sites=self.sites,
+                         segments=self.segments, ops=self.ops)
+
+
+def capture(fn, *args, **kwargs) -> Tuple[Hierarchy, Any]:
+    """Run ``fn`` once under the capture; returns (hierarchy, outputs)."""
+    cap = Capture()
+    with cap:
+        out = fn(*args, **kwargs)
+    return cap.hierarchy(), out

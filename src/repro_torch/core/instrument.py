@@ -1,0 +1,239 @@
+"""Non-intrusive instrumentation: the instrumented eager run.
+
+Port of ``repro.core.instrument``. JAX re-evaluates the traced jaxpr
+equation by equation and threads a probe state through it; here the
+function simply runs again, eagerly, with the scope markers
+(``core.scope``) live and NO dispatch hook, and at **scope transitions
+only** (the paper's edge-triggered sampling) the host applies the exits
+and enters to a device state with one ``kernels.probe_events`` launch:
+
+    enter(p):  starts[p] (first call), totals[p] -= now, ring write
+    exit(p):   ends[p] = now, totals[p] += now, ring write, calls[p] += 1
+
+Between transitions the model clock advances by the executed segments'
+cycles, taken from the capture's segment table (``core.hierarchy``),
+keyed by (site, ordinal within the visit): loop iterations and taken
+branches resolve to their own entries. The host sums them and passes the
+sum with the next launch ("now" = clock + segment cycles), so a segment
+costs no device work of its own. A run whose marker sequence leaves the
+captured one raises before it writes anything for it: it never writes
+counts that mean something else.
+
+In ``cycle_source="wallclock"`` "now" is the device's ``%globaltimer``
+(ns) read in stream order by the same kernel: on an asynchronous GPU the
+host's clock times the launch, not the execution. On the CPU the plain
+version reads ``time.perf_counter_ns()``, as the JAX package does.
+
+The state is int64 tensors: ``cycle`` (), ``cnt`` (3, n) with the
+STARTS / TOTALS / ENDS planes, ``calls`` (n,) and ``ring`` (n, depth, 2).
+The JAX package builds 64-bit counters from uint32 (hi, lo) pairs
+(``core/counters.py``) so that their width never depends on
+``jax_enable_x64``; CUDA and PyTorch have native int64 adds, so the port
+keeps plain int64 and has no counters module. As in the packed layout,
+an enter subtracts "now" from TOTALS and the exit adds it back, so no
+``last`` plane is needed.
+
+Outputs are untouched: the launches read and write only the state.
+The host counts every probe's calls (it issues the events), so it knows
+when a spilling probe's ring fills and queues the full row to the
+``HostSink`` (``core.buffer``) on the stream, right after that event.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import scope as sc
+from repro_torch.core.buffer import HostSink
+from repro_torch.core.hierarchy import Hierarchy
+from repro_torch.kernels import probe_events as kpe
+
+STARTS, TOTALS, ENDS = kpe.STARTS, kpe.TOTALS, kpe.ENDS
+CYCLE_SOURCES = ("model", "wallclock")
+
+
+def init_state(n_probes: int, depth: int, device=None) -> Dict[str, Any]:
+    """A zeroed probe state on ``device`` (the GPU unless 'cpu' is asked)."""
+    dev = resolve_device(device)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int64, device=dev)
+    return {"cycle": z(), "cnt": z(3, n_probes), "calls": z(n_probes),
+            "ring": z(n_probes, depth, 2)}
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def decode_record(record: Dict[str, Any]) -> Dict[str, Any]:
+    """Host-side view of a probe state: ``cycle`` (int),
+    ``starts``/``ends``/``totals``/``calls`` (int64 arrays) and ``ring``
+    (int64, (n, depth, 2) of (start, end) pairs), the keys of the JAX
+    package's ``decode_record``."""
+    cnt = _np(record["cnt"]).astype(np.int64)
+    return {
+        "cycle": int(_np(record["cycle"])),
+        "starts": np.atleast_1d(cnt[STARTS].copy()),
+        "ends": np.atleast_1d(cnt[ENDS].copy()),
+        "totals": np.atleast_1d(cnt[TOTALS].copy()),
+        "calls": np.atleast_1d(_np(record["calls"]).astype(np.int64)),
+        "ring": _np(record["ring"]).astype(np.int64),
+    }
+
+
+@dataclass
+class ProbeAssignment:
+    paths: Tuple[str, ...]                 # probe id -> scope path
+    depth: int                             # ring depth per probe
+    spill: Tuple[bool, ...]                # probe id -> DRAM offload enabled
+
+    def __post_init__(self):
+        self._ids = {p: i for i, p in enumerate(self.paths)}
+        self._chains: Dict[str, Tuple[int, ...]] = {}
+
+    @property
+    def n(self) -> int:
+        return len(self.paths)
+
+    def id_of(self, path: str) -> Optional[int]:
+        return self._ids.get(path)
+
+    def chain(self, path: str) -> Tuple[int, ...]:
+        """Probe ids active (outermost first) when executing at ``path``."""
+        hit = self._chains.get(path)
+        if hit is None:
+            ids, cur = [], ""
+            for s in (path.split("/") if path else []):
+                cur = f"{cur}/{s}" if cur else s
+                pid = self._ids.get(cur)
+                if pid is not None:
+                    ids.append(pid)
+            hit = self._chains[path] = tuple(ids)
+        return hit
+
+
+class Runner(sc.Tracker):
+    """One instrumented run: follows the markers against the capture and
+    writes the state."""
+    grow_sites = False
+
+    def __init__(self, h: Hierarchy, asg: ProbeAssignment,
+                 state: Dict[str, Any], cycle_source: str = "model",
+                 sink: Optional[HostSink] = None):
+        if cycle_source not in CYCLE_SOURCES:
+            raise ValueError(f"unknown cycle source {cycle_source!r}")
+        super().__init__(h.sites)
+        self.segs = h.segments
+        self.asg = asg
+        self.state = state
+        self.wall = cycle_source == "wallclock"
+        self.sink = sink
+        self.launch = kpe.Launcher(state)
+        self.pending = 0               # segment cycles not yet on the device
+        self._ev: List[int] = []       # coded events of the next launch
+        self.launches = 0
+        self.transitions = 0
+        self.dumps = 0
+        self._spill = any(asg.spill)
+        # host copy of the call counts, for spills only (one read of the
+        # device state, which waits for it)
+        self.calls = (state["calls"].cpu().tolist() if self._spill else None)
+
+    # -- events ------------------------------------------------------------
+    def _flush(self) -> None:
+        if self._ev or (self.pending and not self.wall):
+            self.launch(self._ev, self.pending, self.wall)
+            self.launches += 1
+        self._ev = []
+        self.pending = 0
+
+    def _enter(self, pid: int) -> None:
+        self._ev.append(kpe.encode(pid, True, self.asg.spill[pid]))
+
+    def _exit(self, pid: int) -> None:
+        spill = self.asg.spill[pid]
+        self._ev.append(kpe.encode(pid, False, spill))
+        if spill:
+            self.calls[pid] += 1
+            if self.calls[pid] % self.asg.depth == 0:
+                self._flush()
+                self._dump(pid, self.calls[pid] - self.asg.depth)
+
+    def _dump(self, pid: int, base: int) -> None:
+        row = self.state["ring"][pid]
+        if self.sink is None:
+            return
+        if row.device.type == "cuda":
+            dst = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
+            dst.copy_(row, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            self.sink.dump(pid, base, dst, ready)
+        else:
+            self.sink.dump(pid, base, row.clone())
+        self.dumps += 1
+
+    def _move(self, old: str, new: str) -> None:
+        a, b = self.asg.chain(old), self.asg.chain(new)
+        i = 0
+        while i < len(a) and i < len(b) and a[i] == b[i]:
+            i += 1
+        if i < len(a) or i < len(b):
+            self.transitions += 1
+        for pid in reversed(a[i:]):
+            self._exit(pid)
+        for pid in b[i:]:
+            self._enter(pid)
+
+    # -- tracker hooks -------------------------------------------------------
+    def _seg(self, f) -> Any:
+        seg = self.segs.get((f.site, f.ord))
+        if seg is None:
+            raise RuntimeError(
+                f"the run left the captured scope sequence at "
+                f"{f.path or '/'} (segment {f.ord} was never captured)")
+        return seg
+
+    def seg_begin(self, f):
+        seg = self._seg(f)
+        if not f.transparent and seg.triggers and f.entry.cur != f.path:
+            self._move(f.entry.cur, f.path)
+            f.entry.cur = f.path
+        if self._ev and (seg.n_ops or seg.cycles):
+            self._flush()          # the events happen before these ops
+        self.pending += seg.cycles
+
+    def seg_end(self, f, nxt):
+        want = self._seg(f).nxt
+        if want != nxt:
+            raise RuntimeError(
+                f"the run left the captured scope sequence at "
+                f"{f.path or '/'} (segment {f.ord}): captured {want}, "
+                f"ran {nxt}")
+
+    def frame_open(self, f):
+        if f.loop_path is not None:
+            pid = self.asg.id_of(f.loop_path)
+            if pid is not None:
+                self._enter(pid)
+
+    def frame_close(self, f):
+        if f.kind in ("iter", "body", "branch", "root"):
+            self._move(f.cur, f.path)
+            if f.loop_path is not None:
+                pid = self.asg.id_of(f.loop_path)
+                if pid is not None:
+                    self._exit(pid)
+        if f.kind == "root":
+            self._flush()
+
+    def stats(self) -> Dict[str, int]:
+        return dict(transitions=self.transitions, launches=self.launches,
+                    dumps=self.dumps)

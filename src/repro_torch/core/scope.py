@@ -1,0 +1,363 @@
+"""Scope and loop markers: the port's ``jax.named_scope``, ``lax.scan``,
+``lax.while_loop``, ``lax.cond`` / ``lax.switch``, and the kernel region.
+
+The JAX package reads scopes and loops from a traced jaxpr: name stacks
+give the scopes, ``scan``/``while``/``cond`` equations give the loop and
+branch nodes. Eager PyTorch leaves no such trace (a Python ``for`` over
+layers is invisible), so the program marks them::
+
+    with scope.named_scope("layers"):
+        for i in scope.scan(n_layers):          # node "layers/scan#0"
+            with scope.named_scope("layer"):
+                x = block(params[i], x)
+
+With no capture, probe or oracle active every marker costs one
+context-variable read and does nothing on the device: ``scan`` returns
+``range(n)``, ``while_loop`` and ``switch`` run a plain Python loop or
+branch, ``kernel_region`` returns a shared null context.
+
+While a ``Tracker`` is active (``core.hierarchy.Capture``,
+``core.instrument.Runner``, ``core.oracle.Oracle``) the markers drive its
+frame stack. Each marker event is either a *child event* of the frame on
+top (a named scope, a loop, a branch point) or the end of that frame.
+The stretch of a frame between two events is a *segment*; it is keyed
+by the frame's static *site* and its ordinal within the visit, so the
+iterations of a loop and the repeated visits of one scope resolve to
+the same keys, as one jaxpr equation does in JAX. Paths follow the JAX
+package's rules exactly:
+
+- a named scope's path is its parent's plus its name; a node exists only
+  once an operation ran in it (or below it);
+- the k-th static loop of a kind under one path is ``scan#k``,
+  ``while#k`` (children ``cond`` and ``body``) or ``cond#k`` (children
+  ``branch{i}``); the loop or branch point itself counts as an operation
+  of the enclosing path, as the equation does;
+- a scan iteration, a while body and a taken branch run as *entry
+  frames*: their own path is the starting point of the scope changes
+  inside them, so the probes of ``while#k/body``, ``cond#k`` and
+  ``cond#k/branch{i}`` are never entered (JAX's ``_eval`` starts there),
+  while a scan's or while loop's node is entered once per iteration;
+- a while loop's condition runs in a *transparent* frame: its
+  operations count toward the clock but change no scope, as JAX adds
+  the condition's cycles between iterations.
+
+Branch predicates and while conditions are read on the host (``bool``),
+which waits for the device: eager PyTorch cannot branch on the device.
+"""
+from __future__ import annotations
+
+import contextvars
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+_ACTIVE: "contextvars.ContextVar[Optional[Tracker]]" = contextvars.ContextVar(
+    "repro_torch_probe_tracker", default=None)
+
+END = ("end",)                     # the event that closes a frame
+
+
+class _Null:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _Null()
+
+
+class named_scope:
+    """``jax.named_scope``: ``with named_scope("attn"): ...``."""
+    __slots__ = ("name", "rec")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.rec = None
+
+    def __enter__(self):
+        rec = self.rec = _ACTIVE.get()
+        if rec is not None:
+            rec.push(self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.rec is not None and exc_type is None:
+            self.rec.pop(self.name)
+        return False
+
+
+def scan(length: int):
+    """``lax.scan`` over ``length`` steps: ``for i in scan(n): body``.
+    Each iteration is one visit of node ``<path>/scan#k``. Leaving the
+    loop early (``break``) is not allowed while probed."""
+    rec = _ACTIVE.get()
+    if rec is None:
+        return range(length)
+    return rec.scan(int(length))
+
+
+def while_loop(cond_fn: Callable[[Any], Any], body_fn: Callable[[Any], Any],
+               init: Any) -> Any:
+    """``lax.while_loop``: ``val = body_fn(val)`` while ``cond_fn(val)``."""
+    rec = _ACTIVE.get()
+    if rec is None:
+        val = init
+        while bool(cond_fn(val)):
+            val = body_fn(val)
+        return val
+    return rec.while_loop(cond_fn, body_fn, init)
+
+
+def switch(index, branches: Sequence[Callable], *operands) -> Any:
+    """``lax.switch``: ``branches[index](*operands)``, index clamped.
+    The branches should not mutate their operands: a capture runs every
+    branch once, to know each branch's scopes and costs."""
+    rec = _ACTIVE.get()
+    i = min(max(int(index), 0), len(branches) - 1)
+    if rec is None:
+        return branches[i](*operands)
+    return rec.switch(i, tuple(branches), operands)
+
+
+def cond(pred, true_fn: Callable, false_fn: Callable, *operands) -> Any:
+    """``lax.cond``: branch 0 is ``false_fn``, branch 1 ``true_fn``."""
+    return switch(1 if bool(pred) else 0, (false_fn, true_fn), *operands)
+
+
+def kernel_region(name: str, cost: Callable[[], Tuple[float, float]]):
+    """The region of one hand-written kernel call (CUDA kernel or its
+    plain version): a capture or oracle prices it as ONE operation named
+    ``name`` from ``cost() -> (flops, bytes)`` and prices nothing inside
+    it, so the record does not depend on which route ran."""
+    rec = _ACTIVE.get()
+    if rec is None:
+        return _NULL
+    return rec.kernel(name, cost)
+
+
+# --------------------------------------------------------------- tracker
+
+class Frame:
+    """One visit of a site: a named scope, a scan iteration, a while
+    condition or body, a branch, or the root."""
+    __slots__ = ("site", "path", "ord", "kind", "entry", "cur",
+                 "transparent", "loop_path")
+
+    def __init__(self, site: int, path: str, kind: str, entry: "Frame" = None,
+                 transparent: bool = False, loop_path: Optional[str] = None):
+        self.site = site
+        self.path = path
+        self.ord = 0
+        self.kind = kind
+        # the frame whose ``cur`` (effective scope path) this visit moves:
+        # itself for entry frames, else the enclosing entry frame's
+        self.entry = entry if entry is not None else self
+        self.cur = path
+        self.transparent = transparent
+        self.loop_path = loop_path
+
+
+class SiteTable:
+    """Static sites: (parent site, ordinal, tag) -> id, with each site's
+    path. A capture grows it; a run reads it."""
+
+    def __init__(self):
+        self.ids: Dict[Tuple[int, int, str], int] = {}
+        self.paths: List[str] = [""]
+        self._loops: Dict[Tuple[str, str], int] = {}
+
+    def child(self, parent: int, ordinal: int, tag: str, path: str,
+              grow: bool) -> int:
+        key = (parent, ordinal, tag)
+        sid = self.ids.get(key)
+        if sid is None:
+            if not grow:
+                raise KeyError(key)
+            sid = self.ids[key] = len(self.paths)
+            self.paths.append(path)
+        return sid
+
+    def loop_name(self, parent_path: str, kind: str) -> str:
+        """JAX's numbering: the k-th static loop of ``kind`` under a path."""
+        k = self._loops.get((parent_path, kind), 0)
+        self._loops[(parent_path, kind)] = k + 1
+        return f"{kind}#{k}"
+
+
+def _join(path: str, name: str) -> str:
+    return f"{path}/{name}" if path else name
+
+
+class Tracker:
+    """The frame stack the markers drive. Subclasses fill the hooks:
+
+    ``seg_begin(f)`` / ``seg_end(f, nxt)``  a segment of frame ``f``
+        starts / ends; ``nxt`` is the event that ends it (a child key
+        or ``END``);
+    ``trigger(f)``   a loop or branch point ran at ``f`` (an operation of
+        ``f``'s path that costs nothing);
+    ``frame_open(f)`` / ``frame_close(f)``  a visit starts / ends;
+    ``nodes(path, kind, children)``  a loop node and its fixed children
+        (``cond``/``body``, ``branch{i}``) were reached.
+    """
+    grow_sites = True
+
+    def __init__(self, sites: Optional[SiteTable] = None):
+        self.sites = sites if sites is not None else SiteTable()
+        self.root = Frame(0, "", "root")
+        self.stack: List[Frame] = [self.root]
+        self.in_kernel = False
+        self._token = None
+
+    # -- activation ------------------------------------------------------
+    def __enter__(self):
+        self._token = _ACTIVE.set(self)
+        self.frame_open(self.root)
+        self.seg_begin(self.root)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        _ACTIVE.reset(self._token)
+        if exc_type is None:
+            if len(self.stack) != 1:
+                raise RuntimeError(
+                    f"scope {self.stack[-1].path!r} still open at the end "
+                    f"of the run (a loop left early?)")
+            self.seg_end(self.root, END)
+            self.frame_close(self.root)
+        return False
+
+    @property
+    def top(self) -> Frame:
+        return self.stack[-1]
+
+    # -- hooks (no-ops here) ---------------------------------------------
+    def seg_begin(self, f: Frame) -> None: ...
+    def seg_end(self, f: Frame, nxt: tuple) -> None: ...
+    def trigger(self, f: Frame) -> None: ...
+    def frame_open(self, f: Frame) -> None: ...
+    def frame_close(self, f: Frame) -> None: ...
+    def nodes(self, path: str, kind: str, children: Tuple[str, ...]) -> None: ...
+
+    # -- frame mechanics ---------------------------------------------------
+    def _site(self, parent: Frame, tag: str, path: str) -> int:
+        return self._sub(parent.site, parent.ord, tag, path, parent.path)
+
+    def _sub(self, site: int, ordinal: int, tag: str, path: str,
+             where: str) -> int:
+        try:
+            return self.sites.child(site, ordinal, tag, path,
+                                    self.grow_sites)
+        except KeyError:
+            raise RuntimeError(
+                f"the run left the captured scope sequence: {tag!r} at "
+                f"{where or '/'} (segment {ordinal}) was never "
+                f"captured") from None
+
+    def _open(self, f: Frame) -> Frame:
+        self.stack.append(f)
+        self.frame_open(f)
+        self.seg_begin(f)
+        return f
+
+    def _close(self, f: Frame) -> None:
+        if self.stack[-1] is not f:
+            raise RuntimeError(f"scope {f.path!r} closed out of order")
+        self.seg_end(f, END)
+        self.stack.pop()
+        self.frame_close(f)
+
+    def _resume(self, parent: Frame) -> None:
+        parent.ord += 1
+        self.seg_begin(parent)
+
+    def _loop_site(self, parent: Frame, kind: str) -> Tuple[int, str]:
+        """Site and path of the loop / branch point starting at ``parent``."""
+        key = (parent.site, parent.ord, kind)
+        sid = self.sites.ids.get(key)
+        if sid is None:
+            name = self.sites.loop_name(parent.path, kind)
+            sid = self._site(parent, kind, _join(parent.path, name))
+        path = self.sites.paths[sid]
+        nxt = (kind, path.rsplit("/", 1)[-1])
+        self.seg_end(parent, nxt)
+        self.trigger(parent)
+        return sid, path
+
+    # -- markers -----------------------------------------------------------
+    def push(self, name: str) -> None:
+        parent = self.top
+        nxt = ("scope", name)
+        path = _join(parent.path, name)
+        sid = self._site(parent, "scope:" + name, path)
+        self.seg_end(parent, nxt)
+        self._open(Frame(sid, path, "scope", parent.entry,
+                         parent.transparent))
+
+    def pop(self, name: str) -> None:
+        f = self.top
+        if f.kind != "scope" or f.path.rsplit("/", 1)[-1] != name:
+            raise RuntimeError(f"named_scope({name!r}) closed out of order "
+                               f"(open: {f.path!r})")
+        self._close(f)
+        self._resume(self.top)
+
+    def scan(self, length: int):
+        parent = self.top
+        sid, path = self._loop_site(parent, "scan")
+        self.nodes(path, "loop", ())
+        for i in range(length):
+            f = self._open(Frame(sid, path, "iter", None, parent.transparent,
+                                 loop_path=path))
+            self.iteration(path, length)
+            yield i
+            self._close(f)
+        self._resume(parent)
+
+    def iteration(self, loop_path: str, length: int) -> None:
+        """A scan iteration starts (``Capture`` notes the trip count)."""
+
+    def while_loop(self, cond_fn, body_fn, init):
+        parent = self.top
+        sid, path = self._loop_site(parent, "while")
+        self.nodes(path, "while", ("cond", "body"))
+        cond_path, body_path = _join(path, "cond"), _join(path, "body")
+        val = init
+        while True:
+            cid = self._sub(sid, 0, "cond", cond_path, path)
+            f = self._open(Frame(cid, cond_path, "cond", parent.entry, True))
+            go = bool(cond_fn(val))
+            self._close(f)
+            if not go:
+                break
+            bid = self._sub(sid, 1, "body", body_path, path)
+            f = self._open(Frame(bid, body_path, "body", None,
+                                 parent.transparent, loop_path=path))
+            val = body_fn(val)
+            self._close(f)
+        self._resume(parent)
+        return val
+
+    def switch(self, index: int, branches, operands):
+        parent = self.top
+        sid, path = self._loop_site(parent, "cond")
+        self.nodes(path, "cond", tuple(f"branch{i}"
+                                       for i in range(len(branches))))
+        out = self.run_branch(sid, path, index, branches[index], operands,
+                              parent)
+        self._resume(parent)
+        return out
+
+    def run_branch(self, sid: int, path: str, i: int, fn, operands,
+                   parent: Frame):
+        bpath = _join(path, f"branch{i}")
+        bid = self._sub(sid, i, f"branch{i}", bpath, path)
+        f = self._open(Frame(bid, bpath, "branch", None, parent.transparent))
+        out = fn(*operands)
+        self._close(f)
+        return out
+
+    def kernel(self, name: str, cost):
+        return _NULL

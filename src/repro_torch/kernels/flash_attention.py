@@ -52,6 +52,7 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import scope
 from repro_torch.kernels import _build
 
 BLOCK_Q = 64
@@ -188,6 +189,25 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     (bf16, D in (64, 128), contiguous) or raise.
     """
     _check(q, k, v, q_offset, causal)
+    with scope.kernel_region("flash_attention",
+                             lambda: flash_cost(q, k, v, q_offset, causal)):
+        return _flash(q, k, v, causal, q_offset, with_probe)
+
+
+def flash_cost(q, k, v, q_offset: int = 0, causal: bool = True):
+    """(FLOPs, bytes) of one call, as its bound counts them: 4 B H D per
+    visible (q, k) pair; q, k, v read once, the output written once."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    if causal:       # row i sees keys 0 .. q_offset + i (< Skv)
+        pairs = Sq * q_offset + Sq * (Sq + 1) // 2
+    else:
+        pairs = Sq * Skv
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    return 4.0 * B * H * D * pairs, float(nbytes)
+
+
+def _flash(q, k, v, causal: bool, q_offset: int, with_probe: bool):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset, with_probe=with_probe)

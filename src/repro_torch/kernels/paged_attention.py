@@ -47,6 +47,7 @@ import math
 
 import torch
 
+from repro_torch.core import scope
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
@@ -118,6 +119,26 @@ def paged_attention(q, pool_k, pool_v, pages, pos, *,
     kernel clamps page ids into the pool.
     """
     _check(q, pool_k, pool_v, pages, pos, pages_per_step)
+    with scope.kernel_region(
+            "paged_attention",
+            lambda: paged_cost(q, pool_k, pool_v, pages, pos)):
+        return _paged(q, pool_k, pool_v, pages, pos)
+
+
+def paged_cost(q, pool_k, pool_v, pages, pos):
+    """(FLOPs, bytes) of one call priced from the shapes alone, every
+    slot of every row's pages visible (the most the data can ask; the
+    TPU kernel is priced statically too): 4 kv g hd per visible slot;
+    q (bf16) read once, each visible K/V row once, the page table and
+    positions once, the f32 output written once."""
+    B, kv, g, hd = q.shape
+    slots = B * pages.shape[1] * pool_k.shape[1]
+    nbytes = (2 * q.numel() + 2 * 2 * slots * kv * hd + 4 * pages.numel()
+              + 4 * pos.numel() + 4 * q.numel())
+    return 4.0 * kv * g * hd * slots, float(nbytes)
+
+
+def _paged(q, pool_k, pool_v, pages, pos):
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, pages, pos)
     if q.device.type != "cuda":

@@ -95,6 +95,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import scope
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (64,)              # P the kernel takes (mamba2, zamba2)
@@ -210,6 +211,31 @@ def ssd_scan(x, a, b, c, *, chunk: int, h_per_g: int, pipeline: int = 1,
     that launched them.
     """
     Q = _check(x, a, b, c, chunk, pipeline, h_per_g)
+    with scope.kernel_region(
+            "ssd_scan",
+            lambda: ssd_cost(x, a, b, c, chunk, return_final_state)):
+        return _ssd(x, a, b, c, Q, chunk, h_per_g, pipeline,
+                    return_final_state)
+
+
+def ssd_cost(x, a, b, c, chunk: int, return_final_state: bool):
+    """(FLOPs, bytes) of one call, as its bound counts them: c . b once
+    per group and chunk and (L o decay) x over the causal triangle of
+    each chunk, c . state and the state update per step; x, b, c, a read
+    once, y (and the f32 state) written once."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    nc, tri = L // chunk, chunk * (chunk + 1) // 2
+    flops = 2.0 * (B * G * nc * tri * N + B * H * nc * tri * P
+                   + 2 * B * H * L * P * N)
+    nbytes = (x.element_size() * (2 * x.numel() + b.numel() + c.numel())
+              + 4 * a.numel() + (4 * B * H * P * N if return_final_state
+                                 else 0))
+    return flops, float(nbytes)
+
+
+def _ssd(x, a, b, c, Q: int, chunk: int, h_per_g: int, pipeline: int,
+         return_final_state: bool):
     if x.device.type == "cpu":
         return ssd_scan_plain(x, a, b, c, chunk=chunk, h_per_g=h_per_g,
                               pipeline=pipeline,

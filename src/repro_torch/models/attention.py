@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import scope
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import Param, apply_rope
 
@@ -91,10 +92,14 @@ def attn_prefill(params, x, positions, cfg: ModelConfig):
     """Full-sequence causal self-attention that also returns the layer's
     (unrepeated) K/V rows in ``kv_cache_dtype``; the caller places them
     in its cache."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    o = causal_attend(q, k, v, cfg).to(x.dtype)
+    with scope.named_scope("qkv"):
+        q, k, v = _project_qkv(params, x, cfg, positions)
+    with scope.named_scope("flash"):
+        o = causal_attend(q, k, v, cfg)
+    with scope.named_scope("out_proj"):
+        out = out_proj(o.to(x.dtype), params["wo"])
     kvd = getattr(torch, cfg.kv_cache_dtype)
-    return out_proj(o, params["wo"]), (k.to(kvd), v.to(kvd))
+    return out, (k.to(kvd), v.to(kvd))
 
 
 def attn_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
@@ -105,25 +110,30 @@ def attn_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
     Returns (out (B,1,d), cache_k, cache_v)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
-    Hp, HD = q.shape[2], q.shape[3]
-    H, kv = cfg.num_heads, cfg.num_kv_heads
-    qg = q[:, :, :H].reshape(B, 1, kv, cfg.q_per_kv, HD)
-    cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
-    scale = 1.0 / math.sqrt(HD)
-    bf = torch.bfloat16
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(bf).float(),
-                     cache_k.to(bf).float()) * scale
-    S_max = cache_k.shape[1]
-    mask = torch.arange(S_max, device=x.device) <= pos
-    s = s.masked_fill(~mask, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgqs,bskh->bkgqh", (p / l).to(bf).float(),
-                     cache_v.to(bf).float())
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, HD).to(x.dtype)
-    if Hp != H:
-        o = F.pad(o, (0, 0, 0, Hp - H))
-    return out_proj(o, params["wo"]), cache_k, cache_v
+    with scope.named_scope("qkv"):
+        q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+        Hp, HD = q.shape[2], q.shape[3]
+        H, kv = cfg.num_heads, cfg.num_kv_heads
+        qg = q[:, :, :H].reshape(B, 1, kv, cfg.q_per_kv, HD)
+    with scope.named_scope("cache_update"):
+        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+    with scope.named_scope("attend"):
+        scale = 1.0 / math.sqrt(HD)
+        bf = torch.bfloat16
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg.to(bf).float(),
+                         cache_k.to(bf).float()) * scale
+        S_max = cache_k.shape[1]
+        mask = torch.arange(S_max, device=x.device) <= pos
+        s = s.masked_fill(~mask, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bkgqs,bskh->bkgqh", (p / l).to(bf).float(),
+                         cache_v.to(bf).float())
+    with scope.named_scope("out_proj"):
+        o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, HD).to(x.dtype)
+        if Hp != H:
+            o = F.pad(o, (0, 0, 0, Hp - H))
+        out = out_proj(o, params["wo"])
+    return out, cache_k, cache_v

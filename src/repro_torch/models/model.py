@@ -19,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import scope
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Param, materialize
 
@@ -78,7 +79,8 @@ class Model:
 
     def _embed_in(self, params, batch):
         cd = getattr(torch, self.cfg.compute_dtype)
-        return params["embed"][batch["tokens"].long()].to(cd)
+        with scope.named_scope("embed"):
+            return params["embed"][batch["tokens"].long()].to(cd)
 
     def _positions(self, seq: int, batch_size: int, device):
         return torch.arange(seq, device=device)[None].expand(batch_size, seq)
@@ -110,7 +112,9 @@ class Model:
         positions = self._positions(S, B, x.device)
         x, cache = tfm.stack_prefill(p["stack"], x, positions, self.cfg,
                                      cache_len)
-        return self._logits(p, x[:, -1]), cache
+        with scope.named_scope("last_logits"):
+            logits = self._logits(p, x[:, -1])
+        return logits, cache
 
     def decode_step(self, params, cache, batch):
         """One token for every sequence. batch: {"tokens": (B, 1), "pos":
@@ -119,5 +123,6 @@ class Model:
         x = self._embed_in(p, batch)
         x, cache = tfm.stack_decode(p["stack"], cache, x, int(batch["pos"]),
                                     self.cfg)
-        logits = self._logits(p, x[:, -1])
+        with scope.named_scope("last_logits"):
+            logits = self._logits(p, x[:, -1])
         return logits, cache, torch.argmax(logits, dim=-1).to(torch.int32)

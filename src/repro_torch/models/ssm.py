@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import scope
 from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.models.layers import Param, rmsnorm
 
@@ -73,33 +74,40 @@ def ssm_apply(params, x, cfg: ModelConfig, *, return_state: bool = False):
     d = ssm_dims(cfg)
     B, S, _ = x.shape
     di, g, n, h = d["d_inner"], d["groups"], d["d_state"], d["heads"]
-    zxbcdt = x @ params["in_proj"]
+    with scope.named_scope("in_proj"):
+        zxbcdt = x @ params["in_proj"]
     z, xbc_raw, dt = torch.split(zxbcdt, [di, d["conv_dim"], h], dim=-1)
-    xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"]))
+    with scope.named_scope("conv"):
+        xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"],
+                                  params["conv_b"]))
     xs, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
     xs = xs.reshape(B, S, h, d["head_dim"])
     b = b.reshape(B, S, g, n)
     c = c.reshape(B, S, g, n)
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    a = -torch.exp(params["a_log"].float())                     # (h,)
-    a_disc = (dt * a).float()                                   # (B,S,h)
-    x_disc = xs * dt[..., None].to(xs.dtype)
-    chunk = min(d["chunk"], S)           # the port has no tuning registry
-    pad = (-S) % chunk
-    if pad:
-        # zero-pad: a=0 (decay 1) with x=0 leaves state/output intact
-        x_disc = F.pad(x_disc, (0, 0, 0, 0, 0, pad))
-        a_disc = F.pad(a_disc, (0, 0, 0, pad))
-        b = F.pad(b, (0, 0, 0, 0, 0, pad))
-        c = F.pad(c, (0, 0, 0, 0, 0, pad))
-    y, final_state = kssd.ssd_scan(x_disc, a_disc, b, c, chunk=chunk,
-                                   h_per_g=h // g, return_final_state=True)
-    if pad:
-        y = y[:, :S]
-    y = y + params["d_skip"][:, None].to(xs.dtype) * xs
-    y = y.reshape(B, S, di)
-    y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
-    out = y @ params["out_proj"]
+    with scope.named_scope("discretize"):
+        dt = F.softplus(dt.float() + params["dt_bias"])
+        a = -torch.exp(params["a_log"].float())                 # (h,)
+        a_disc = (dt * a).float()                               # (B,S,h)
+        x_disc = xs * dt[..., None].to(xs.dtype)
+    with scope.named_scope("ssd"):
+        chunk = min(d["chunk"], S)       # the port has no tuning registry
+        pad = (-S) % chunk
+        if pad:
+            # zero-pad: a=0 (decay 1) with x=0 leaves state/output intact
+            x_disc = F.pad(x_disc, (0, 0, 0, 0, 0, pad))
+            a_disc = F.pad(a_disc, (0, 0, 0, pad))
+            b = F.pad(b, (0, 0, 0, 0, 0, pad))
+            c = F.pad(c, (0, 0, 0, 0, 0, pad))
+        y, final_state = kssd.ssd_scan(x_disc, a_disc, b, c, chunk=chunk,
+                                       h_per_g=h // g,
+                                       return_final_state=True)
+        if pad:
+            y = y[:, :S]
+    with scope.named_scope("out"):
+        y = y + params["d_skip"][:, None].to(xs.dtype) * xs
+        y = y.reshape(B, S, di)
+        y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
+        out = y @ params["out_proj"]
     if return_state:
         K = d["conv_kernel"]
         # the last K-1 conv inputs; a prompt shorter than that is
@@ -119,26 +127,30 @@ def ssm_decode(params, x, conv_state, ssd_state, cfg: ModelConfig):
                       d["head_dim"])
     zxbcdt = (x @ params["in_proj"])[:, 0]
     z, xbc, dt = torch.split(zxbcdt, [di, d["conv_dim"], h], dim=-1)
-    w = params["conv_w"]                                        # (K, C)
-    hist = torch.cat([conv_state, xbc[:, None]], dim=1)         # (B,K,C)
-    y_conv = torch.einsum("bkc,kc->bc", hist.float(), w.float()).to(
-        hist.dtype) + params["conv_b"]
-    new_conv_state = hist[:, 1:]
-    xbc = F.silu(y_conv)
+    with scope.named_scope("conv_step"):
+        w = params["conv_w"]                                    # (K, C)
+        hist = torch.cat([conv_state, xbc[:, None]], dim=1)     # (B,K,C)
+        y_conv = torch.einsum("bkc,kc->bc", hist.float(), w.float()).to(
+            hist.dtype) + params["conv_b"]
+        new_conv_state = hist[:, 1:]
+        xbc = F.silu(y_conv)
     xs, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
     xs = xs.reshape(B, h, p)
-    e = h // g
-    # head h reads group h // e, as in the prefill scan
-    b = b.reshape(B, g, n).repeat_interleave(e, dim=1)          # (B,h,n)
-    c = c.reshape(B, g, n).repeat_interleave(e, dim=1)
-    dt = F.softplus(dt.float() + params["dt_bias"])             # (B,h)
-    a = -torch.exp(params["a_log"].float())
-    da = torch.exp(dt * a)                                      # (B,h)
-    bx = torch.einsum("bhn,bhp->bhpn", b.float(), xs.float() * dt[..., None])
-    new_state = ssd_state * da[..., None, None] + bx            # (B,h,p,n)
-    y = torch.einsum("bhpn,bhn->bhp", new_state, c.float())
-    y = y.to(xs.dtype) + params["d_skip"][:, None].to(xs.dtype) * xs
-    y = y.reshape(B, di)
-    y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
-    out = (y @ params["out_proj"])[:, None]
+    with scope.named_scope("state_update"):
+        e = h // g
+        # head h reads group h // e, as in the prefill scan
+        b = b.reshape(B, g, n).repeat_interleave(e, dim=1)      # (B,h,n)
+        c = c.reshape(B, g, n).repeat_interleave(e, dim=1)
+        dt = F.softplus(dt.float() + params["dt_bias"])         # (B,h)
+        a = -torch.exp(params["a_log"].float())
+        da = torch.exp(dt * a)                                  # (B,h)
+        bx = torch.einsum("bhn,bhp->bhpn", b.float(),
+                          xs.float() * dt[..., None])
+        new_state = ssd_state * da[..., None, None] + bx        # (B,h,p,n)
+        y = torch.einsum("bhpn,bhn->bhp", new_state, c.float())
+        y = y.to(xs.dtype) + params["d_skip"][:, None].to(xs.dtype) * xs
+    with scope.named_scope("out"):
+        y = y.reshape(B, di)
+        y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
+        out = (y @ params["out_proj"])[:, None]
     return out, new_conv_state, new_state

@@ -2,8 +2,10 @@
 
 Port of the dense and ``ssm`` branches of ``repro.models.transformer``.
 Layer parameters stay stacked along a leading layer axis, as the JAX
-schema has them; a Python loop over layers takes the place of
-``lax.scan``. The hybrid and MoE families are not ported.
+schema has them; a Python loop over ``scope.scan`` takes the place of
+``lax.scan``, under the JAX package's scope names (``layers``,
+``layer``, ``attn``/``ssm``, ``mlp``, ``final_norm``), so a probe sees
+the same tree. The hybrid and MoE families are not ported.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import scope
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (index_tree, mlp_apply, mlp_schema,
@@ -38,7 +41,9 @@ def stack_schemas(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def mlp_residual(lp, h, cfg: ModelConfig):
-    return h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps))
+    with scope.named_scope("mlp"):
+        m = mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"], cfg.norm_eps))
+    return h + m
 
 
 def stack_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
@@ -56,14 +61,20 @@ def stack_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
     kvd = getattr(torch, cfg.kv_cache_dtype)
     ck = torch.zeros(shape, dtype=kvd, device=x.device)
     cv = torch.zeros(shape, dtype=kvd, device=x.device)
-    for li in range(L):
-        lp = index_tree(params["layers"], li)
-        a, (k, v) = attn.attn_prefill(
-            lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), positions, cfg)
-        ck[li, :, :S] = k
-        cv[li, :, :S] = v
-        x = mlp_residual(lp, x + a, cfg)
-    return rmsnorm(x, params["ln_f"], cfg.norm_eps), {"k": ck, "v": cv}
+    with scope.named_scope("layers"):
+        for li in scope.scan(L):
+            with scope.named_scope("layer"):
+                lp = index_tree(params["layers"], li)
+                with scope.named_scope("attn"):
+                    a, (k, v) = attn.attn_prefill(
+                        lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                        positions, cfg)
+                    ck[li, :, :S] = k
+                    cv[li, :, :S] = v
+                x = mlp_residual(lp, x + a, cfg)
+    with scope.named_scope("final_norm"):
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return x, {"k": ck, "v": cv}
 
 
 def stack_decode(params, cache, x, pos: int, cfg: ModelConfig):
@@ -71,36 +82,51 @@ def stack_decode(params, cache, x, pos: int, cfg: ModelConfig):
     Returns (x, cache)."""
     if cfg.family == "ssm":
         return _stack_decode_ssm(params, cache, x, cfg)
-    for li in range(cfg.num_layers):
-        lp = index_tree(params["layers"], li)
-        a, _, _ = attn.attn_decode(
-            lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
-            cache["k"][li], cache["v"][li], pos, cfg)
-        x = mlp_residual(lp, x + a, cfg)
-    return rmsnorm(x, params["ln_f"], cfg.norm_eps), cache
+    with scope.named_scope("layers"):
+        for li in scope.scan(cfg.num_layers):
+            with scope.named_scope("layer"):
+                lp = index_tree(params["layers"], li)
+                with scope.named_scope("attn"):
+                    a, _, _ = attn.attn_decode(
+                        lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                        cache["k"][li], cache["v"][li], pos, cfg)
+                x = mlp_residual(lp, x + a, cfg)
+    with scope.named_scope("final_norm"):
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return x, cache
 
 
 def _stack_prefill_ssm(params, x, cfg: ModelConfig):
     convs, ssds = [], []
-    for li in range(cfg.num_layers):
-        lp = index_tree(params["layers"], li)
-        y, conv_s, ssd_s = ssm_mod.ssm_apply(
-            lp["ssm"], rmsnorm(x, lp["ln"], cfg.norm_eps), cfg,
-            return_state=True)
-        x = x + y
-        convs.append(conv_s)
-        ssds.append(ssd_s)
+    # no "ssm" scope here: the JAX package's prefill has none either
+    with scope.named_scope("layers"):
+        for li in scope.scan(cfg.num_layers):
+            with scope.named_scope("layer"):
+                lp = index_tree(params["layers"], li)
+                y, conv_s, ssd_s = ssm_mod.ssm_apply(
+                    lp["ssm"], rmsnorm(x, lp["ln"], cfg.norm_eps), cfg,
+                    return_state=True)
+                x = x + y
+                convs.append(conv_s)
+                ssds.append(ssd_s)
     cache = {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}
-    return rmsnorm(x, params["ln_f"], cfg.norm_eps), cache
+    with scope.named_scope("final_norm"):
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return x, cache
 
 
 def _stack_decode_ssm(params, cache, x, cfg: ModelConfig):
-    for li in range(cfg.num_layers):
-        lp = index_tree(params["layers"], li)
-        y, conv_s, ssd_s = ssm_mod.ssm_decode(
-            lp["ssm"], rmsnorm(x, lp["ln"], cfg.norm_eps),
-            cache["conv"][li], cache["ssd"][li], cfg)
-        x = x + y
-        cache["conv"][li] = conv_s
-        cache["ssd"][li] = ssd_s
-    return rmsnorm(x, params["ln_f"], cfg.norm_eps), cache
+    with scope.named_scope("layers"):
+        for li in scope.scan(cfg.num_layers):
+            with scope.named_scope("layer"):
+                lp = index_tree(params["layers"], li)
+                with scope.named_scope("ssm"):
+                    y, conv_s, ssd_s = ssm_mod.ssm_decode(
+                        lp["ssm"], rmsnorm(x, lp["ln"], cfg.norm_eps),
+                        cache["conv"][li], cache["ssd"][li], cfg)
+                x = x + y
+                cache["conv"][li] = conv_s
+                cache["ssd"][li] = ssd_s
+    with scope.named_scope("final_norm"):
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return x, cache

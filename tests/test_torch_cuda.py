@@ -319,3 +319,98 @@ def test_ssd_kernel_rejects_what_it_does_not_take(dev):
         ssd.ssd_scan(x, a.to(torch.bfloat16), b, c, chunk=32, h_per_g=2)
     with pytest.raises(ValueError, match="different devices"):
         ssd.ssd_scan(x, a.cpu(), b, c, chunk=32, h_per_g=2)
+
+
+# ------------------------------------------------------------ probe core
+
+def _random_transitions(seed, n, steps):
+    """(codes, seg) per transition: exits of open probes, then enters of
+    closed ones, as the instrumented run issues them."""
+    import random
+    from repro_torch.kernels import probe_events as kpe
+    rnd = random.Random(seed)
+    spill = [i % 2 == 1 for i in range(n)]
+    open_, out = set(), []
+    for _ in range(steps):
+        exits = sorted(p for p in open_ if rnd.random() < 0.5)
+        enters = sorted(p for p in set(range(n)) - open_ - set(exits)
+                        if rnd.random() < 0.5)
+        open_ = (open_ - set(exits)) | set(enters)
+        out.append(([kpe.encode(p, False, spill[p]) for p in exits]
+                    + [kpe.encode(p, True, spill[p]) for p in enters],
+                    rnd.randrange(1 << 40)))
+    return out
+
+
+@pytest.mark.parametrize("n,depth", [(1, 1), (5, 3), (40, 4)])
+def test_probe_events_kernel_matches_plain(dev, n, depth):
+    """Model clock: the kernel and its plain version give the same int64
+    state after a sequence of transitions (spilling and not)."""
+    from repro_torch.core import init_state
+    from repro_torch.kernels import probe_events as kpe
+    ks, ps = init_state(n, depth, dev), init_state(n, depth, dev)
+    for codes, seg in _random_transitions(n, n, 80):
+        kpe.probe_events(ks, codes, seg)
+        kpe.probe_events_plain(ps, codes, seg)
+    for k in ks:
+        assert torch.equal(ks[k], ps[k]), k
+
+
+def test_probe_events_wallclock_is_monotone(dev):
+    """%globaltimer read in stream order: each enter's time <= its exit's,
+    and the clock never goes back."""
+    from repro_torch.core import decode_record, init_state
+    from repro_torch.kernels import probe_events as kpe
+    st = init_state(1, 8, dev)
+    last = 0
+    for _ in range(8):
+        kpe.probe_events(st, [kpe.encode(0, True, False)], wallclock=True)
+        torch.cuda._sleep(10000)
+        kpe.probe_events(st, [kpe.encode(0, False, False)], wallclock=True)
+        rec = decode_record(st)
+        assert rec["cycle"] >= last > -1
+        last = rec["cycle"]
+    ring = rec["ring"][0]
+    assert (ring[:, 0] <= ring[:, 1]).all() and (ring[1:, 0] >= ring[:-1, 1]).all()
+    assert rec["totals"][0] == int((ring[:, 1] - ring[:, 0]).sum())
+
+
+def test_probe_on_the_card_equals_oracle(dev):
+    """A probed program with a scan, a branch and the flash kernel on
+    CUDA tensors: record == oracle, outputs bitwise, one flash launch a
+    call inside the probed run."""
+    from repro_torch.core import ProbeConfig, decode_record, probe, scope
+
+    def fn(q, k, v, w):
+        with scope.named_scope("layers"):
+            for _ in scope.scan(3):
+                with scope.named_scope("attn"):
+                    q = fa.flash_attention(q, k, v) + q
+                with scope.named_scope("mix"):
+                    q = (q.float() @ w).to(q.dtype)
+        with scope.named_scope("head"):
+            return scope.cond(q.float().sum() > 0, lambda t: t * 2,
+                              lambda t: t - 1, q)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+               for s in ((1, 8, 128, 64), (1, 2, 128, 64), (1, 2, 128, 64)))
+    w = torch.randn((64, 64), generator=gen, device=dev) / 8
+    for offload in (0.0, 0.5):
+        pf = probe(fn, ProbeConfig(inline="off_all", offload=offload,
+                                   buffer_depth=2))
+        pf.ensure_built(q, k, v, w)
+        fa.flash_attention.launches = 0
+        out, rec = pf(q, k, v, w)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == 3
+        assert torch.equal(out, fn(q, k, v, w))
+        oc = pf.oracle(q, k, v, w)
+        dec = decode_record(rec)
+        assert dec["cycle"] == oc.cycle
+        for key in ("starts", "ends", "totals", "calls"):
+            assert [int(x) for x in dec[key]] == getattr(oc, key), key
+        rows = pf.report(rec).rows
+        for i, row in enumerate(rows):        # spilled rows reassembled
+            if pf.assignment.spill[i]:
+                assert row.iters == oc.history[i], row.path
+        assert (pf.sink.dumps > 0) == (offload > 0)

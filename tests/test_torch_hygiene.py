@@ -18,6 +18,12 @@ PORT_MODULES = (
     "repro_torch.kernels", "repro_torch.kernels.ref",
     "repro_torch.kernels._build", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.paged_attention", "repro_torch.kernels.ssd_scan",
+    "repro_torch.kernels.probe_events",
+    "repro_torch.core", "repro_torch.core.scope",
+    "repro_torch.core.costmodel", "repro_torch.core.hierarchy",
+    "repro_torch.core.inline", "repro_torch.core.buffer",
+    "repro_torch.core.instrument", "repro_torch.core.oracle",
+    "repro_torch.core.report", "repro_torch.core.pragma",
     "repro_torch.engine",
     "repro_torch.engine.pagetable", "repro_torch.engine.step",
     "repro_torch.engine.engine", "repro_torch.launch.serve",
@@ -38,7 +44,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 
 def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
-    """With no GPU and no device="cpu", serve() and Model.init raise."""
+    """With no GPU and no device="cpu", serve(), Model.init, probe() and
+    init_state raise."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
@@ -47,6 +54,11 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
         serve(batch=1, prompt_len=4, max_new=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(smoke_config("tinyllama-1.1b")).init(0)
+    from repro_torch.core import init_state, probe
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        probe(lambda x: x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(2, 4)
 
 
 def test_serve_engine_and_legacy_loop_agree_on_cpu():

@@ -1,0 +1,543 @@
+"""The port's probe core (``repro_torch.core``) against ``repro.core``.
+
+Same programs, same inputs (made from a seed with numpy) through both
+packages' ``probe``: the README quickstart, the four workloads of
+``test_probe_accuracy`` rewritten with ``repro_torch.core.scope``, and
+the tinyllama-1.1b and mamba2-370m smoke prefills and the tinyllama
+``decode_step`` of ``tools/regen_golden.py`` (zero cache (2, 64),
+``pos=3``).
+
+- Paths and calls: ``probe_paths()`` equal JAX's in order and the
+  decoded ``calls`` equal JAX's exactly, with ``max_probes`` large enough
+  that the cap does not bite. Two kinds of JAX path are left out
+  (``_jax_only``): the scopes JAX generates for einsums
+  (``qkv/bsd,dnh->bsnh``), and the XLA scopes under a node the port
+  computes as ONE kernel op (``attn/flash``: ``qblk/...``; ``ssd``:
+  ``intra``, ``chunk_states``, ``state_pass``, ``inter``). The models are
+  compared under ``inline="off_all"``: JAX counts jaxpr equations and
+  the port aten operations, so a small scope (``in_proj``: one einsum
+  equation, three aten operations) can fall on either side of the
+  default policy's threshold. The small programs are compared under
+  both policies.
+- Exactness inside the port: the device record equals ``pf.oracle``
+  (cycle, starts, ends, totals, calls), integer-equal, with offload 0
+  and 0.5. Records are never compared with JAX's: the two price on
+  different chips' constants.
+- Non-intrusiveness: probed outputs are ``torch.equal`` to unprobed.
+
+Per ROADMAP Queue 3 the two properties the reference fails today
+(causal skew in grid steps, bit identity under a live session) are not
+held against its output here. The probe kernel on the card is tested in
+``tests/test_torch_cuda.py`` (no JAX there).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import ShapeConfig
+from repro.configs.registry import smoke_config as jax_smoke_config
+from repro.core import ProbeConfig as JaxProbeConfig
+from repro.core import probe as jax_probe
+from repro.core import instrument as jinst
+from repro.core.instrument import decode_record as jax_decode_record
+from repro.models import Model as JaxModel
+from repro_torch.configs.registry import smoke_config
+from repro_torch.core import (ProbeConfig, decode_record, init_state, probe,
+                              scope)
+from repro_torch.core import costmodel as cm
+from repro_torch.kernels import probe_events as kpe
+from repro_torch.models import Model
+from repro_torch.models.convert import params_from_numpy
+
+
+# ------------------------------------------------------------ programs
+# each program twice: JAX (as in test_probe_accuracy / the README) and
+# the port, with scope markers in place of named_scope / scan / ...
+
+def j_quickstart(x, w):
+    with jax.named_scope("layers"):
+        x, _ = jax.lax.scan(lambda c, _: (jnp.tanh(c @ w) + c, None),
+                            x, None, length=8)
+    with jax.named_scope("head"):
+        return jnp.sum(x * x)
+
+
+def t_quickstart(x, w):
+    with scope.named_scope("layers"):
+        for _ in scope.scan(8):
+            x = torch.tanh(x @ w) + x
+    with scope.named_scope("head"):
+        return torch.sum(x * x)
+
+
+def j_scan(x, w):
+    def body(c, _):
+        with jax.named_scope("layer"):
+            c = jnp.tanh(c @ w) @ w.T + c
+        return c, None
+    with jax.named_scope("layers"):
+        x, _ = jax.lax.scan(body, x, None, length=5)
+    with jax.named_scope("head"):
+        return jnp.sum(x * x)
+
+
+def t_scan(x, w):
+    with scope.named_scope("layers"):
+        for _ in scope.scan(5):
+            with scope.named_scope("layer"):
+                x = torch.tanh(x @ w) @ w.T + x
+    with scope.named_scope("head"):
+        return torch.sum(x * x)
+
+
+def j_while(x, w):
+    def cond(c):
+        return jnp.sum(jnp.abs(c[0])) < 1e4
+
+    def body(c):
+        with jax.named_scope("grow"):
+            return (c[0] @ w * 1.2 + 1.0, c[1] + 1)
+    with jax.named_scope("dynamic"):
+        y, n = jax.lax.while_loop(cond, body, (x, jnp.int32(0)))
+    return jnp.sum(y), n
+
+
+def t_while(x, w):
+    def cond(c):
+        return torch.sum(torch.abs(c[0])) < 1e4
+
+    def body(c):
+        with scope.named_scope("grow"):
+            return (c[0] @ w * 1.2 + 1.0, c[1] + 1)
+    n0 = torch.zeros((), dtype=torch.int32)
+    with scope.named_scope("dynamic"):
+        y, n = scope.while_loop(cond, body, (x, n0))
+    return torch.sum(y), n
+
+
+def j_cond(x, w):
+    def heavy(v):
+        with jax.named_scope("heavy"):
+            return jnp.tanh(v @ w) @ w.T
+
+    def light(v):
+        with jax.named_scope("light"):
+            return v * 2.0
+    with jax.named_scope("branch"):
+        y = jax.lax.cond(jnp.sum(x) > 0, heavy, light, x)
+    return jnp.sum(y)
+
+
+def t_cond(x, w):
+    def heavy(v):
+        with scope.named_scope("heavy"):
+            return torch.tanh(v @ w) @ w.T
+
+    def light(v):
+        with scope.named_scope("light"):
+            return v * 2.0
+    with scope.named_scope("branch"):
+        y = scope.cond(torch.sum(x) > 0, heavy, light, x)
+    return torch.sum(y)
+
+
+def j_nested(x, w):
+    def inner_body(c, _):
+        with jax.named_scope("inner"):
+            return jnp.tanh(c @ w) + c, None
+
+    def outer_body(c, _):
+        with jax.named_scope("group"):
+            c, _ = jax.lax.scan(inner_body, c, None, length=3)
+            with jax.named_scope("mix"):
+                c = c @ w.T @ w
+        return c, None
+    with jax.named_scope("outer"):
+        x, _ = jax.lax.scan(outer_body, x, None, length=2)
+    return jnp.sum(x)
+
+
+def t_nested(x, w):
+    with scope.named_scope("outer"):
+        for _ in scope.scan(2):
+            with scope.named_scope("group"):
+                for _ in scope.scan(3):
+                    with scope.named_scope("inner"):
+                        x = torch.tanh(x @ w) + x
+                with scope.named_scope("mix"):
+                    x = x @ w.T @ w
+    return torch.sum(x)
+
+
+def _small(name):
+    """(jax fn, torch fn, numpy args) of one small program."""
+    if name == "quickstart":
+        x = np.full((16, 64), 0.02, np.float32)
+        w = np.full((64, 64), 1.0 / 64, np.float32)
+        return j_quickstart, t_quickstart, (x, w)
+    rng = np.random.default_rng(7)
+    x = (0.05 + 0.01 * rng.standard_normal((8, 16))).astype(np.float32)
+    w = (0.07 + 0.01 * rng.standard_normal((16, 16))).astype(np.float32)
+    fns = {"scan": (j_scan, t_scan), "while_dynamic": (j_while, t_while),
+           "cond": (j_cond, t_cond), "nested_scan": (j_nested, t_nested)}
+    return fns[name] + ((x, w),)
+
+
+SMALL = ("quickstart", "scan", "while_dynamic", "cond", "nested_scan")
+MODELS = ("tinyllama_prefill", "tinyllama_decode", "mamba2_prefill")
+
+
+def _model(name):
+    """(jax fn, jax args, torch fn, torch args factory) of a smoke model
+    program; the factory makes fresh tensors (decode updates its cache
+    in place)."""
+    arch = "mamba2-370m" if name.startswith("mamba2") else "tinyllama-1.1b"
+    jm = JaxModel(jax_smoke_config(arch))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = Model(smoke_config(arch))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    B = 2
+    if name.endswith("prefill"):
+        toks = np.random.default_rng(3).integers(
+            0, 257, (B, 16)).astype(np.int32)
+        return (lambda p, b: jm.prefill(p, b, 32),
+                (jp, {"tokens": jnp.asarray(toks)}),
+                lambda p, b: tm.prefill(p, b, 32),
+                lambda: (tp, {"tokens": torch.from_numpy(toks)}))
+    cache = jm.init_cache(ShapeConfig("t", seq_len=64, global_batch=B,
+                                      kind="decode"))
+    np_cache = jax.tree_util.tree_map(np.asarray, cache)
+    toks = np.zeros((B, 1), np.int32)
+    return (jm.decode_step,
+            (jp, cache, {"tokens": jnp.asarray(toks), "pos": jnp.int32(3)}),
+            tm.decode_step,
+            lambda: (tp, params_from_numpy(np_cache, "cpu"),
+                     {"tokens": torch.from_numpy(toks), "pos": 3}))
+
+
+def _jax_only(path: str) -> bool:
+    """JAX paths the port has no counterpart for (see the docstring)."""
+    segs = path.split("/")
+    if any("->" in s for s in segs):
+        return True
+    for kern in ("flash", "ssd"):
+        if kern in segs[:-1]:
+            return True
+    return False
+
+
+def _jax_paths_calls(fn, args, cfg):
+    pf = jax_probe(fn, cfg)
+    _, rec = pf(*args)
+    calls = jax_decode_record(rec)["calls"]
+    return [(p, int(c)) for p, c in zip(pf.probe_paths(), calls)
+            if not _jax_only(p)]
+
+
+def _torch_paths_calls(pf, rec):
+    return list(zip(pf.probe_paths(),
+                    [int(c) for c in decode_record(rec)["calls"]]))
+
+
+def _torch_args(args):
+    return tuple(torch.from_numpy(a) for a in args)
+
+
+def _assert_exact(pf, rec, oc):
+    dec = decode_record(rec)
+    for i, p in enumerate(pf.probe_paths()):
+        assert int(dec["totals"][i]) == oc.totals[i], p
+        assert int(dec["calls"][i]) == oc.calls[i], p
+        assert int(dec["starts"][i]) == oc.starts[i], p
+        assert int(dec["ends"][i]) == oc.ends[i], p
+        assert [tuple(r) for r in dec["ring"][i].tolist()] == \
+            oc.ring[i], p
+    assert dec["cycle"] == oc.cycle
+
+
+def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _flat(out[k])]
+    return [t for o in out for t in _flat(o)]
+
+
+# ------------------------------------------------- paths and calls vs JAX
+
+@pytest.mark.parametrize("inline", ["off_all", "default"])
+@pytest.mark.parametrize("name", SMALL)
+def test_small_programs_paths_and_calls_match_jax(name, inline):
+    jfn, tfn, args = _small(name)
+    want = _jax_paths_calls(jfn, tuple(jnp.asarray(a) for a in args),
+                            JaxProbeConfig(inline=inline, max_probes=500))
+    pf = probe(tfn, ProbeConfig(inline=inline, max_probes=500), device="cpu")
+    _, rec = pf(*_torch_args(args))
+    assert _torch_paths_calls(pf, rec) == want
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_model_paths_and_calls_match_jax(name):
+    jfn, jargs, tfn, targs = _model(name)
+    want = _jax_paths_calls(jfn, jargs,
+                            JaxProbeConfig(inline="off_all", max_probes=500))
+    pf = probe(tfn, ProbeConfig(inline="off_all", max_probes=500),
+               device="cpu")
+    _, rec = pf(*targs())
+    got = _torch_paths_calls(pf, rec)
+    assert got == want
+    # the kernel nodes hold ONE op of the kernel, nothing of its plain
+    # version
+    for path, kern in (("layers/scan#0/layer/attn/flash", "flash_attention"),
+                       ("layers/scan#0/layer/ssd", "ssd_scan")):
+        if pf.hierarchy.node(path) is not None:
+            names = [op for op, _ in pf.hierarchy.ops[path]]
+            assert names.count(kern) == 1, names
+            assert not {"exp", "cumsum", "bmm"} & set(names), names
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(max_probes=3), dict(max_probes=1), dict(depth_limit=1),
+    dict(depth_limit=0, targets=("outer/scan#0",)),
+    dict(targets=("outer/scan#0/group",), depth_limit=1),
+    dict(inline="off_top", targets=("outer/scan#0/group",)),
+])
+def test_selection_matches_jax(cfg):
+    jfn, tfn, args = _small("nested_scan")
+    want = _jax_paths_calls(jfn, tuple(jnp.asarray(a) for a in args),
+                            JaxProbeConfig(**cfg))
+    pf = probe(tfn, ProbeConfig(**cfg), device="cpu")
+    _, rec = pf(*_torch_args(args))
+    assert _torch_paths_calls(pf, rec) == want
+
+
+# -------------------------------------------- exactness inside the port
+
+@pytest.mark.parametrize("offload", [0.0, 0.5])
+@pytest.mark.parametrize("name", SMALL + MODELS)
+def test_record_equals_oracle_and_outputs_unchanged(name, offload):
+    if name in SMALL:
+        _, fn, args = _small(name)
+        make = lambda: _torch_args(args)                       # noqa: E731
+    else:
+        _, _, fn, make = _model(name)
+    pf = probe(fn, ProbeConfig(inline="off_all", max_probes=500,
+                               offload=offload, buffer_depth=2),
+               device="cpu")
+    out, rec = pf(*make())
+    _assert_exact(pf, rec, pf.oracle(*make()))
+    plain = fn(*make())
+    for a, b in zip(_flat(out), _flat(plain)):
+        assert torch.equal(a, b)
+    if offload:
+        assert any(pf.assignment.spill)
+
+
+def test_offload_is_lossless():
+    _, fn, args = _small("scan")
+    pf = probe(fn, ProbeConfig(inline="off_all", buffer_depth=2,
+                               offload=1.0), device="cpu")
+    _, rec = pf(*_torch_args(args))
+    oc = pf.oracle(*_torch_args(args))
+    _assert_exact(pf, rec, oc)
+    li = pf.probe_paths().index("layers/scan#0/layer")
+    row = pf.report(rec).row("layers/scan#0/layer")
+    assert row.iters == oc.history[li]          # full history reassembled
+    assert pf.sink.dumps > 0
+
+
+def test_first_depth_truncation_without_offload():
+    _, fn, args = _small("scan")
+    pf = probe(fn, ProbeConfig(inline="off_all", buffer_depth=4),
+               device="cpu")
+    _, rec = pf(*_torch_args(args))
+    oc = pf.oracle(*_torch_args(args))
+    li = pf.probe_paths().index("layers/scan#0/layer")
+    row = pf.report(rec).row("layers/scan#0/layer")
+    assert row.calls == 5
+    assert row.iters == oc.history[li][:4]
+    assert pf.sink.dumps == 0
+
+
+# ----------------------------------------------------------- odds and ends
+
+def test_decode_record_of_a_fresh_state():
+    rec = decode_record(init_state(n_probes=2, depth=4, device="cpu"))
+    assert (rec["cycle"], [int(t) for t in rec["totals"]],
+            [int(c) for c in rec["calls"]]) == (0, [0, 0], [0, 0])
+    assert rec["ring"].shape == (2, 4, 2)
+
+
+def test_stateful_call_accumulates():
+    _, fn, args = _small("quickstart")
+    x, w = _torch_args(args)
+    pf = probe(fn, ProbeConfig(), device="cpu")
+    pf.ensure_built(x, w)
+    state = pf.init_state()
+    one = None
+    for i in range(3):
+        _, state = pf.stateful_call(state, x + 0.01 * i, w)
+        one = one or decode_record(state)["cycle"]
+    rec = decode_record(state)
+    assert rec["calls"][0] == 3
+    assert rec["cycle"] == 3 * one
+
+
+def test_retarget_reuses_the_capture():
+    _, fn, args = _small("nested_scan")
+    pf = probe(fn, ProbeConfig(inline="off_all"), device="cpu")
+    pf(*_torch_args(args))
+    assert pf.captures == 1 and len(pf.probe_paths()) == 6
+    pf.retarget(ProbeConfig(targets=("outer/scan#0/group",)))
+    _, rec = pf(*_torch_args(args))
+    assert pf.captures == 1
+    assert pf.probe_paths()[0] == "outer/scan#0/group"
+    _assert_exact(pf, rec, pf.oracle(*_torch_args(args)))
+    # a new shape is a new capture
+    pf(*(torch.from_numpy(np.tile(a, (2, 1))) if i == 0 else
+         torch.from_numpy(a) for i, a in enumerate(args)))
+    assert pf.captures == 2
+
+
+def test_scalars_are_run_time_values():
+    """The decode step's pos changes nothing in the capture."""
+    _, _, fn, make = _model("tinyllama_decode")
+    pf = probe(fn, ProbeConfig(inline="off_all", max_probes=500),
+               device="cpu")
+    p, cache, batch = make()
+    pf(p, cache, batch)
+    batch = dict(batch, pos=9)
+    _, rec = pf(p, cache, batch)
+    assert pf.captures == 1
+    _assert_exact(pf, rec, pf.oracle(p, cache, batch))
+
+
+def test_wallclock_on_the_cpu():
+    _, fn, args = _small("scan")
+    pf = probe(fn, ProbeConfig(inline="off_all", cycle_source="wallclock"),
+               device="cpu")
+    out, rec = pf(*_torch_args(args))
+    assert torch.equal(out, fn(*_torch_args(args)))
+    dec = decode_record(rec)
+    assert (dec["calls"] == pf.oracle(*_torch_args(args)).calls).all()
+    for i in range(len(pf.probe_paths())):
+        assert dec["ends"][i] >= dec["starts"][i] > 0
+
+
+def test_leaving_the_captured_sequence_raises():
+    names = ["a"]
+
+    def fn(x):
+        with scope.named_scope(names[0]):
+            x = x * 2.0
+        with scope.named_scope("b"):
+            return x + 1.0
+    pf = probe(fn, ProbeConfig(inline="off_all"), device="cpu")
+    pf(torch.ones(4))
+    names[0] = "c"
+    with pytest.raises(RuntimeError, match="left the captured"):
+        pf(torch.ones(4))
+
+
+def test_visits_that_differ_raise_at_capture():
+    def fn(x):
+        with scope.named_scope("layers"):
+            for i in scope.scan(3):
+                with scope.named_scope("layer"):
+                    x = torch.cat([x, x[:1]])          # grows every step
+        return x
+    with pytest.raises(RuntimeError, match="differ"):
+        probe(fn, device="cpu")(torch.ones(512, 512))
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError):
+        ProbeConfig(kernel_probes=("*",))
+    with pytest.raises(NotImplementedError):
+        ProbeConfig(layout="legacy")
+
+
+def test_markers_are_plain_without_a_probe():
+    assert isinstance(scope.scan(3), range)
+    assert scope.while_loop(lambda v: v < 5, lambda v: v + 2, 0) == 6
+    assert scope.cond(True, lambda v: v + 1, lambda v: v - 1, 1) == 2
+    assert scope.switch(7, [lambda: 0, lambda: 1]) == 1
+    with scope.named_scope("x"), scope.kernel_region("k", None):
+        pass
+
+
+def test_cost_model():
+    from repro_torch.core.hierarchy import capture
+    a, b = torch.ones(4, 8), torch.ones(8, 16)
+
+    def fn(a, b):
+        with scope.named_scope("mm"):
+            c = a @ b
+        with scope.named_scope("view"):
+            d = c.t().reshape(-1)
+        with scope.named_scope("exp"):
+            return torch.exp(d)
+    h, _ = capture(fn, a, b)
+    assert h.ops["mm"] == [("mm", cm.roofline_cycles(2 * 4 * 8 * 16,
+                                                      4 * (32 + 128 + 64)))]
+    # t is a view; reshape of the transposed copy must copy (clone)
+    assert [op for op, _ in h.ops["view"]][0] == "t"
+    assert h.ops["view"][0][1] == 0
+    assert h.ops["exp"] == [("exp", cm.roofline_cycles(8 * 64, 4 * 128))]
+
+
+def test_probe_events_plain_matches_jax_emit_events():
+    """The kernel's plain version against the TPU path's emit_events on
+    the same transitions (model clock; exits, then enters)."""
+    n, depth = 5, 3
+    spill = (False, True, False, True, False)
+    rng = np.random.default_rng(5)
+    jstate = jinst.init_state(n, depth)
+    tstate = init_state(n, depth, device="cpu")
+    open_ = set()
+    t = 0
+    for _ in range(40):
+        exits = tuple(sorted(p for p in open_ if rng.random() < 0.5))
+        enters = tuple(sorted(p for p in set(range(n)) - open_
+                              - set(exits) if rng.random() < 0.5))
+        open_ = (open_ - set(exits)) | set(enters)
+        seg = int(rng.integers(0, 1 << 40))
+        t += seg
+        jstate = jinst.emit_events(
+            jstate, jnp.uint32(t >> 32), jnp.uint32(t & 0xFFFFFFFF), exits,
+            enters, depth, spill)
+        codes = [kpe.encode(p, False, spill[p]) for p in exits] + \
+            [kpe.encode(p, True, spill[p]) for p in enters]
+        kpe.probe_events(tstate, codes, seg)
+    want = jax_decode_record(jstate)
+    got = decode_record(tstate)
+    for key in ("starts", "ends", "totals", "calls", "ring"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert got["cycle"] == t
+
+
+@pytest.mark.parametrize("name", ["scan", "nested_scan"])
+def test_report_views(name):
+    """Bottleneck (same leaf as JAX's), table, timeline, to_dict, the
+    mapping table and the bump chart."""
+    from repro_torch.core import bump_chart
+    jfn, tfn, args = _small(name)
+    jpf = jax_probe(jfn, JaxProbeConfig(inline="off_all"))
+    _, jrec = jpf(*(jnp.asarray(a) for a in args))
+    pf = probe(tfn, ProbeConfig(inline="off_all"), device="cpu")
+    _, rec = pf(*_torch_args(args))
+    rep = pf.report(rec)
+    assert rep.bottleneck().path == jpf.report(jrec).bottleneck().path
+    assert rep.span == decode_record(rec)["cycle"] > 0
+    assert all(r.static_cycles == r.total_cycles for r in rep.rows)
+    assert len(rep.table().splitlines()) == len(rep.rows) + 1
+    assert len(rep.timeline().splitlines()) == len(rep.rows) + 1
+    d = rep.to_dict()
+    assert d["cycle_source"] == "model" and len(d["rows"]) == len(rep.rows)
+    table = pf.hierarchy.mapping_table()
+    assert [r["path"] for r in table][1:] == pf.hierarchy.all_paths()
+    ranked = [r.path for r in sorted(rep.rows, key=lambda r: -r.total_cycles)]
+    chart = bump_chart({"static": ranked, "measured": ranked})
+    assert chart.splitlines()[1].count(ranked[0]) == 2
