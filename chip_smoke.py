@@ -41,7 +41,34 @@
    time; transitions and launches per call, state bytes), the host time
    of a scope marker with no probe, and the resolution of
    ``%globaltimer``;
-9. times each kernel (CUDA events, median) beside its plain version, a
+9. serves tinyllama-1.1b at full width (8 x 512 prompt tokens, 32 new,
+   the decode kernel) through two engines, one probed (``probe=True``,
+   default targets, 16 probes, every (phase, shape) step in a
+   ``ProbeSession``, published to a ``ControlPlane`` on port 0) and one
+   not: after a warm-up run of each (the probed one captures its steps
+   there), the checked runs must give 256/256 equal token ids with
+   bitwise-equal first-step logits, flash and paged launches of 22 x
+   the steps in both, equal phase steps, zero retraces, and request
+   bills that sum to the phase totals (each decode round billed to all
+   its riders); while the engine is live the status server's
+   ``/status``, ``/probes``, ``/engine/phases`` (== ``phase_stats``) and
+   ``/metrics`` are fetched. Prints the phase and request tables, each
+   request's wall latency (submit to its ``request`` publish, host clock,
+   by a bus subscriber) beside the batch wall, per step family the
+   transitions, ``probe_events`` launches and dumps of a step, the
+   host-device syncs in a step (``torch.cuda.set_sync_debug_mode``) with
+   the session's host mirrors and with the device reads they replace,
+   the capture time and ``state_nbytes``; then the batch walls in turns
+   (median of 5): unprobed, probed, probed with those device reads, and
+   probed with the spilled rows' copies made no-ops;
+10. serves mamba2-370m at full width through the legacy loop profiled
+   (``profile=True``, ``profile_every=8``: the decode loop under a
+   ``ProbeSession``): the token ids must equal the unprofiled serve's of
+   step 7, the prefill must make 48 SSD wrapper calls, and the final
+   snapshot's calls per probe must equal the 31 steps x a one-shot
+   probe's; the ``[probe]`` lines, the table and the bump chart are
+   printed by ``serve``;
+11. times each kernel (CUDA events, median) beside its plain version, a
    library call where one computes the same function (attention: SDPA
    under its flash backend), and its bound, at the main path's shapes:
    flash for the whole prefill and for a chunk (Sq=128 at q offset 384),
@@ -57,6 +84,7 @@ device it exits 1 before printing any result. The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -64,6 +92,8 @@ import statistics
 import subprocess
 import sys
 import time
+import urllib.request
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -96,6 +126,7 @@ SSD_RTOL = dict(y=2e-2, state=1e-2)
 SSD_F32_RTOL = dict(y=8e-3, state=2e-5)
 
 ARCH, BATCH, PROMPT, MAX_NEW, CHUNK = "tinyllama-1.1b", 8, 512, 32, 8
+WALL_TURNS = 5
 SSM_ARCH, SSM_PROMPT = "mamba2-370m", 1024
 
 
@@ -405,7 +436,7 @@ def serve_ssm(torch, counters, serve, ssd_kernels):
           f"{per_call} x {got[2]} = {per_call * got[2]} "
           f"({', '.join(ssd_kernels)})")
     assert got == (0, 0, L)
-    return got[2]
+    return got[2], res
 
 
 def ssm_consistency(torch, dev):
@@ -699,6 +730,252 @@ def serve_runs(torch, fa, pa, ssd, serve):
     return runs["kernel"][1], runs["kernel"][2]
 
 
+@contextlib.contextmanager
+def session_device_reads():
+    """Run probe sessions as the parent tree did: the call counts read
+    from the device at every call and ``clock()`` read from the device
+    (the values are the host mirrors', so the bills are unchanged)."""
+    from repro_torch.core.instrument import state_clock
+    from repro_torch.core.pragma import ProbedFunction
+    from repro_torch.core.streaming import ProbeSession
+    run, clock = ProbedFunction._run, ProbeSession.clock
+
+    def read_run(self, state, args, kwargs, calls=None):
+        if any(self.assignment.spill):
+            state["calls"].cpu()
+        return run(self, state, args, kwargs, calls=calls)
+    ProbedFunction._run = read_run
+    ProbeSession.clock = lambda self: (state_clock(self._state)
+                                       if self._state is not None else 0)
+    try:
+        yield
+    finally:
+        ProbedFunction._run, ProbeSession.clock = run, clock
+
+
+@contextlib.contextmanager
+def no_spill_copies():
+    """Run probe sessions with the spilled rows' copies made no-ops (the
+    rings still fill; the sinks get nothing): the host cost of the
+    offload, by difference."""
+    from repro_torch.core.instrument import Runner
+    dump = Runner._dump
+    Runner._dump = lambda self, pid, base: None
+    try:
+        yield
+    finally:
+        Runner._dump = dump
+
+
+def _get(url: str) -> bytes:
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read()
+
+
+def probed_engine_phase(torch, fa, pa, kpe, dev):
+    """tinyllama-1.1b at full width through a probed engine and an
+    unprobed one (see the module docstring, step 9). Returns the
+    probe_events launches of the checked probed run."""
+    from collections import defaultdict
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.models import Model
+    from repro_torch.telemetry import ControlPlane, TelemetryBus
+    m = Model(get_config(ARCH))
+    L = m.cfg.num_layers
+    params = m.init(0, dev)
+    V = m.cfg.vocab_size
+    prompts = torch.randint(0, V, (BATCH, PROMPT), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1)).numpy()
+    pages = -(-(PROMPT + MAX_NEW - 1) // 16)
+    ecfg = dict(page_size=16, pool_pages=BATCH * pages + 2, max_pages=pages,
+                buckets=(1, BATCH), use_kernel=True)
+    plane = ControlPlane(0).start()
+    buses = {"plain": TelemetryBus(), "probed": plane.bus}
+    engines = {name: InferenceEngine(
+        m, params, EngineConfig(**ecfg, probe=name == "probed"),
+        bus=buses[name]) for name in buses}
+    done_at = {name: [] for name in buses}
+    for name, bus in buses.items():
+        bus.subscribe("request", lambda info, name=name: done_at[name].append(
+            (info["rid"], time.perf_counter())))
+
+    def serve_once(name):
+        eng = engines[name]
+        done_at[name].clear()
+        before = {k: dict(v) for k, v in eng.phase_stats.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for row in prompts:
+            eng.submit(row.tolist(), MAX_NEW)
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lat = {rid: t - t0 for rid, t in done_at[name]}
+        delta = {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
+                 for k, v in eng.phase_stats.items()}
+        eng.drain()
+        return done, wall, [lat[r.rid] for r in done], delta
+
+    for name in engines:                     # warm-up; the probed engine
+        serve_once(name)                     # captures its steps here
+    checked = {}
+    for name in engines:
+        fa.flash_attention.launches = 0
+        pa.paged_attention.launches = 0
+        kpe.probe_events.launches = 0
+        done, wall, lat, delta = serve_once(name)
+        checked[name] = dict(done=done, wall=wall, lat=lat, delta=delta,
+                             flash=fa.flash_attention.launches,
+                             paged=pa.paged_attention.launches,
+                             pe=kpe.probe_events.launches)
+    eng = engines["probed"]
+    docs = {ep: _get(plane.server.url + ep) for ep in
+            ("/status", "/probes", "/engine/phases", "/metrics")}
+    c, u = checked["probed"], checked["plain"]
+    toks = {k: [r.out_tokens for r in v["done"]] for k, v in checked.items()}
+    same = sum(a == b for ra, rb in zip(toks["probed"], toks["plain"])
+               for a, b in zip(ra, rb))
+    logits = all(torch.equal(a.first_logits, b.first_logits)
+                 for a, b in zip(c["done"], u["done"]))
+    steps = {k: {p: v["steps"] for p, v in ck["delta"].items()}
+             for k, ck in checked.items()}
+    want = (L * steps["plain"]["prefill"], L * steps["plain"]["decode"])
+    print(f"probed engine [{ARCH}, {BATCH} x {PROMPT} + {MAX_NEW}, decode "
+          f"kernel]: token ids equal to the unprobed engine's {same}/"
+          f"{BATCH * MAX_NEW}; first-step logits bitwise equal: {logits}; "
+          f"launches flash, paged: probed ({c['flash']}, {c['paged']}), "
+          f"unprobed ({u['flash']}, {u['paged']}) (want {want}); phase "
+          f"steps {steps['probed']} (unprobed {steps['plain']}); retraces "
+          f"{eng.retraces()}; probe_events launches {c['pe']}")
+    assert same == BATCH * MAX_NEW and logits
+    assert (c["flash"], c["paged"]) == (u["flash"], u["paged"]) == want
+    assert steps["probed"] == steps["plain"] and eng.retraces() == 0
+    ph = c["delta"]
+    bills = {p: sum(r.phase_cycles[p] for r in c["done"])
+             for p in ("prefill", "cache")}
+    assert bills == {p: ph[p]["cycles"] for p in bills}, (bills, ph)
+    assert all(r.phase_cycles["decode"] == ph["decode"]["cycles"]
+               for r in c["done"])    # every request rode every round
+    eng_doc = json.loads(docs["/engine/phases"])
+    probes_doc = json.loads(docs["/probes"])
+    status = json.loads(docs["/status"])
+    print(f"status server {plane.server.url} while the engine is live: "
+          f"/status {len(docs['/status'])} B ({status['engine']}), /probes "
+          f"{len(docs['/probes'])} B (streams {sorted(probes_doc)}), "
+          f"/engine/phases {len(docs['/engine/phases'])} B, /metrics "
+          f"{len(docs['/metrics'])} B; /engine/phases == phase_stats: "
+          f"{eng_doc['phases'] == eng.phase_stats}")
+    assert eng_doc["phases"] == eng.phase_stats
+    assert set(probes_doc) == {f"engine/{p}x{s}" for p, s in eng._steps}
+    assert b"repro_engine_phase_cycles_total" in docs["/metrics"]
+    print("# per-phase cycle attribution (checked probed run, cumulative "
+          "over the warm-up and checked runs)")
+    print(eng.phase_table())
+    print("# per-request phase bill (checked probed run)")
+    print(eng.request_table(c["done"]))
+    for k, ck in checked.items():
+        print(f"per-request wall latency, submit to its request publish "
+              f"[{k}] (ms): "
+              f"{[round(t * 1e3, 1) for t in ck['lat']]}; batch wall "
+              f"{ck['wall'] * 1e3:.1f} ms")
+
+    def count_syncs(name):
+        """Host-device syncs in one serve, in each phase's steps and in
+        all; torch warns once per synchronizing operation."""
+        e = engines[name]
+        per = defaultdict(int)
+        step = e._step
+
+        def spy(phase, size, *args):
+            n0 = len(w)
+            out = step(phase, size, *args)
+            per[phase] += len(w) - n0
+            return out
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            e._step = spy
+            try:
+                _, _, _, delta = serve_once(name)
+            finally:
+                e._step = step
+                torch.cuda.set_sync_debug_mode("default")
+        return ({p: round(per[p] / delta[p]["steps"], 2) for p in per},
+                len(w))
+    syncs = {"unprobed": count_syncs("plain"), "probed": count_syncs("probed")}
+    with session_device_reads():
+        syncs["probed, device reads"] = count_syncs("probed")
+    for k, (per, total) in syncs.items():
+        print(f"host-device syncs [{k}]: per step of each phase {per}; "
+              f"{total} in the serve")
+    for (phase, size), entry in sorted(eng._steps.items()):
+        st = entry.pf.last_run
+        print(f"session engine/{phase}x{size}: {entry.steps} steps, "
+              f"{len(entry.paths)} probes; last step {st['transitions']} "
+              f"transitions, {st['launches']} probe_events launches, "
+              f"{st['dumps']} dumps; capture {entry.pf.capture_seconds * 1e3:.1f}"
+              f" ms ({entry.pf.captures} capture); state_nbytes "
+              f"{entry.state_nbytes()}; rows dropped {entry.sink.dropped}")
+        assert entry.pf.captures == 1 and entry.sink.dropped == 0
+    modes = {"unprobed": contextlib.nullcontext,
+             "probed": contextlib.nullcontext,
+             "probed, device reads": session_device_reads,
+             "probed, spill copies made no-ops": no_spill_copies}
+    walls = {k: [] for k in modes}
+    for i in range(WALL_TURNS):
+        order = list(walls) if i % 2 == 0 else list(walls)[::-1]
+        for k in order:
+            with modes[k]():
+                walls[k].append(serve_once("plain" if k == "unprobed"
+                                           else "probed")[1])
+    print(f"batch walls in turns (ms, median of {WALL_TURNS}): " + ", ".join(
+        f"{k} {statistics.median(v) * 1e3:.1f} "
+        f"({[round(t * 1e3, 1) for t in v]})" for k, v in walls.items()))
+    for e in engines.values():
+        e.close()
+    plane.finish()
+    return c["pe"]
+
+
+def profiled_ssm_phase(torch, fa, pa, ssd, serve, plain, dev):
+    """mamba2-370m at full width, the legacy loop profiled (module
+    docstring, step 10); ``plain`` is step 7's unprofiled serve."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import ProbeConfig, decode_record, probe
+    from repro_torch.models import Model
+    L = get_config(SSM_ARCH).num_layers
+    for fn in (fa.flash_attention, pa.paged_attention, ssd.ssd_scan):
+        fn.launches = 0
+    res = serve(SSM_ARCH, smoke=False, batch=BATCH, prompt_len=SSM_PROMPT,
+                max_new=MAX_NEW, profile=True, profile_every=8)
+    torch.cuda.synchronize()
+    got = (fa.flash_attention.launches, pa.paged_attention.launches,
+           ssd.ssd_scan.launches)
+    same = int((res.tokens == plain.tokens).sum())
+    snap = res.snapshot
+    m = Model(get_config(SSM_ARCH))
+    p = m._compute_cast(m.init(0, dev))
+    toks = torch.randint(0, m.cfg.vocab_size, (1, 16), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(9))
+    _, cache = m.prefill(p, {"tokens": toks}, 17)
+    pf = probe(m.decode_step, ProbeConfig(offload=1.0, max_probes=16))
+    _, rec = pf(p, cache, {"tokens": toks[:, -1:], "pos": 16})
+    one = dict(zip(pf.probe_paths(),
+                   (int(c) for c in decode_record(rec)["calls"])))
+    calls_ok = (tuple(snap.paths) == pf.probe_paths() and all(
+        r.calls == snap.steps * one[r.path] for r in snap.rows))
+    print(f"profiled serve [{SSM_ARCH}, legacy loop]: {res.seconds * 1e3:.1f}"
+          f" ms (unprofiled {plain.seconds * 1e3:.1f} ms); token ids equal to "
+          f"the unprofiled serve's {same}/{plain.tokens.size}; launches flash, "
+          f"paged, ssd {got} (want (0, 0, {L})); {snap.steps} decode steps, "
+          f"calls per probe == steps x one-shot: {calls_ok}; state "
+          f"{snap.state_nbytes} B")
+    assert same == plain.tokens.size and got == (0, 0, L) and calls_ok
+    assert snap.steps == MAX_NEW - 1
+    del m, p, cache
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -742,11 +1019,13 @@ def main() -> int:
     paged = check_paged(torch, pa, dev)
     scan = check_ssd(torch, ssd, ssd_ref, dev)
     flash_launches, paged_launches = serve_runs(torch, fa, pa, ssd, serve)
-    ssd_launches = serve_ssm(
+    ssd_launches, ssm_plain = serve_ssm(
         torch, (fa.flash_attention, pa.paged_attention, ssd.ssd_scan), serve,
         ssd.KERNELS)
     ssm_consistency(torch, dev)
     probed = probe_phase(torch, fa, ssd, kpe, dev)
+    pe_launches = probed_engine_phase(torch, fa, pa, kpe, dev)
+    profiled_ssm_phase(torch, fa, pa, ssd, serve, ssm_plain, dev)
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -834,7 +1113,7 @@ def main() -> int:
         dict(name="probe_events", route="cuda",
              source="src/repro_torch/csrc/probe_events.cu",
              replaces="src/repro/core/instrument.py:292",
-             launches=probed["launches"], max_abs_err=float(pev["err"]),
+             launches=pe_launches, max_abs_err=float(pev["err"]),
              ms=pe_ms, plain_ms=pe_plain, bound_ms=pev["bound"][0],
              bound_by=pev["bound"][1], library_ms=None),
     ]

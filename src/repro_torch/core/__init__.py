@@ -20,6 +20,8 @@ Stages (paper Fig 3):
   2 extraction  hierarchy.capture (one run under a dispatch mode)
   3 IP          instrument.Runner + kernels.probe_events (+ buffer spill)
   5 results     report (table / timeline / bump chart), oracle (ILA)
+  streaming     ProbeSession: the probe kept running across steps, with
+                constant-memory aggregates (StreamingSink, StreamAggregator)
 """
 from repro_torch.core import scope
 from repro_torch.core.hierarchy import Hierarchy, capture
@@ -27,7 +29,10 @@ from repro_torch.core.instrument import decode_record, init_state
 from repro_torch.core.oracle import Oracle
 from repro_torch.core.pragma import ProbeConfig, ProbedFunction, probe
 from repro_torch.core.report import Report, bump_chart
+from repro_torch.core.streaming import (ProbeSession, StreamAggregator,
+                                        StreamingSink, StreamSnapshot)
 
 __all__ = ["scope", "probe", "ProbeConfig", "ProbedFunction", "Hierarchy",
            "capture", "Oracle", "Report", "bump_chart", "decode_record",
-           "init_state"]
+           "init_state", "ProbeSession", "StreamingSink", "StreamAggregator",
+           "StreamSnapshot"]

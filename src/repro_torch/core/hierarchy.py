@@ -16,6 +16,15 @@ markers (``core.scope``) live, and records:
   stretch of one visit, and the event that ends it. The instrumented run
   (``core.instrument``) advances its clock from this table alone.
 
+The capture leaves no trace of its run (JAX's trace has no side
+effects): the first in-place write of the run to a storage that existed
+before it (an argument, a cache, a tensor the function closes over)
+first copies that storage, and the copies are put back when the run
+ends, so the caller's tensors hold what they held before. The oracle's
+run (``core.oracle``) is kept free of side effects the same way. Writes
+the dispatcher does not see (a kernel writing through a raw pointer, or
+numpy through ``.numpy()``) are not restored.
+
 Every aten operation is priced by ``core.costmodel``. A hand kernel's
 region is ONE operation; nothing inside it is recorded. A visit that
 repeats a site (a loop iteration, a scope in a loop) must repeat its
@@ -31,6 +40,7 @@ import sys
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import costmodel as cm
@@ -119,16 +129,70 @@ def user_source() -> str:
     return ""
 
 
+class _WriteGuard:
+    """Undoes a run's in-place writes to storages it did not create.
+
+    Before an operation writes (its schema marks the argument as
+    written), the storage it writes is copied once, unless the run made
+    it; ``restore`` copies every saved storage back."""
+
+    def __init__(self):
+        self.fresh: set = set()            # data_ptr of storages made here
+        self.saved: Dict[int, Tuple[Any, Any]] = {}
+        self._writes: Dict[Any, Tuple[Tuple[int, str], ...]] = {}
+
+    def _written(self, func) -> Tuple[Tuple[int, str], ...]:
+        hit = self._writes.get(func)
+        if hit is None:
+            hit = self._writes[func] = tuple(
+                (i, a.name) for i, a in enumerate(func._schema.arguments)
+                if a.alias_info is not None and a.alias_info.is_write)
+        return hit
+
+    def before(self, func, args, kwargs) -> None:
+        for i, name in self._written(func):
+            val = args[i] if i < len(args) else kwargs.get(name)
+            for t in (val if isinstance(val, (list, tuple)) else (val,)):
+                if isinstance(t, torch.Tensor):
+                    self._save(t)
+
+    def _save(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        ptr = st.data_ptr()
+        if st.nbytes() == 0 or ptr in self.fresh or ptr in self.saved:
+            return
+        view = torch.empty(0, dtype=torch.uint8, device=t.device).set_(st)
+        self.saved[ptr] = (view, view.clone())
+
+    def after(self, func, out) -> None:
+        outs = out if isinstance(out, (list, tuple)) else (out,)
+        for r, t in zip(func._schema.returns, outs):
+            if r.alias_info is None and isinstance(t, torch.Tensor):
+                ptr = t.untyped_storage().data_ptr()
+                if ptr not in self.saved:
+                    self.fresh.add(ptr)
+
+    def restore(self) -> None:
+        for view, copy in self.saved.values():
+            view.copy_(copy)
+        self.saved.clear()
+        self.fresh.clear()
+
+
 class _OpMode(TorchDispatchMode):
-    """Hands every aten operation, after it ran, to ``rec.op``."""
+    """Hands every aten operation, after it ran, to ``rec.op``; its
+    ``guard`` keeps the run free of side effects."""
 
     def __init__(self, rec):
         super().__init__()
         self.rec = rec
+        self.guard = _WriteGuard()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        self.guard.before(func, args, kwargs)
         out = func(*args, **kwargs)
+        self.guard.after(func, out)
         self.rec.op(func, args, kwargs, out)
         return out
 
@@ -161,6 +225,7 @@ class OpTracker(sc.Tracker):
 
     def __exit__(self, exc_type, exc, tb):
         self._mode.__exit__(exc_type, exc, tb)
+        self._mode.guard.restore()
         return super().__exit__(exc_type, exc, tb)
 
     def op(self, func, args, kwargs, out) -> None:

@@ -35,8 +35,10 @@ an enter subtracts "now" from TOTALS and the exit adds it back, so no
 
 Outputs are untouched: the launches read and write only the state.
 The host counts every probe's calls (it issues the events), so it knows
-when a spilling probe's ring fills and queues the full row to the
-``HostSink`` (``core.buffer``) on the stream, right after that event.
+when a spilling probe's ring fills and queues a copy of the full row
+into a pinned host block on the stream, right after that event; at the
+end of the run the block goes to the ``HostSink`` (``core.buffer``) with
+one CUDA event recorded after the last copy.
 """
 from __future__ import annotations
 
@@ -88,6 +90,18 @@ def decode_record(record: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
+def state_totals(state: Dict[str, Any]) -> np.ndarray:
+    """Per-probe total cycles (int64) straight from a raw state: the
+    cheap read sessions poll at window boundaries (a device read)."""
+    return np.atleast_1d(_np(state["cnt"][TOTALS]).astype(np.int64))
+
+
+def state_clock(state: Dict[str, Any]) -> int:
+    """The state's clock (a device read). The port keeps one int64
+    ``cycle``, where the JAX package joins a (hi, lo) uint32 pair."""
+    return int(_np(state["cycle"]))
+
+
 @dataclass
 class ProbeAssignment:
     paths: Tuple[str, ...]                 # probe id -> scope path
@@ -121,12 +135,22 @@ class ProbeAssignment:
 
 class Runner(sc.Tracker):
     """One instrumented run: follows the markers against the capture and
-    writes the state."""
+    writes the state.
+
+    ``calls`` is the host's copy of the state's call counts, a list the
+    run keeps up to date (a ``ProbeSession`` owns its state and keeps
+    one across steps); without it a run whose probes spill reads the
+    counts from the device first, which waits for the device. ``cycles``
+    counts the model-clock cycles the run adds to the state's clock, so
+    an owner can keep the clock on the host too. ``rows_hint`` sizes the
+    pinned block the spilled rows are copied into (the caller passes the
+    last run's ``dumps``; the block grows if the run spills more)."""
     grow_sites = False
 
     def __init__(self, h: Hierarchy, asg: ProbeAssignment,
                  state: Dict[str, Any], cycle_source: str = "model",
-                 sink: Optional[HostSink] = None):
+                 sink: Optional[HostSink] = None,
+                 calls: Optional[List[int]] = None, rows_hint: int = 0):
         if cycle_source not in CYCLE_SOURCES:
             raise ValueError(f"unknown cycle source {cycle_source!r}")
         super().__init__(h.sites)
@@ -141,16 +165,24 @@ class Runner(sc.Tracker):
         self.launches = 0
         self.transitions = 0
         self.dumps = 0
-        self._spill = any(asg.spill)
-        # host copy of the call counts, for spills only (one read of the
-        # device state, which waits for it)
-        self.calls = (state["calls"].cpu().tolist() if self._spill else None)
+        self.cycles = 0                # model cycles added to the clock
+        self.rows_hint = rows_hint
+        self._blocks: List[torch.Tensor] = []     # spilled rows, in order
+        self._fill = 0                            # rows in the last block
+        self._spilled: Tuple[List[int], List[int]] = ([], [])
+        # host copy of the call counts: the caller's, or, for spills,
+        # one read of the device state (which waits for it)
+        self.calls = calls
+        if calls is None and any(asg.spill):
+            self.calls = state["calls"].cpu().tolist()
 
     # -- events ------------------------------------------------------------
     def _flush(self) -> None:
         if self._ev or (self.pending and not self.wall):
             self.launch(self._ev, self.pending, self.wall)
             self.launches += 1
+            if not self.wall:
+                self.cycles += self.pending
         self._ev = []
         self.pending = 0
 
@@ -160,25 +192,39 @@ class Runner(sc.Tracker):
     def _exit(self, pid: int) -> None:
         spill = self.asg.spill[pid]
         self._ev.append(kpe.encode(pid, False, spill))
-        if spill:
+        if self.calls is not None:
             self.calls[pid] += 1
-            if self.calls[pid] % self.asg.depth == 0:
+            if spill and self.calls[pid] % self.asg.depth == 0:
                 self._flush()
                 self._dump(pid, self.calls[pid] - self.asg.depth)
 
     def _dump(self, pid: int, base: int) -> None:
-        row = self.state["ring"][pid]
         if self.sink is None:
             return
-        if row.device.type == "cuda":
-            dst = torch.empty(row.shape, dtype=row.dtype, pin_memory=True)
-            dst.copy_(row, non_blocking=True)
+        row = self.state["ring"][pid]
+        if not self._blocks or self._fill == len(self._blocks[-1]):
+            n = max(self.rows_hint - self.dumps, 8)
+            self._blocks.append(torch.empty(
+                (n,) + tuple(row.shape), dtype=row.dtype,
+                pin_memory=row.device.type == "cuda"))
+            self._fill = 0
+        self._blocks[-1][self._fill].copy_(row, non_blocking=True)
+        self._fill += 1
+        self._spilled[0].append(pid)
+        self._spilled[1].append(base)
+        self.dumps += 1
+
+    def _ship(self) -> None:
+        """Hand the run's spilled rows to the sink, with one event after
+        their copies."""
+        if not self.dumps:
+            return
+        rows = self._blocks[:-1] + [self._blocks[-1][:self._fill]]
+        ready = None
+        if self.state["ring"].device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record()
-            self.sink.dump(pid, base, dst, ready)
-        else:
-            self.sink.dump(pid, base, row.clone())
-        self.dumps += 1
+        self.sink.dump(*self._spilled, rows, ready)
 
     def _move(self, old: str, new: str) -> None:
         a, b = self.asg.chain(old), self.asg.chain(new)
@@ -233,7 +279,8 @@ class Runner(sc.Tracker):
                     self._exit(pid)
         if f.kind == "root":
             self._flush()
+            self._ship()
 
     def stats(self) -> Dict[str, int]:
         return dict(transitions=self.transitions, launches=self.launches,
-                    dumps=self.dumps)
+                    dumps=self.dumps, cycles=self.cycles)

@@ -9,8 +9,11 @@ operation: an operation at a path other than the current one first
 exits and enters the probes in between. It does NOT read the capture's
 segment table or the device state, so device counters == oracle is a
 check of the capture, the segment bookkeeping and the kernel, as the
-JAX ``Oracle`` re-evaluates the jaxpr. ``KernelOracle`` (grid-step
-replay) is not ported yet.
+JAX ``Oracle`` re-evaluates the jaxpr. ``run`` executes the function;
+as in a capture, its in-place writes to tensors it did not create are
+undone when the run ends (``hierarchy._WriteGuard``), so the caller's
+caches are left as they were. ``KernelOracle`` (grid-step replay) is
+not ported yet.
 """
 from __future__ import annotations
 

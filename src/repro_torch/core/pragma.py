@@ -7,12 +7,13 @@ Port of ``repro.core.pragma`` for eager PyTorch functions::
     print(pf.report(record).table())
 
 The first call captures the function ONCE (``core.hierarchy``: one run
-under a recording dispatch mode), selects probes, and then runs it
-instrumented (``core.instrument``). The capture is memoised per
-``ProbedFunction``, keyed on the arguments' tree structure and their
-tensors' shapes, dtypes and devices; Python ints and floats are run-time
-values, as a traced int32 is in JAX (a scalar that changes shapes must
-be closed over). ``retarget`` changes the probes and reuses the capture
+under a recording dispatch mode, whose in-place writes are undone, so a
+step that updates its cache in place advances it once), selects probes,
+and then runs it instrumented (``core.instrument``). The capture is
+memoised per ``ProbedFunction``, keyed on the arguments' tree structure
+and their tensors' shapes, dtypes and devices; Python ints and floats
+are run-time values, as a traced int32 is in JAX (a scalar that changes
+shapes must be closed over). ``retarget`` changes the probes and reuses the capture
 (incremental synthesis). The function runs on its own tensors' devices;
 the probe state lives on ``device`` (the GPU unless 'cpu' is asked).
 
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -118,6 +120,7 @@ class ProbedFunction:
         self._key = None
         self._assignment: Optional[ProbeAssignment] = None
         self.captures = 0
+        self.capture_seconds = 0.0     # host time of the captures
         self.last_run: Dict[str, int] = {}
 
     # -- stage 2: module extraction (once) ------------------------------
@@ -127,7 +130,9 @@ class ProbedFunction:
         leaves, spec = pytree.tree_flatten((args, kwargs))
         key = (spec, tuple(_leaf_key(x) for x in leaves))
         if self._hierarchy is None or key != self._key:
+            t0 = time.perf_counter()
             self._hierarchy, _ = capture(self.fn, *args, **kwargs)
+            self.capture_seconds += time.perf_counter() - t0
             self._key = key
             self._assignment = None
             self.captures += 1
@@ -158,7 +163,8 @@ class ProbedFunction:
     def __call__(self, *args, **kwargs):
         """One-shot: (outputs, record) from a fresh zeroed state."""
         self._build(*args, **kwargs)
-        return self._run(self.init_state(), args, kwargs)
+        return self._run(self.init_state(), args, kwargs,
+                         calls=[0] * self.assignment.n)
 
     def init_state(self) -> Dict[str, Any]:
         """Fresh zeroed device counter state for the stateful entry."""
@@ -172,9 +178,10 @@ class ProbedFunction:
         self._build(*args, **kwargs)
         return self._run(state, args, kwargs)
 
-    def _run(self, state, args, kwargs):
+    def _run(self, state, args, kwargs, calls=None):
         run = Runner(self._hierarchy, self._assignment, state,
-                     cycle_source=self.config.cycle_source, sink=self.sink)
+                     cycle_source=self.config.cycle_source, sink=self.sink,
+                     calls=calls, rows_hint=self.last_run.get("dumps", 0))
         with run:
             out = self.fn(*args, **kwargs)
         self.last_run = run.stats()
@@ -201,7 +208,8 @@ class ProbedFunction:
 
     # -- verification / reporting ------------------------------------------
     def oracle(self, *args, **kwargs) -> OracleCounters:
-        """Host-int counters from an independent live-priced run."""
+        """Host-int counters from an independent live-priced run (the
+        function runs once more; its in-place writes are undone)."""
         self._build(*args, **kwargs)
         return Oracle(self._assignment).run(self.fn, *args, **kwargs)
 

@@ -1,16 +1,21 @@
 """Result collection + visualization (paper stage 5, Fig 4 / Fig 14).
 
-Port of ``repro.core.report`` (the one-shot views; the streaming, mesh,
-kernel-grid and engine tables come with their modules). Builds per-probe
+Port of ``repro.core.report`` (the one-shot views, the streaming
+session's table and bump chart, the serving engine's phase, chunk and
+request bills, and the telemetry sentinel's tables; the mesh,
+kernel-grid and DSE views come with their modules). Builds per-probe
 rows (calls, total cycles, start/end, first-N iteration spans) from the
 decoded device record, merges offloaded history from the host sink, and
 renders a table, an ASCII execution timeline (the Fig 4 waveform) and a
-bottleneck bump chart (the Fig 14 ranking-shift view).
+bottleneck bump chart (the Fig 14 ranking-shift view). The text of
+every view is the JAX package's, byte for byte.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.buffer import HostSink
 from repro_torch.core.hierarchy import Hierarchy
@@ -151,4 +156,145 @@ def bump_chart(rankings: Dict[str, List[str]], width: int = 18) -> str:
             v = rankings[s]
             cells.append(f"#{rank + 1} {v[rank] if rank < len(v) else '':<{width - 3}}")
         lines.append("  ".join(cells))
+    return "\n".join(lines)
+
+
+def streaming_table(snapshot) -> str:
+    """Running table for a live ``ProbeSession`` snapshot.
+
+    ``snapshot`` is a ``streaming.StreamSnapshot`` (duck-typed: ``rows``
+    with per-probe running stats, ``steps``, ``span``). Shows the
+    constant-memory aggregates — counts, totals, EMA and the
+    log-bucket-derived p50/p99 — instead of raw per-iteration spans.
+    """
+    rows = snapshot.rows
+    w = max((len(r.path) for r in rows), default=6) + 2
+    head = (f"{'module':<{w}}{'calls':>9}{'cycles':>14}{'%span':>7}"
+            f"{'mean':>10}{'ema':>10}{'min':>9}{'p50':>9}{'p99':>9}"
+            f"{'max':>9}")
+    lines = [f"# session: {snapshot.steps} steps, span={snapshot.span} "
+             f"cycles", head]
+    for r in rows:
+        pct = 100.0 * r.total_cycles / snapshot.span if snapshot.span else 0.0
+        lines.append(
+            f"{r.path:<{w}}{r.calls:>9}{r.total_cycles:>14}{pct:>6.1f}%"
+            f"{r.mean:>10.1f}{r.ema:>10.1f}{r.min:>9}{r.p50:>9}{r.p99:>9}"
+            f"{r.max:>9}")
+    return "\n".join(lines)
+
+
+def streaming_bump_chart(snapshot, top: int = 5, width: int = 18) -> str:
+    """Fig-14-style ranking shifts across the session's time windows.
+
+    Each retained window (bounded deque — constant memory) becomes one
+    bump-chart stage ranking probes by cycles spent *inside that
+    window*, so hot-spot drift over a long-running session is visible.
+    """
+    if not snapshot.windows:
+        return "(no complete windows yet)"
+    rankings: Dict[str, List[str]] = {}
+    for wdw in snapshot.windows:
+        order = np.argsort(-np.asarray(wdw.totals, dtype=np.int64),
+                           kind="stable")[:top]
+        rankings[wdw.label] = [snapshot.paths[i] for i in order
+                               if wdw.totals[i] > 0]
+    return bump_chart(rankings, width=width)
+
+
+# ------------------------------------------------- serving engine views
+
+def engine_phase_table(phase_totals: Dict[str, Dict[str, int]]) -> str:
+    """Per-phase cycle attribution for a serving-engine run.
+
+    ``phase_totals``: phase name -> {"cycles": total model-clock cycles,
+    "steps": step-function invocations} as produced by
+    ``repro_torch.engine.InferenceEngine.stats()``. Shows where the engine's
+    device time goes: prompt prefill vs token decode vs paged-cache
+    management (page scatter).
+    """
+    total = sum(v.get("cycles", 0) for v in phase_totals.values())
+    lines = [f"{'phase':<16}{'steps':>8}{'cycles':>14}{'%':>7}"
+             f"{'cycles/step':>13}"]
+    for phase, v in phase_totals.items():
+        cyc, steps = v.get("cycles", 0), v.get("steps", 0)
+        pct = 100.0 * cyc / total if total else 0.0
+        per = cyc / steps if steps else 0.0
+        lines.append(f"{phase:<16}{steps:>8}{cyc:>14}{pct:>6.1f}%"
+                     f"{per:>13.1f}")
+    lines.append(f"{'total':<16}{'':>8}{total:>14}{100.0 if total else 0.0:>6.1f}%")
+    return "\n".join(lines)
+
+
+def engine_chunk_table(chunk_stats: Dict[tuple, Dict[str, int]]) -> str:
+    """Per-(ctx pages, chunk pages) attribution for chunked-prefill
+    continuation steps (``InferenceEngine.chunk_stats``). Each row is
+    one pinned chunkpf trace shape; cycles include the paired cache
+    scatter, so rows sum to the chunked share of prefill+cache time."""
+    lines = [f"{'ctx pages':>10}{'chunk pages':>13}{'steps':>8}"
+             f"{'cycles':>14}{'cycles/step':>13}"]
+    for (cs, n) in sorted(chunk_stats):
+        v = chunk_stats[(cs, n)]
+        cyc, steps = v.get("cycles", 0), v.get("steps", 0)
+        per = cyc / steps if steps else 0.0
+        lines.append(f"{cs:>10}{n:>13}{steps:>8}{cyc:>14}{per:>13.1f}")
+    return "\n".join(lines)
+
+
+def engine_request_table(requests) -> str:
+    """Per-request phase attribution rows for finished engine requests.
+
+    Each request carries exact integer cycle deltas per phase (prefill
+    and cache-scatter run exclusively at batch 1; decode cycles are the
+    shared batched-step totals the request participated in, shown with
+    the mean batch size so a fair per-request share can be read off).
+    """
+    lines = [f"{'req':>5}{'prompt':>8}{'new':>6}{'prefill':>12}"
+             f"{'cache':>10}{'decode(shared)':>16}{'avg B':>7}"
+             f"{'shared pages':>14}"]
+    for r in requests:
+        nd = len(r.decode_batches)
+        avg_b = sum(r.decode_batches) / nd if nd else 0.0
+        lines.append(
+            f"{r.rid:>5}{len(r.prompt):>8}{len(r.out_tokens):>6}"
+            f"{r.phase_cycles.get('prefill', 0):>12}"
+            f"{r.phase_cycles.get('cache', 0):>10}"
+            f"{r.phase_cycles.get('decode', 0):>16}{avg_b:>7.2f}"
+            f"{r.shared_pages:>14}")
+    return "\n".join(lines)
+
+
+# ------------------------------------------------- telemetry sentinel
+
+def telemetry_alert_table(events) -> str:
+    """Fired :class:`~repro_torch.telemetry.sentinel.DriftEvent` rows, most
+    recent last — the on-exit summary serve/train print when a drift
+    sentinel ran (``--status-port``)."""
+    if not events:
+        return "# sentinel: no drift events"
+    lines = [f"{'window':>7}  {'kind':<16}{'stream':<18}{'probe':<22}"
+             f"{'dev':>4}{'severity':>10}{'trip':>7}"]
+    for e in events:
+        dev = "-" if e.device is None else str(e.device)
+        lines.append(f"{e.window:>7}  {e.kind:<16}{e.stream:<18}"
+                     f"{e.path:<22}{dev:>4}{e.severity:>10.3f}"
+                     f"{e.threshold:>7.2f}")
+    return "\n".join(lines)
+
+
+def sentinel_table(sentinel) -> str:
+    """Per-(stream, probe) detector state of a live
+    :class:`~repro_torch.telemetry.sentinel.DriftSentinel`: warmup progress,
+    reference sample count, and current consecutive-breach counters."""
+    rows = sorted(sentinel._rows.items())
+    if not rows:
+        return "# sentinel: no windows observed yet"
+    warm = sentinel.cfg.warmup_windows
+    lines = [f"{'stream':<18}{'row':>5}{'windows':>9}{'ref_n':>8}"
+             f"{'state':<10}{'breaches':<24}"]
+    for (stream, row), st in rows:
+        state = "warmup" if st.windows_seen < warm else "armed"
+        br = ",".join(f"{k}:{v}" for k, v in st.breaches.items() if v)
+        lines.append(f"{stream:<18}{row:>5}{st.windows_seen:>9}"
+                     f"{st.ref_count:>8}  {state:<10}{br or '-':<24}")
+    lines.append(f"# {len(sentinel.events)} event(s) fired")
     return "\n".join(lines)

@@ -1,8 +1,7 @@
-"""Continuous-batching inference engine.
+"""Probe-attributed continuous-batching inference engine.
 
-Port of ``repro.engine.engine`` without the probe machinery (per-phase
-cycle bills, the telemetry bus), which comes with the probe slice.
-Scheduling is the JAX engine's, all host-side:
+Port of ``repro.engine.engine``. Scheduling is the JAX engine's, all
+host-side:
 
 - **FCFS admission.** Requests wait in arrival order; the head of the
   queue is admitted as soon as its pages fit and a decode slot is open.
@@ -13,8 +12,16 @@ Scheduling is the JAX engine's, all host-side:
   shared by refcount instead of allocated.
 - **Bucketed batching.** Decode runs at the smallest configured batch
   bucket covering the runnable set; padded lanes point at the null
-  page. Each (phase, shape) step is built once; ``retraces()`` counts
-  builds beyond that and must stay 0.
+  page. Each (phase, shape) step is built (and, probed, captured) once;
+  ``retraces()`` counts builds and captures beyond that and must stay 0.
+- **Per-phase attribution.** With ``probe=True`` each (phase, shape)
+  step runs inside a :class:`~repro_torch.core.streaming.ProbeSession`
+  (source ``engine/{phase}x{tag}``); the engine takes model-clock
+  deltas around every call (host reads: the session keeps the clock on
+  the host). Prefill and cache cycles are exclusive to one request; a
+  decode delta is shared by its batch (each rider logs the bucket width
+  in ``decode_batches``). With a ``TelemetryBus`` the phase steps and
+  finished requests' bills are published to it (``bus=``).
 - **Chunked prefill.** With ``prefill_chunk_pages=K`` a prompt wider
   than ``K`` pages prefills one page-aligned chunk per scheduler round,
   interleaved with decode rounds, so a long prompt never head-of-line
@@ -26,7 +33,9 @@ Scheduling is the JAX engine's, all host-side:
   least-recently-matched first, never a page a live request still
   references. ``evict_policy="clear"`` keeps the all-or-nothing policy.
 - **In-place pool.** The scatter and decode steps update the paged KV
-  pool in place (JAX donates the pool buffers to the same end).
+  pool in place, which is what JAX's ``donate`` option buys; the port
+  has nothing to donate and no such option. A probed step's capture
+  undoes its writes (``core.hierarchy``), so the pool is written once.
 
 The engine runs on the device its parameters live on.
 """
@@ -40,6 +49,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import report
+from repro_torch.core.pragma import ProbeConfig
+from repro_torch.core.streaming import ProbeSession
 from repro_torch.engine.pagetable import PagePoolExhausted, PageTable, PrefixTree
 from repro_torch.engine.step import (build_chunk_prefill, build_engine_prefill,
                                      build_page_scatter, build_paged_decode,
@@ -56,6 +68,9 @@ class Request:
     max_new: int
     out_tokens: List[int] = field(default_factory=list)
     first_logits: Optional[torch.Tensor] = None   # (V,) f32, first token
+    phase_cycles: Dict[str, int] = field(
+        default_factory=lambda: {p: 0 for p in PHASES})
+    decode_batches: List[int] = field(default_factory=list)
     shared_pages: int = 0
     # scheduler-internal
     pages: List[int] = field(default_factory=list)
@@ -80,13 +95,16 @@ class _PrefillJob:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Engine shape / bucket knobs."""
+    """Engine shape / bucket / probe knobs."""
     page_size: int = 16
     pool_pages: int = 64              # device pool size incl. null page
     max_pages: int = 8                # page-table width per request
     buckets: Tuple[int, ...] = (1, 2, 4)
     use_kernel: bool = False          # paged-attention CUDA kernel
     pages_per_step: int = 1           # TPU kernel's DMA depth (DSE axis)
+    probe: bool = False
+    probe_targets: Tuple[str, ...] = ("",)
+    probe_max_probes: int = 16
     prefix_cache: bool = True
     prefill_chunk_pages: int = 0      # 0 = whole-prompt prefill
     evict_policy: str = "lru"         # "lru" | "clear"
@@ -97,14 +115,20 @@ class InferenceEngine:
 
     Usage::
 
-        eng = InferenceEngine(model, params, EngineConfig())
+        eng = InferenceEngine(model, params, EngineConfig(probe=True))
         eng.submit([1, 2, 3], max_new=8)
         done = eng.run()          # list of finished Requests, rid order
+        print(eng.phase_table()); print(eng.request_table(done))
         eng.drain()               # release prefix-cache pages
+        eng.close()               # close the probe sessions
     """
 
-    def __init__(self, model, params, config: EngineConfig = EngineConfig()):
+    def __init__(self, model, params, config: EngineConfig = EngineConfig(),
+                 *, bus=None):
         cfg = model.cfg
+        # optional telemetry bus: phase/request bills (and, with
+        # probe=True, each step family's duration stream) publish to it
+        self.bus = bus
         if not engine_compatible(cfg):
             raise ValueError(
                 f"engine requires a dense attention-family token model; got "
@@ -146,8 +170,9 @@ class InferenceEngine:
         self._finished: List[Request] = []
         self._next_rid = 0
         self.phase_stats: Dict[str, Dict[str, int]] = {
-            p: {"steps": 0} for p in PHASES}
+            p: {"steps": 0, "cycles": 0} for p in PHASES}
         self.bucket_hist: Dict[int, int] = {}
+        self.chunk_stats: Dict[Tuple[int, int], Dict[str, int]] = {}
         self.evictions = 0                    # pages reclaimed from tree
         self.hol_blocked_steps = 0            # decode rounds displaced
         self.tokens_out = 0
@@ -157,21 +182,32 @@ class InferenceEngine:
         c = self.config
         self._builds[(phase, size)] = self._builds.get((phase, size), 0) + 1
         if phase == "prefill":
-            return build_engine_prefill(self.model, size, c.page_size)
-        if phase == "cache":
-            return build_page_scatter(size)
-        if phase == "chunkpf":
-            return build_chunk_prefill(self.model, size[0], size[1],
-                                       c.page_size)
-        return build_paged_decode(
-            self.model, size, c.max_pages, c.page_size,
-            use_kernel=c.use_kernel, pages_per_step=c.pages_per_step)
+            fn = build_engine_prefill(self.model, size, c.page_size)
+        elif phase == "cache":
+            fn = build_page_scatter(size)
+        elif phase == "chunkpf":
+            fn = build_chunk_prefill(self.model, size[0], size[1],
+                                     c.page_size)
+        else:
+            fn = build_paged_decode(
+                self.model, size, c.max_pages, c.page_size,
+                use_kernel=c.use_kernel, pages_per_step=c.pages_per_step)
+        if not c.probe:
+            return fn
+        tag = size if isinstance(size, int) else "x".join(map(str, size))
+        return ProbeSession(fn, ProbeConfig(
+            targets=c.probe_targets, offload=1.0,
+            max_probes=c.probe_max_probes),
+            bus=self.bus, source=f"engine/{phase}x{tag}", device=self.device)
 
     def _entry(self, phase: str, size):
         entry = self._steps.get((phase, size))
         if entry is None:
             entry = self._steps[(phase, size)] = self._build(phase, size)
         return entry
+
+    def _invoke(self, entry, *args):
+        return entry.step(*args) if self.config.probe else entry(*args)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
@@ -197,30 +233,51 @@ class InferenceEngine:
             return torch.zeros(shape, dtype=torch.int32, device=self.device)
 
         for pp in range(1, c.max_pages + 1):
-            _, k, v = self._entry("prefill", pp)(
-                self.params, {"tokens": zero(1, pp * ps),
-                              "last_idx": zero(1)})
-            self._entry("cache", pp)(self.pool_k, self.pool_v, k, v, zero(pp))
+            _, k, v = self._invoke(
+                self._entry("prefill", pp), self.params,
+                {"tokens": zero(1, pp * ps), "last_idx": zero(1)})
+            self._invoke(self._entry("cache", pp), self.pool_k, self.pool_v,
+                         k, v, zero(pp))
         for (cs, n) in self._chunk_shapes():
-            self._entry("chunkpf", (cs, n))(
-                self.params, self.pool_k, self.pool_v,
+            self._invoke(
+                self._entry("chunkpf", (cs, n)), self.params, self.pool_k,
+                self.pool_v,
                 {"tokens": zero(1, n * ps), "ctx_pages": zero(cs),
                  "last_idx": zero(1)})
         for b in c.buckets:
-            self._entry("decode", b)(
-                self.params, self.pool_k, self.pool_v,
+            self._invoke(
+                self._entry("decode", b), self.params, self.pool_k,
+                self.pool_v,
                 {"tokens": zero(b, 1), "pos": zero(b),
                  "pages": zero(b, c.max_pages)})
 
     def _step(self, phase: str, size, *args):
-        out = self._entry(phase, size)(*args)
-        st = self.phase_stats.setdefault(phase, {"steps": 0})
+        """Run one step, return (outputs, model-clock cycle delta)."""
+        entry = self._entry(phase, size)
+        if self.config.probe:
+            c0 = entry.clock()
+            out = entry.step(*args)
+            delta = entry.clock() - c0
+        else:
+            out = entry(*args)
+            delta = 0
+        st = self.phase_stats.setdefault(phase, {"steps": 0, "cycles": 0})
         st["steps"] += 1
-        return out
+        st["cycles"] += delta
+        if self.bus is not None:
+            self.bus.publish_phase(phase, cycles=delta,
+                                   batch=size if phase == "decode"
+                                   else None)
+        return out, delta
 
     def retraces(self) -> int:
-        """Step builds beyond the one each (phase, shape) owns."""
-        return sum(max(0, n - 1) for n in self._builds.values())
+        """Step builds beyond the one each (phase, shape) owns, and, when
+        probed, captures beyond the one each step's session makes."""
+        total = sum(max(0, n - 1) for n in self._builds.values())
+        if self.config.probe:
+            total += sum(max(0, e.pf.captures - 1)
+                         for e in self._steps.values())
+        return total
 
     # -- request lifecycle ----------------------------------------------
     def _pages_needed(self, prompt_len: int, max_new: int) -> int:
@@ -310,11 +367,13 @@ class InferenceEngine:
             self.hol_blocked_steps += max(0, math.ceil(pp / q) - 1)
         toks = np.zeros((1, pp * c.page_size), np.int32)
         toks[0, :P] = r.prompt
-        logits, k, v = self._step(
+        (logits, k, v), d = self._step(
             "prefill", pp, self.params,
             {"tokens": self._tensor(toks), "last_idx": self._tensor([P - 1])})
-        self._step("cache", pp, self.pool_k, self.pool_v, k, v,
-                   self._tensor(r.pages[:pp]))
+        r.phase_cycles["prefill"] += d
+        _, d = self._step("cache", pp, self.pool_k, self.pool_v, k, v,
+                          self._tensor(r.pages[:pp]))
+        r.phase_cycles["cache"] += d
         if self.tree is not None and page_tokens:
             self.tree.insert(page_tokens, r.pages[:len(page_tokens)])
         self._emit_first_token(r, logits)
@@ -345,13 +404,19 @@ class InferenceEngine:
         li = (P - 1 - cs * ps) if final else (n * ps - 1)
         batch = {"tokens": self._tensor(toks), "last_idx": self._tensor([li])}
         if cs == 0:
-            logits, k, v = self._step("prefill", n, self.params, batch)
+            (logits, k, v), d = self._step("prefill", n, self.params, batch)
         else:
             batch["ctx_pages"] = self._tensor(r.pages[:cs])
-            logits, k, v = self._step("chunkpf", (cs, n), self.params,
-                                      self.pool_k, self.pool_v, batch)
-        self._step("cache", n, self.pool_k, self.pool_v, k, v,
-                   self._tensor(r.pages[cs:cs + n]))
+            (logits, k, v), d = self._step("chunkpf", (cs, n), self.params,
+                                           self.pool_k, self.pool_v, batch)
+        r.phase_cycles["prefill"] += d
+        _, dc = self._step("cache", n, self.pool_k, self.pool_v, k, v,
+                           self._tensor(r.pages[cs:cs + n]))
+        r.phase_cycles["cache"] += dc
+        cst = self.chunk_stats.setdefault((cs, n),
+                                          {"steps": 0, "cycles": 0})
+        cst["steps"] += 1
+        cst["cycles"] += d + dc
         job.next_page = cs + n
         # publish fully-written prompt pages incrementally so requests
         # arriving mid-prefill can already share the finished chunks
@@ -369,6 +434,13 @@ class InferenceEngine:
         r.pages = []
         r.done = True
         self._finished.append(r)
+        if self.bus is not None:
+            self.bus.publish_request({
+                "rid": r.rid, "prompt_len": r.prompt_len,
+                "tokens": len(r.out_tokens),
+                "shared_pages": r.shared_pages,
+                "decode_batches": list(r.decode_batches),
+                "phase_cycles": dict(r.phase_cycles)})
 
     def _admit(self):
         while self._waiting and (len(self._active) + len(self._prefilling)
@@ -389,7 +461,7 @@ class InferenceEngine:
             pages[i, :len(r.pages)] = r.pages
             pos[i] = r.pos + 1
             toks[i, 0] = r.last_tok
-        _, _, _, next_tok = self._step(
+        (_, _, _, next_tok), d = self._step(
             "decode", bucket, self.params, self.pool_k, self.pool_v,
             {"tokens": self._tensor(toks), "pos": self._tensor(pos),
              "pages": self._tensor(pages)})
@@ -401,6 +473,8 @@ class InferenceEngine:
             r.out_tokens.append(tok)
             self.tokens_out += 1
             r.last_tok = tok
+            r.decode_batches.append(bucket)
+            r.phase_cycles["decode"] += d
             if len(r.out_tokens) >= r.max_new:
                 finished.append(r)
         for r in finished:
@@ -448,6 +522,13 @@ class InferenceEngine:
                                f"{self.table.used_pages} pages still "
                                f"referenced")
 
+    def close(self):
+        """Close the probe sessions (restores each step's original sink;
+        their final snapshots are dropped)."""
+        if self.config.probe:
+            for entry in self._steps.values():
+                entry.close()
+
     def stats(self) -> Dict[str, Any]:
         hits = self.tree.hits if self.tree else 0
         misses = self.tree.misses if self.tree else 0
@@ -466,3 +547,12 @@ class InferenceEngine:
             "hol_blocked_steps": self.hol_blocked_steps,
             "tokens_out": self.tokens_out,
         }
+
+    def phase_table(self) -> str:
+        return report.engine_phase_table(self.phase_stats)
+
+    def chunk_table(self) -> str:
+        return report.engine_chunk_table(self.chunk_stats)
+
+    def request_table(self, requests: List[Request]) -> str:
+        return report.engine_request_table(requests)

@@ -24,6 +24,15 @@ shape) and nothing is traced.
 Padded lanes of a decode bucket run token 0 at position 0 against the
 null page; every dummy lane writes identical values to the same slot,
 so no real page is touched.
+
+The steps carry the JAX steps' scopes, with the same names, nesting and
+layer loop (``scope.scan``): ``embed``, ``layers/scan#0/layer`` with
+``attn`` (prefill: ``qkv``, ``flash``, ``out_proj``; chunkpf:
+``ctx_gather``, ``flash``, ``out_proj``; decode: ``cache_update``, then
+``attend`` on the plain path, the kernel at ``attn`` on the kernel
+path, then ``out_proj``) and ``mlp``, ``final_norm``, ``last_logits``;
+the scatter step's ``page_scatter``. A probed engine bills each step's
+cycles to these scopes as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import scope
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 from repro_torch.models import transformer as tfm
@@ -70,7 +80,8 @@ def build_engine_prefill(model, n_pages: int, page_size: int) -> Callable:
             raise ValueError(f"prefill step for {seq} tokens got {S}")
         positions = model._positions(S, B, x.device)
         x, cache = tfm.stack_prefill(p["stack"], x, positions, cfg, seq)
-        logits = _gather_last(model, p, x, batch["last_idx"])
+        with scope.named_scope("last_logits"):
+            logits = _gather_last(model, p, x, batch["last_idx"])
         L = cfg.num_layers
         kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         k = cache["k"].reshape(L, n_pages, page_size, kv, hd)
@@ -93,9 +104,10 @@ def build_page_scatter(n_pages: int) -> Callable:
         if page_ids.shape[0] != n_pages:
             raise ValueError(f"scatter of {n_pages} pages got "
                              f"{page_ids.shape[0]} ids")
-        ids = page_ids.long()
-        pool_k.index_copy_(1, ids, k.to(pool_k.dtype))
-        pool_v.index_copy_(1, ids, v.to(pool_v.dtype))
+        with scope.named_scope("page_scatter"):
+            ids = page_ids.long()
+            pool_k.index_copy_(1, ids, k.to(pool_k.dtype))
+            pool_v.index_copy_(1, ids, v.to(pool_v.dtype))
         return pool_k, pool_v
 
     return scatter
@@ -132,21 +144,33 @@ def build_chunk_prefill(model, ctx_pages: int, chunk_pages: int,
         ctx_ids = batch["ctx_pages"].long()
         ks, vs = [], []
         stack = p["stack"]
-        for li in range(cfg.num_layers):
-            lp = index_tree(stack["layers"], li)
-            qn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-            q, k_new, v_new = _project_qkv(lp["attn"], qn, cfg, positions)
-            kc = pool_k[li][ctx_ids].reshape(1, ctx_len, kv, hd).to(cd)
-            vc = pool_v[li][ctx_ids].reshape(1, ctx_len, kv, hd).to(cd)
-            o = causal_attend(q, torch.cat([kc, k_new], dim=1),
-                              torch.cat([vc, v_new], dim=1), cfg,
-                              q_offset=ctx_len)
-            x = tfm.mlp_residual(lp, x + out_proj(o.to(cd), lp["attn"]["wo"]),
-                                 cfg)
-            ks.append(k_new[0])
-            vs.append(v_new[0])
-        x = rmsnorm(x, stack["ln_f"], cfg.norm_eps)
-        logits = _gather_last(model, p, x, batch["last_idx"])
+        with scope.named_scope("layers"):
+            for li in scope.scan(cfg.num_layers):
+                with scope.named_scope("layer"):
+                    lp = index_tree(stack["layers"], li)
+                    with scope.named_scope("attn"):
+                        qn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+                        q, k_new, v_new = _project_qkv(lp["attn"], qn, cfg,
+                                                       positions)
+                        with scope.named_scope("ctx_gather"):
+                            kc = pool_k[li][ctx_ids].reshape(
+                                1, ctx_len, kv, hd).to(cd)
+                            vc = pool_v[li][ctx_ids].reshape(
+                                1, ctx_len, kv, hd).to(cd)
+                            k_full = torch.cat([kc, k_new], dim=1)
+                            v_full = torch.cat([vc, v_new], dim=1)
+                        with scope.named_scope("flash"):
+                            o = causal_attend(q, k_full, v_full, cfg,
+                                              q_offset=ctx_len).to(cd)
+                        with scope.named_scope("out_proj"):
+                            a = out_proj(o, lp["attn"]["wo"])
+                    x = tfm.mlp_residual(lp, x + a, cfg)
+                    ks.append(k_new[0])
+                    vs.append(v_new[0])
+        with scope.named_scope("final_norm"):
+            x = rmsnorm(x, stack["ln_f"], cfg.norm_eps)
+        with scope.named_scope("last_logits"):
+            logits = _gather_last(model, p, x, batch["last_idx"])
         L = cfg.num_layers
         k = torch.stack(ks).reshape(L, chunk_pages, page_size, kv, hd)
         v = torch.stack(vs).reshape(L, chunk_pages, page_size, kv, hd)
@@ -163,15 +187,17 @@ def _paged_attend(lp, x, kp, vp, pages, pos, cfg, page_size: int,
     q, k_new, v_new = _project_qkv(lp, x, cfg, pos.long()[:, None])
     H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     qg = q[:, 0, :H].reshape(B, kv, cfg.q_per_kv, hd)
-    pos_l = pos.long()
-    pidx = pages.long().gather(1, (pos_l // page_size)[:, None])[:, 0]
-    slot = pos_l % page_size
-    kp[pidx, slot] = k_new[:, 0].to(kp.dtype)
-    vp[pidx, slot] = v_new[:, 0].to(vp.dtype)
+    with scope.named_scope("cache_update"):
+        pos_l = pos.long()
+        pidx = pages.long().gather(1, (pos_l // page_size)[:, None])[:, 0]
+        slot = pos_l % page_size
+        kp[pidx, slot] = k_new[:, 0].to(kp.dtype)
+        vp[pidx, slot] = v_new[:, 0].to(vp.dtype)
     if use_kernel:
         return paged_attention(qg, kp, vp, pages, pos,
                                pages_per_step=pages_per_step)
-    return paged_attention_plain(qg, kp, vp, pages, pos)
+    with scope.named_scope("attend"):
+        return paged_attention_plain(qg, kp, vp, pages, pos)
 
 
 def build_paged_decode(model, batch_size: int, n_pages: int,
@@ -196,18 +222,27 @@ def build_paged_decode(model, batch_size: int, n_pages: int,
         B = x.shape[0]
         H, hd = cfg.num_heads, cfg.resolved_head_dim
         stack = p["stack"]
-        for li in range(cfg.num_layers):
-            lp = index_tree(stack["layers"], li)
-            o = _paged_attend(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                              pool_k[li], pool_v[li], pages, pos, cfg,
-                              page_size, use_kernel, pages_per_step)
-            ow = o.reshape(B, 1, H, hd).to(x.dtype)
-            Hp = lp["attn"]["wo"].shape[0]
-            if Hp != H:
-                ow = torch.nn.functional.pad(ow, (0, 0, 0, Hp - H))
-            x = tfm.mlp_residual(lp, x + out_proj(ow, lp["attn"]["wo"]), cfg)
-        x = rmsnorm(x, stack["ln_f"], cfg.norm_eps)
-        logits = model._logits(p, x[:, -1])
+        with scope.named_scope("layers"):
+            for li in scope.scan(cfg.num_layers):
+                with scope.named_scope("layer"):
+                    lp = index_tree(stack["layers"], li)
+                    with scope.named_scope("attn"):
+                        o = _paged_attend(
+                            lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                            pool_k[li], pool_v[li], pages, pos, cfg,
+                            page_size, use_kernel, pages_per_step)
+                        with scope.named_scope("out_proj"):
+                            ow = o.reshape(B, 1, H, hd).to(x.dtype)
+                            Hp = lp["attn"]["wo"].shape[0]
+                            if Hp != H:
+                                ow = torch.nn.functional.pad(
+                                    ow, (0, 0, 0, Hp - H))
+                            a = out_proj(ow, lp["attn"]["wo"])
+                    x = tfm.mlp_residual(lp, x + a, cfg)
+        with scope.named_scope("final_norm"):
+            x = rmsnorm(x, stack["ln_f"], cfg.norm_eps)
+        with scope.named_scope("last_logits"):
+            logits = model._logits(p, x[:, -1])
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return logits, pool_k, pool_v, next_tok
 

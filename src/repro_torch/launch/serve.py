@@ -4,7 +4,17 @@ Port of ``repro.launch.serve`` (engine path and the legacy unbatched
 loop). Each batch row becomes one request of the engine; decode runs at
 a batch bucket over the paged KV pool. ``--no-engine`` runs the legacy
 lock-step loop (``Model.prefill`` + ``Model.decode_step`` over a dense
-cache). The model runs on the GPU unless ``device="cpu"`` is passed.
+cache), which the ssm family always takes. The model runs on the GPU
+unless ``device="cpu"`` is passed.
+
+``--profile`` probes the serve: on the engine path every (phase, shape)
+step runs in a ``ProbeSession`` and the phase, chunk and request cycle
+bills are printed; on the legacy path the decode loop runs under a
+``ProbeSession``, with a ``[probe] decode step N`` line every
+``--profile-every`` steps and the session's table and window bump chart
+at the end. Token ids are those of the unprofiled serve.
+``--status-port P`` serves the live telemetry (bus, drift sentinel,
+HTTP status server; 0 = any free port, the URL is printed).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 2 --max-new 8
 """
@@ -14,13 +24,15 @@ import argparse
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.core import ProbeConfig, ProbeSession
+from repro_torch.core.streaming import StreamSnapshot
 from repro_torch.engine import EngineConfig, InferenceEngine, engine_compatible
 from repro_torch.models.model import Model
 
@@ -31,6 +43,7 @@ class ServeResult:
     first_logits: torch.Tensor        # (batch, V) f32, first sampled step
     seconds: float                    # submit to last token (host clock)
     stats: Dict[str, Any] = field(default_factory=dict)  # engine only
+    snapshot: Optional[StreamSnapshot] = None   # profiled legacy loop
 
 
 def _sync(device):
@@ -39,7 +52,10 @@ def _sync(device):
 
 
 def _engine_serve(model, params, prompts, *, max_new: int,
-                  engine_kernel: bool, prefill_chunk: int = 0) -> ServeResult:
+                  engine_kernel: bool, prefill_chunk: int = 0,
+                  profile: bool = False,
+                  profile_targets: Tuple[str, ...] = ("",),
+                  profile_max_probes: int = 16, bus=None) -> ServeResult:
     """Serve every prompt row as one request (decode bucketed at the batch
     size)."""
     batch, prompt_len = prompts.shape
@@ -49,7 +65,9 @@ def _engine_serve(model, params, prompts, *, max_new: int,
         page_size=page, pool_pages=batch * max_pages + 2,
         max_pages=max_pages,
         buckets=(1, batch) if batch > 1 else (1,),
-        use_kernel=engine_kernel, prefill_chunk_pages=prefill_chunk))
+        use_kernel=engine_kernel, probe=profile,
+        probe_targets=profile_targets, probe_max_probes=profile_max_probes,
+        prefill_chunk_pages=prefill_chunk), bus=bus)
     _sync(eng.device)
     t0 = time.perf_counter()
     for b in range(batch):
@@ -61,19 +79,43 @@ def _engine_serve(model, params, prompts, *, max_new: int,
     print(f"engine: {batch} requests x {max_new} tokens in "
           f"{seconds * 1e3:.1f} ms (pages peak {st['pages_peak']}, "
           f"retraces {st['retraces']})")
+    if profile:
+        print("\n# per-phase cycle attribution")
+        print(eng.phase_table())
+        if prefill_chunk:
+            print("\n# per-chunk-shape prefill bill")
+            print(eng.chunk_table())
+        print("\n# per-request phase bill")
+        print(eng.request_table(done))
     eng.drain()
+    eng.close()
     return ServeResult(np.array([r.out_tokens for r in done], np.int32),
                        torch.stack([r.first_logits for r in done]),
                        seconds, st)
 
 
-def _legacy_serve(model, params, prompts, *, max_new: int,
-                  device) -> ServeResult:
+def _legacy_serve(model, params, prompts, *, max_new: int, device,
+                  profile: bool = False,
+                  profile_targets: Tuple[str, ...] = ("",),
+                  profile_every: int = 8, profile_max_probes: int = 16,
+                  bus=None) -> ServeResult:
     """The unbatched lock-step loop: one prefill over the whole batch,
-    then one decode step per token against a dense cache."""
+    then one decode step per token against a dense cache (under a live
+    ``ProbeSession`` when profiled)."""
     batch, prompt_len = prompts.shape
     cparams = model._compute_cast(params)   # one compute-dtype copy
     tokens = torch.as_tensor(prompts, device=device)
+    profile_every = max(profile_every, 1)
+    session = None
+    decode = model.decode_step
+    if profile:
+        session = ProbeSession(
+            model.decode_step,
+            ProbeConfig(targets=profile_targets, offload=1.0,
+                        max_probes=profile_max_probes),
+            window_steps=profile_every, bus=bus, source="serve/decode",
+            device=device)
+        decode = session.step
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = model.prefill(cparams, {"tokens": tokens},
@@ -82,23 +124,42 @@ def _legacy_serve(model, params, prompts, *, max_new: int,
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [next_tok]
     for i in range(max_new - 1):
-        logits, cache, next_tok = model.decode_step(
+        logits, cache, next_tok = decode(
             cparams, cache, {"tokens": next_tok[:, None],
                              "pos": prompt_len + i})
         out.append(next_tok)
+        if session is not None and session.steps % profile_every == 0:
+            snap = session.snapshot()
+            hot = snap.bottleneck()
+            hot_s = (f"{hot.path} (ema {hot.ema:.1f} cyc/call)"
+                     if hot else "-")
+            print(f"[probe] decode step {session.steps:4d}: "
+                  f"span={snap.span} cycles, state={snap.state_nbytes}B, "
+                  f"hot={hot_s}", flush=True)
     toks = torch.stack(out, dim=1).cpu().numpy()
     seconds = time.perf_counter() - t0
     print(f"prefill {prompt_len} tokens x{batch} + decode {max_new} steps: "
           f"{seconds * 1e3:.1f} ms")
-    return ServeResult(toks, first, seconds)
+    final = session.close() if session is not None else None
+    if final is not None:
+        print("\n# streaming probe telemetry (decode loop)")
+        print(final.table())
+        print("\n# bottleneck drift across windows")
+        print(final.bump_chart())
+    return ServeResult(toks, first, seconds, snapshot=final)
 
 
 def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
           batch: int = 4, prompt_len: int = 32, max_new: int = 16,
           engine: bool | None = None, engine_kernel: bool = False,
-          prefill_chunk: int = 0, device=None) -> ServeResult:
+          prefill_chunk: int = 0, profile: bool = False,
+          profile_targets: Tuple[str, ...] = ("",), profile_every: int = 8,
+          profile_max_probes: int = 16, status_port: Optional[int] = None,
+          device=None) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens, ``max_new``
-    tokens each, with random weights from seed 0 (prompts from seed 1)."""
+    tokens each, with random weights from seed 0 (prompts from seed 1).
+    ``profile`` probes the serve; ``status_port`` (0 = any free port)
+    serves its live telemetry while it runs."""
     device = resolve_device(device)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     model = Model(cfg)
@@ -108,12 +169,24 @@ def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
                             generator=gen, dtype=torch.int32).numpy()
     if engine is None:
         engine = engine_compatible(cfg)
-    if engine:
-        return _engine_serve(model, params, prompts, max_new=max_new,
-                             engine_kernel=engine_kernel,
-                             prefill_chunk=prefill_chunk)
-    return _legacy_serve(model, params, prompts, max_new=max_new,
-                         device=device)
+    plane = None
+    if status_port is not None:
+        from repro_torch.telemetry import ControlPlane
+        plane = ControlPlane(status_port).start()
+    bus = plane.bus if plane is not None else None
+    prof = dict(profile=profile, profile_targets=profile_targets,
+                profile_max_probes=profile_max_probes, bus=bus)
+    try:
+        if engine:
+            return _engine_serve(model, params, prompts, max_new=max_new,
+                                 engine_kernel=engine_kernel,
+                                 prefill_chunk=prefill_chunk, **prof)
+        return _legacy_serve(model, params, prompts, max_new=max_new,
+                             device=device, profile_every=profile_every,
+                             **prof)
+    finally:
+        if plane is not None:
+            plane.finish()
 
 
 def main():
@@ -137,12 +210,25 @@ def main():
                     help="prefill chunk quantum in pages (0 = whole-prompt "
                          "prefill; >0 interleaves prefill chunks with "
                          "decode rounds)")
+    ap.add_argument("--profile", action="store_true",
+                    help="probe the serve: per-phase and per-request cycle "
+                         "bills (engine), or the decode loop under a live "
+                         "ProbeSession (legacy loop)")
+    ap.add_argument("--profile-targets", default="",
+                    help="comma-separated probe subtree roots")
+    ap.add_argument("--profile-every", type=int, default=8)
+    ap.add_argument("--status-port", type=int, default=None,
+                    help="expose live telemetry over HTTP on this port "
+                         "(0 = OS-assigned; prints the bound URL)")
     args = ap.parse_args()
     res = serve(args.arch, smoke=not args.full, batch=args.batch,
                 prompt_len=args.prompt_len, max_new=args.max_new,
                 engine=False if args.no_engine else None,
                 engine_kernel=args.engine_kernel,
-                prefill_chunk=args.prefill_chunk, device=args.device)
+                prefill_chunk=args.prefill_chunk, profile=args.profile,
+                profile_targets=tuple(args.profile_targets.split(",")),
+                profile_every=args.profile_every,
+                status_port=args.status_port, device=args.device)
     print("sampled token ids (first sequence):", res.tokens[0].tolist())
 
 

@@ -2,13 +2,16 @@
 
 Edge shapes the serving path does not reach (ragged tiles, q offsets off
 the block grid, head dim 128, non-causal, many double-buffered kv
-blocks, one q row, H == Hkv; for the paged kernel: positions at slot-tile
-boundaries, page sizes 8 and 32, groups of 1 and 16, long rows, bitwise
-invariance to batching and page placement; for the SSD scan: f32 inputs, N of 64, sub-chunks
-that are not a multiple of the kernels' 64-row tile, one chunk and 16
-chunks, one head a group and partial head blocks, the zero-padded tail,
-strided b/c views aligned and not, bitwise invariance to batching). Every test needs an NVIDIA GPU and nvcc and skips
-without them. On the card, with no JAX installed:
+blocks, one q row, H == Hkv; for the paged kernel: positions at
+slot-tile boundaries, page sizes 8 and 32, groups of 1 and 16, long
+rows, bitwise invariance to batching and page placement; for the SSD
+scan: f32 inputs, N of 64, sub-chunks that are not a multiple of the
+kernels' 64-row tile, one chunk and 16 chunks, one head a group and
+partial head blocks, the zero-padded tail, strided b/c views aligned and
+not, bitwise invariance to batching); the probe on the card, and a
+streaming session over the engine's paged decode step, whose spilled
+rows arrive through their copy events. Every test needs an NVIDIA GPU
+and nvcc and skips without them. On the card, with no JAX installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
@@ -414,3 +417,51 @@ def test_probe_on_the_card_equals_oracle(dev):
             if pf.assignment.spill[i]:
                 assert row.iters == oc.history[i], row.path
         assert (pf.sink.dumps > 0) == (offload > 0)
+
+
+def test_session_over_the_engine_decode_on_the_card(dev):
+    """A small-width tinyllama (head dim 64, so the paged kernel takes
+    it) decoded by the engine's paged decode step, 12 steps under a
+    ProbeSession with every probe spilling at ring depth 4: outputs and
+    pools bitwise equal to the unprobed step's on twin pools, the rows
+    arrive through their CUDA events (none dropped), the duration stats
+    cover every call, and the host's copies of the calls and the clock
+    equal the device's."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core import ProbeConfig, ProbeSession, decode_record
+    from repro_torch.engine import build_paged_decode
+    from repro_torch.models import Model
+    cfg = smoke_config("tinyllama-1.1b").replace(
+        d_model=256, num_heads=4, num_kv_heads=2, head_dim=64)
+    m = Model(cfg)
+    p = m._compute_cast(m.init(0, dev))
+    B, n_pages, ps, P = 4, 4, 16, 24
+    shape = (cfg.num_layers, P, ps, cfg.num_kv_heads, 64)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pools = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2)]
+    twins = [t.clone() for t in pools]
+    step = build_paged_decode(m, B, n_pages, ps, use_kernel=True)
+    pages = torch.arange(1, 1 + B * n_pages, device=dev,
+                         dtype=torch.int32).reshape(B, n_pages)
+    toks = torch.randint(0, 257, (B, 1), device=dev, dtype=torch.int32,
+                         generator=gen)
+    s = ProbeSession(step, ProbeConfig(offload=1.0, buffer_depth=4),
+                     window_steps=4, device=dev)
+    for i in range(12):
+        batch = {"tokens": toks, "pages": pages,
+                 "pos": torch.full((B,), 20 + i, device=dev,
+                                   dtype=torch.int32)}
+        got = s.step(p, pools[0], pools[1], batch)
+        want = step(p, twins[0], twins[1], batch)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+        toks = got[3][:, None]
+    assert all(torch.equal(a, b) for a, b in zip(pools, twins))
+    snap = s.snapshot()
+    dec = decode_record(s._state)
+    assert [int(c) for c in dec["calls"]] == s._calls
+    assert dec["cycle"] == s.clock() == snap.span
+    assert s.sink.dumps > 0 and s.sink.dropped == 0
+    for r in snap.rows:
+        assert r.observed == r.calls > 0, r.path
+    s.close()

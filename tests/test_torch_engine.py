@@ -6,6 +6,16 @@
   JAX's unbatched reference serving path, with zero retraces, a prefix
   hit and balanced pages after ``drain``;
 - the step-level chunked prefill equals the whole-prompt prefill;
+- probed (``probe=True``), the engine serves the same trace with the
+  unprobed engine's token ids and KV pools and JAX's probed engine's ids,
+  decode batches, shared pages, phase steps and chunk shapes; each
+  request's phase bill is exact (prefill and cache cycles sum to the
+  phase totals, every decode round's delta is billed to each of its
+  riders), retraces stay 0, and a bus sees the engine's phase totals;
+  cycles are compared only within the port (the two packages price on
+  different chips' constants);
+- ``serve(profile=True)`` gives ``profile=False``'s ids, engine (whole
+  and chunked prefill) and the mamba2 legacy loop, with a status server;
 - the page-table / prefix-tree unit cases of ``tests/test_engine.py``
   hold for the port's copy of the module.
 
@@ -21,14 +31,18 @@ import torch
 from repro.configs.base import ShapeConfig
 from repro.configs.registry import smoke_config as jax_smoke_config
 from repro.distributed.steps import build_decode_step, build_prefill_step
+from repro.engine import EngineConfig as JaxEngineConfig
+from repro.engine import InferenceEngine as JaxInferenceEngine
 from repro.models import Model as JaxModel
 from repro_torch.configs.registry import smoke_config
 from repro_torch.engine import (NULL_PAGE, EngineConfig, InferenceEngine,
                                 PagePoolExhausted, PageTable, PrefixTree,
                                 build_chunk_prefill, build_engine_prefill,
                                 build_page_scatter)
+from repro_torch.launch.serve import serve
 from repro_torch.models import Model
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.telemetry import TelemetryBus
 
 F32 = dict(compute_dtype="float32", kv_cache_dtype="float32")
 
@@ -84,7 +98,7 @@ def f32_pair():
     prompts, max_new = _mixed_trace(257)
     refs = [_jax_reference_serve(jm, jp, p, m)
             for p, m in zip(prompts, max_new)]
-    return tm, tp, refs
+    return tm, tp, refs, (jm, jp)
 
 
 def _serve_trace(model, params, **over):
@@ -108,7 +122,7 @@ def _serve_trace(model, params, **over):
     dict(use_kernel=True, prefill_chunk_pages=1, buckets=(1, 2)),
 ])
 def test_engine_matches_unbatched_and_jax(f32_pair, over):
-    model, params, refs = f32_pair
+    model, params, refs, _ = f32_pair
     prompts, max_new = _mixed_trace(257)
     own = [_port_reference_serve(model, params, p, m)
            for p, m in zip(prompts, max_new)]
@@ -137,7 +151,7 @@ def test_engine_bf16_matches_own_unbatched_loop():
 def test_warmup_builds_every_step_and_leaves_serving_unchanged(f32_pair):
     """warmup() builds each (phase, shape) once and writes only the null
     page; serving afterwards builds nothing new and gives the same ids."""
-    model, params, refs = f32_pair
+    model, params, refs, _ = f32_pair
     prompts, max_new = _mixed_trace(257)
     eng = InferenceEngine(model, params, EngineConfig(
         page_size=16, pool_pages=16, max_pages=2, buckets=(1, 2, 4),
@@ -159,7 +173,7 @@ def test_engine_evicts_under_pool_pressure(f32_pair, policy):
     reclaims a page (LRU: the second request's, sparing the third's
     shared prefix; clear: all of them) and the ids still equal the
     unbatched loop's."""
-    model, params, _ = f32_pair
+    model, params, _, _ = f32_pair
     rng = np.random.default_rng(9)
     prefix = rng.integers(0, 257, 16).tolist()
     prompts = [prefix + rng.integers(0, 257, 5).tolist(),
@@ -187,7 +201,7 @@ def test_chunk_prefill_step_equals_whole(f32_pair):
     logits at the real last token and the page-major KV blocks, bit for
     bit (each attention row walks the same kv blocks either way, and the
     CPU matmuls here are row-independent)."""
-    model, params, _ = f32_pair
+    model, params, _, _ = f32_pair
     cfg = model.cfg
     ps, P = 16, 27
     rng = np.random.default_rng(5)
@@ -209,6 +223,123 @@ def test_chunk_prefill_step_equals_whole(f32_pair):
     assert torch.equal(lg_w, lg_c)
     assert torch.equal(k_w[:, :1], k0) and torch.equal(v_w[:, :1], v0)
     assert torch.equal(k_w[:, 1:], k_c) and torch.equal(v_w[:, 1:], v_c)
+
+
+PROBED = {
+    "whole_dense": dict(),
+    "whole_kernel": dict(use_kernel=True, pages_per_step=2),
+    "chunked_kernel": dict(use_kernel=True, prefill_chunk_pages=1,
+                           buckets=(1, 2)),
+}
+_KW = dict(page_size=16, pool_pages=16, max_pages=2, buckets=(1, 2, 4))
+
+
+def _serve_engine(eng, prompts, max_new):
+    for p, m in zip(prompts, max_new):
+        eng.submit(p, m)
+    return eng.run()
+
+
+def _jax_probed_serve(jm, jp, over):
+    prompts, max_new = _mixed_trace(257)
+    eng = JaxInferenceEngine(jm, jp, JaxEngineConfig(
+        **{**_KW, **over}, probe=True, interpret=True))
+    done = _serve_engine(eng, prompts, max_new)
+    out = dict(tokens=[r.out_tokens for r in done],
+               batches=[r.decode_batches for r in done],
+               shared=[r.shared_pages for r in done],
+               steps={p: v["steps"] for p, v in eng.phase_stats.items()},
+               chunks={k: v["steps"] for k, v in eng.chunk_stats.items()})
+    eng.close()
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(PROBED))
+def test_probed_engine_bills_and_matches_unprobed_and_jax(f32_pair, name):
+    model, params, refs, (jm, jp) = f32_pair
+    over = PROBED[name]
+    prompts, max_new = _mixed_trace(257)
+    plain = InferenceEngine(model, params, EngineConfig(**{**_KW, **over}))
+    want = [r.out_tokens for r in _serve_engine(plain, prompts, max_new)]
+    bus = TelemetryBus()
+    eng = InferenceEngine(model, params,
+                          EngineConfig(**{**_KW, **over}, probe=True),
+                          bus=bus)
+    rounds = []                       # (decode delta, riders' rids)
+    step = eng._step
+
+    def spy(phase, size, *args):
+        riders = [r.rid for r in eng._active[:eng.config.buckets[-1]]]
+        out, d = step(phase, size, *args)
+        if phase == "decode":
+            rounds.append((d, riders))
+        return out, d
+    eng._step = spy
+    done = _serve_engine(eng, prompts, max_new)
+    toks = [r.out_tokens for r in done]
+    assert toks == want == refs
+    assert torch.equal(eng.pool_k, plain.pool_k)
+    assert torch.equal(eng.pool_v, plain.pool_v)
+    assert eng.retraces() == 0
+    jax_run = _jax_probed_serve(jm, jp, over)
+    assert toks == jax_run["tokens"]
+    assert [r.decode_batches for r in done] == jax_run["batches"]
+    assert [r.shared_pages for r in done] == jax_run["shared"]
+    assert {p: v["steps"] for p, v in eng.phase_stats.items()} == \
+        jax_run["steps"]
+    assert {k: v["steps"] for k, v in eng.chunk_stats.items()} == \
+        jax_run["chunks"]
+    ph = eng.phase_stats
+    for r in done:
+        assert r.phase_cycles["prefill"] > 0 and r.phase_cycles["cache"] > 0
+        assert r.phase_cycles["decode"] > 0
+        assert r.phase_cycles["decode"] == sum(
+            d for d, riders in rounds if r.rid in riders)
+    assert sum(r.phase_cycles["prefill"] for r in done) == \
+        ph["prefill"]["cycles"] + ph.get("chunkpf", {"cycles": 0})["cycles"]
+    assert sum(r.phase_cycles["cache"] for r in done) == ph["cache"]["cycles"]
+    assert len(rounds) == ph["decode"]["steps"]
+    assert sum(d for d, _ in rounds) == ph["decode"]["cycles"]
+    K = over.get("prefill_chunk_pages", 0)
+    if K:       # the chunk bill covers the requests wider than K pages
+        wide = [r for r in done if -(-len(r.prompt) // 16) > K]
+        assert sum(v["cycles"] for v in eng.chunk_stats.values()) == sum(
+            r.phase_cycles["prefill"] + r.phase_cycles["cache"]
+            for r in wide)
+    assert bus.engine.phases == eng.phase_stats
+    assert bus.engine.requests_done == len(done)
+    tags = {f"engine/{p}x{z if isinstance(z, int) else 'x'.join(map(str, z))}"
+            for p, z in eng._steps}
+    assert set(bus.streams()) == tags
+    assert "per-phase" not in eng.phase_table()
+    assert len(eng.request_table(done).splitlines()) == len(done) + 1
+    eng.drain()
+    eng.close()
+    for entry in eng._steps.values():
+        assert entry._closed
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(engine_kernel=True, prefill_chunk=1),
+    dict(arch="mamba2-370m", profile_every=2),
+])
+def test_serve_profile_gives_the_unprofiled_ids(kw, capsys):
+    base = dict(batch=2, prompt_len=20, max_new=4, device="cpu")
+    plain = serve(**base, **kw)
+    res = serve(**base, **kw, profile=True, status_port=0)
+    assert (res.tokens == plain.tokens).all()
+    out = capsys.readouterr().out
+    assert "[telemetry] status server on http://127.0.0.1:" in out
+    if kw.get("arch"):
+        assert res.snapshot is not None and res.snapshot.steps == 3
+        assert "[probe] decode step    2: span=" in out
+        assert "# bottleneck drift across windows" in out
+    else:
+        assert res.stats["retraces"] == 0
+        assert "# per-request phase bill" in out
+        assert ("# per-chunk-shape prefill bill" in out) == \
+            bool(kw.get("prefill_chunk"))
 
 
 def test_engine_refuses_unported_families():

@@ -24,6 +24,10 @@ PORT_MODULES = (
     "repro_torch.core.inline", "repro_torch.core.buffer",
     "repro_torch.core.instrument", "repro_torch.core.oracle",
     "repro_torch.core.report", "repro_torch.core.pragma",
+    "repro_torch.core.streaming",
+    "repro_torch.telemetry", "repro_torch.telemetry.bus",
+    "repro_torch.telemetry.sentinel", "repro_torch.telemetry.server",
+    "repro_torch.testing", "repro_torch.testing.faults",
     "repro_torch.engine",
     "repro_torch.engine.pagetable", "repro_torch.engine.step",
     "repro_torch.engine.engine", "repro_torch.launch.serve",
@@ -44,8 +48,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 
 def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
-    """With no GPU and no device="cpu", serve(), Model.init, probe() and
-    init_state raise."""
+    """With no GPU and no device="cpu", serve() (profiled or not),
+    Model.init, probe(), ProbeSession(fn) and init_state raise."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
@@ -53,10 +57,14 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve(batch=1, prompt_len=4, max_new=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(batch=1, prompt_len=4, max_new=1, profile=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(smoke_config("tinyllama-1.1b")).init(0)
-    from repro_torch.core import init_state, probe
+    from repro_torch.core import ProbeSession, init_state, probe
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe(lambda x: x)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProbeSession(lambda x: x)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_state(2, 4)
 

@@ -3,9 +3,11 @@
 Same programs, same inputs (made from a seed with numpy) through both
 packages' ``probe``: the README quickstart, the four workloads of
 ``test_probe_accuracy`` rewritten with ``repro_torch.core.scope``, and
-the tinyllama-1.1b and mamba2-370m smoke prefills and the tinyllama
-``decode_step`` of ``tools/regen_golden.py`` (zero cache (2, 64),
-``pos=3``).
+the tinyllama-1.1b and mamba2-370m smoke prefills and ``decode_step``s
+(the tinyllama one of ``tools/regen_golden.py``: zero cache (2, 64),
+``pos=3``), and the engine's step builders (prefill, page scatter,
+chunked prefill, paged decode with and without the kernel) at f32 on
+the mixed trace's shapes of ``test_torch_engine.py``.
 
 - Paths and calls: ``probe_paths()`` equal JAX's in order and the
   decoded ``calls`` equal JAX's exactly, with ``max_probes`` large enough
@@ -23,7 +25,10 @@ the tinyllama-1.1b and mamba2-370m smoke prefills and the tinyllama
   (cycle, starts, ends, totals, calls), integer-equal, with offload 0
   and 0.5. Records are never compared with JAX's: the two price on
   different chips' constants.
-- Non-intrusiveness: probed outputs are ``torch.equal`` to unprobed.
+- Non-intrusiveness: probed outputs are ``torch.equal`` to unprobed,
+  and the first probed call of a step that updates its cache in place
+  leaves logits, tokens and every cache tensor as one unprobed call
+  does (the capture undoes its writes).
 
 Per ROADMAP Queue 3 the two properties the reference fails today
 (causal skew in grid steps, bit identity under a live session) are not
@@ -42,11 +47,13 @@ from repro.core import ProbeConfig as JaxProbeConfig
 from repro.core import probe as jax_probe
 from repro.core import instrument as jinst
 from repro.core.instrument import decode_record as jax_decode_record
+from repro.engine import step as jax_step
 from repro.models import Model as JaxModel
 from repro_torch.configs.registry import smoke_config
 from repro_torch.core import (ProbeConfig, decode_record, init_state, probe,
                               scope)
 from repro_torch.core import costmodel as cm
+from repro_torch.engine import step as torch_step
 from repro_torch.kernels import probe_events as kpe
 from repro_torch.models import Model
 from repro_torch.models.convert import params_from_numpy
@@ -186,7 +193,8 @@ def _small(name):
 
 
 SMALL = ("quickstart", "scan", "while_dynamic", "cond", "nested_scan")
-MODELS = ("tinyllama_prefill", "tinyllama_decode", "mamba2_prefill")
+MODELS = ("tinyllama_prefill", "tinyllama_decode", "mamba2_prefill",
+          "mamba2_decode")
 
 
 def _model(name):
@@ -296,6 +304,117 @@ def test_model_paths_and_calls_match_jax(name):
             names = [op for op, _ in pf.hierarchy.ops[path]]
             assert names.count(kern) == 1, names
             assert not {"exp", "cumsum", "bmm"} & set(names), names
+
+
+F32 = dict(compute_dtype="float32", kv_cache_dtype="float32")
+STEPS = ("prefill", "cache", "chunkpf", "decode", "decode_kernel")
+
+
+@pytest.fixture(scope="module")
+def f32_models():
+    """The tinyllama smoke config at f32 in both packages, same weights."""
+    jm = JaxModel(jax_smoke_config("tinyllama-1.1b").replace(**F32))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = Model(smoke_config("tinyllama-1.1b").replace(**F32))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    return jm, jp, tm, tp
+
+
+def _engine_step(name, models):
+    """(jax fn, jax args, torch fn, torch args) of one engine step at the
+    mixed trace's shapes (pages of 16, page tables of 2, a pool of 6)."""
+    jm, jp, tm, tp = models
+    cfg, ps = tm.cfg, 16
+    shape = (cfg.num_layers, 6, ps, cfg.num_kv_heads, cfg.resolved_head_dim)
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, 257, (1, 2 * ps)).astype(np.int32)
+    pool = rng.standard_normal(shape).astype(np.float32)
+    kv = rng.standard_normal((shape[0], 2) + shape[2:]).astype(np.float32)
+
+    def both(batch):
+        return ({k: jnp.asarray(v) for k, v in batch.items()},
+                {k: torch.from_numpy(v) for k, v in batch.items()})
+
+    def pools():
+        return ((jnp.asarray(pool), jnp.asarray(pool)),
+                (torch.from_numpy(pool.copy()), torch.from_numpy(pool.copy())))
+    if name == "prefill":
+        jb, tb = both({"tokens": toks, "last_idx": np.array([20], np.int32)})
+        return (jax_step.build_engine_prefill(jm, 2, ps), (jp, jb),
+                torch_step.build_engine_prefill(tm, 2, ps), (tp, tb))
+    (jpk, jpv), (tpk, tpv) = pools()
+    if name == "cache":
+        ids = np.array([2, 3], np.int32)
+        return (jax_step.build_page_scatter(2),
+                (jpk, jpv, jnp.asarray(kv), jnp.asarray(kv), jnp.asarray(ids)),
+                torch_step.build_page_scatter(2),
+                (tpk, tpv, torch.from_numpy(kv), torch.from_numpy(kv),
+                 torch.from_numpy(ids)))
+    if name == "chunkpf":
+        jb, tb = both({"tokens": toks[:, :ps],
+                       "ctx_pages": np.array([3], np.int32),
+                       "last_idx": np.array([5], np.int32)})
+        return (jax_step.build_chunk_prefill(jm, 1, 1, ps), (jp, jpk, jpv, jb),
+                torch_step.build_chunk_prefill(tm, 1, 1, ps),
+                (tp, tpk, tpv, tb))
+    kern = name == "decode_kernel"
+    jb, tb = both({"tokens": np.array([[3], [0]], np.int32),
+                   "pos": np.array([20, 0], np.int32),
+                   "pages": np.array([[2, 3], [0, 0]], np.int32)})
+    return (jax_step.build_paged_decode(jm, 2, 2, ps, use_kernel=kern,
+                                        interpret=True), (jp, jpk, jpv, jb),
+            torch_step.build_paged_decode(tm, 2, 2, ps, use_kernel=kern),
+            (tp, tpk, tpv, tb))
+
+
+@pytest.mark.parametrize("name", STEPS)
+def test_engine_step_paths_and_calls_match_jax(f32_models, name):
+    """The engine's steps carry the JAX steps' scopes: the kernel decode
+    has ``cache_update`` only, the plain one ``cache_update`` and
+    ``attend``."""
+    jfn, jargs, tfn, targs = _engine_step(name, f32_models)
+    want = _jax_paths_calls(jfn, jargs,
+                            JaxProbeConfig(inline="off_all", max_probes=500))
+    pf = probe(tfn, ProbeConfig(inline="off_all", max_probes=500),
+               device="cpu")
+    _, rec = pf(*targs)
+    got = _torch_paths_calls(pf, rec)
+    assert got == want
+    paths = [p for p, _ in got]
+    want_scope = {"prefill": "last_logits", "cache": "page_scatter",
+                  "chunkpf": "layers/scan#0/layer/attn/ctx_gather",
+                  "decode": "layers/scan#0/layer/attn/attend",
+                  "decode_kernel": "layers/scan#0/layer/attn/cache_update"}
+    assert want_scope[name] in paths
+    if name == "decode_kernel":
+        assert "layers/scan#0/layer/attn/attend" not in paths
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "tinyllama-1.1b"])
+def test_first_probed_call_leaves_caches_as_one_unprobed_call(arch):
+    """The capture runs the step once before the instrumented run; its
+    in-place cache writes are undone, so the FIRST probed call of a
+    decode step advances the cache once, as an unprobed call on a clone
+    of the same cache does: logits, tokens and every cache tensor
+    bitwise equal."""
+    m = Model(smoke_config(arch))
+    p = m._compute_cast(m.init(0, "cpu"))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 257, (2, 16)).astype(np.int64))
+    _, cache = m.prefill(p, {"tokens": toks}, 32)
+    twin = {k: v.clone() for k, v in cache.items()}
+    batch = {"tokens": toks[:, -1:], "pos": 16}
+    pf = probe(m.decode_step, ProbeConfig(inline="off_all"), device="cpu")
+    (logits, _, nxt), _ = pf(p, cache, batch)
+    want_logits, _, want_nxt = m.decode_step(p, twin, batch)
+    assert pf.captures == 1
+    assert torch.equal(logits, want_logits) and torch.equal(nxt, want_nxt)
+    for k in cache:
+        assert torch.equal(cache[k], twin[k]), k
+    # the oracle runs the step too, and leaves the cache alone
+    pf.oracle(p, cache, batch)
+    for k in cache:
+        assert torch.equal(cache[k], twin[k]), k
 
 
 @pytest.mark.parametrize("cfg", [

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes when the PyTorch port serves on the GPU.
 
-    python3 tools/profile_torch_serve.py [--chunk N] [--dense]
+    python3 tools/profile_torch_serve.py [--chunk N] [--dense] [--probe]
     python3 tools/profile_torch_serve.py --arch mamba2-370m \
         [--src DIR] [--save-tokens PATH] [--compare-tokens PATH]
 
@@ -19,8 +19,12 @@ written to build/profile/. ``--src`` imports ``repro_torch`` from another
 tree (e.g. the parent commit unpacked under build/), and
 ``--save-tokens`` writes the sampled token ids (.npy) and
 ``--compare-tokens`` prints how many of them equal a saved run's, so that
-two trees' serves can be compared. Needs a CUDA device; fails if the trace holds no
-device activity.
+two trees' serves can be compared. ``--probe`` profiles the probed serve
+too (``profile=True``: every engine step, or the legacy loop's decode
+step, in a ``ProbeSession``), after the unprobed one and the same way,
+and prints the two side by side: walls, device busy share and host ops
+per step, so that the probe's overhead splits into host and device
+time. Needs a CUDA device; fails if the trace holds no device activity.
 """
 from __future__ import annotations
 
@@ -53,73 +57,17 @@ def _busy_us(intervals):
     return busy
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b",
-                    choices=sorted(PROMPT_LEN))
-    ap.add_argument("--chunk", type=int, default=0,
-                    help="prefill chunk quantum in pages (0 = whole prompt)")
-    ap.add_argument("--dense", action="store_true",
-                    help="decode through the plain version, not the kernel")
-    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
-                    help="the tree to import repro_torch from")
-    ap.add_argument("--save-tokens", default=None,
-                    help="write the sampled token ids here (.npy)")
-    ap.add_argument("--compare-tokens", default=None,
-                    help="token ids (.npy) of another run to compare with")
-    args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.src))
-    import torch
-    if not torch.cuda.is_available():
-        print("profile_torch_serve: no CUDA device", file=sys.stderr)
-        return 1
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.registry import get_config
-    from repro_torch.engine import engine_compatible
-    from repro_torch.launch.serve import _engine_serve, _legacy_serve
-    from repro_torch.models import Model
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(args.arch)
-    model = Model(cfg)
-    params = model.init(0)
-    gen = torch.Generator().manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (8, PROMPT_LEN[args.arch]),
-                            generator=gen, dtype=torch.int32).numpy()
-    if engine_compatible(cfg):
-        def run():
-            return _engine_serve(model, params, prompts, max_new=32,
-                                 engine_kernel=not args.dense,
-                                 prefill_chunk=args.chunk)
-        path_name = (f"engine, decode {'plain' if args.dense else 'kernel'}, "
-                     f"chunk {args.chunk}")
-    else:
-        def run():
-            return _legacy_serve(model, params, prompts, max_new=32,
-                                 device=torch.device("cuda", 0))
-        path_name = "legacy loop"
+def measure(torch, profile, activity, run, arch, path_name, note=""):
+    """Warm up, time one unprofiled run, then one under the profiler;
+    prints the run's line and returns (result, device time by kernel
+    name, device busy us)."""
     run()                                          # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     plain_us = (time.perf_counter() - t0) * 1e6    # the profiler slows the host
-    prefill_note = ""
-    if not engine_compatible(cfg):
-        cparams = model._compute_cast(params)
-        tokens = torch.as_tensor(prompts, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.prefill(cparams, {"tokens": tokens}, prompts.shape[1] + 31)
-        torch.cuda.synchronize()
-        prefill_note = (f"; the prefill alone {(time.perf_counter() - t0) * 1e3:.1f}"
-                        f" ms unprofiled")
-        del cparams
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[activity.CPU, activity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
@@ -142,16 +90,108 @@ def main() -> int:
     ph = (res.stats["phases"] if res.stats else
           {"prefill": {"steps": 1}, "decode": {"steps": 31}})
     steps = sum(v["steps"] for v in ph.values())
-    print(f"card: {smi}")
-    print(f"serve {args.arch} ({path_name}): wall {plain_us / 1e3:.1f} ms "
+    print(f"serve {arch} ({path_name}): wall {plain_us / 1e3:.1f} ms "
           f"unprofiled, "
           f"{wall_us / 1e3:.1f} ms profiled; device busy {busy / 1e3:.1f} ms "
           f"= {100 * busy / plain_us:.1f} % of the unprofiled wall (idle "
           f"{100 * (1 - busy / plain_us):.1f} %); {len(dev)} device "
-          f"activities, {n_ops} host ops over {steps} steps "
+          f"activities, {n_ops} host ops over {steps} steps = "
+          f"{n_ops / steps:.1f} a step "
           f"({json.dumps({k: v['steps'] for k, v in ph.items()})})"
-          f"{prefill_note}")
-    print("device time by kernel (ms, share of busy, calls):")
+          f"{note}", flush=True)
+    return res, by_name, busy
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    choices=sorted(PROMPT_LEN))
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="prefill chunk quantum in pages (0 = whole prompt)")
+    ap.add_argument("--dense", action="store_true",
+                    help="decode through the plain version, not the kernel")
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"),
+                    help="the tree to import repro_torch from")
+    ap.add_argument("--save-tokens", default=None,
+                    help="write the sampled token ids here (.npy)")
+    ap.add_argument("--compare-tokens", default=None,
+                    help="token ids (.npy) of another run to compare with")
+    ap.add_argument("--probe", action="store_true",
+                    help="also profile the probed serve, beside the "
+                         "unprobed one")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_serve: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    import numpy as np
+    from repro_torch.engine import (EngineConfig, InferenceEngine,
+                                    engine_compatible)
+    from repro_torch.launch.serve import ServeResult, _legacy_serve
+    from repro_torch.models import Model
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(args.arch)
+    model = Model(cfg)
+    params = model.init(0)
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (8, PROMPT_LEN[args.arch]),
+                            generator=gen, dtype=torch.int32).numpy()
+    dense = engine_compatible(cfg)
+    engines = {}
+
+    def run(probe=False):
+        # the probe arguments only when probing: --src trees may predate them
+        if not dense:           # a profiled serve captures its session
+            return _legacy_serve(model, params, prompts, max_new=32,
+                                 device=torch.device("cuda", 0),
+                                 **(dict(profile=True) if probe else {}))
+        # one engine per mode, kept across runs as a server keeps it: a
+        # probed engine captures each step once, in the warm-up run
+        eng = engines.get(probe)
+        if eng is None:
+            eng = engines[probe] = InferenceEngine(model, params, EngineConfig(
+                page_size=16, pool_pages=8 * 34 + 2, max_pages=34,
+                buckets=(1, 8), use_kernel=not args.dense,
+                prefill_chunk_pages=args.chunk,
+                **(dict(probe=True) if probe else {})))
+        before = {k: v["steps"] for k, v in eng.phase_stats.items()}
+        for row in prompts:
+            eng.submit(row.tolist(), 32)
+        done = eng.run()
+        eng.drain()
+        phases = {k: {"steps": v["steps"] - before.get(k, 0)}
+                  for k, v in eng.phase_stats.items()}
+        return ServeResult(np.array([r.out_tokens for r in done], np.int32),
+                           None, 0.0, {"phases": phases})
+    path_name = (f"engine, decode {'plain' if args.dense else 'kernel'}, "
+                 f"chunk {args.chunk}" if dense else "legacy loop")
+    prefill_note = ""
+    if not dense:
+        cparams = model._compute_cast(params)
+        tokens = torch.as_tensor(prompts, device="cuda")
+        model.prefill(cparams, {"tokens": tokens}, prompts.shape[1] + 31)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(cparams, {"tokens": tokens}, prompts.shape[1] + 31)
+        torch.cuda.synchronize()
+        prefill_note = (f"; the prefill alone {(time.perf_counter() - t0) * 1e3:.1f}"
+                        f" ms unprofiled")
+        del cparams
+    print(f"card: {smi}")
+    res = None
+    for probe in ((False, True) if args.probe else (False,)):
+        res, by_name, busy = measure(torch, profile, ProfilerActivity,
+                                     lambda: run(probe), args.arch,
+                                     f"{path_name}{', probed' if probe else ''}",
+                                     prefill_note)
+    print("device time by kernel (ms, share of busy, calls), last run:")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / 1e3:9.2f}  {100 * us / busy:5.1f} %  {n:6d}  "
               f"{name[:110]}")
@@ -160,7 +200,6 @@ def main() -> int:
         if any(k in name for k in PORT_KERNELS):
             print(f"  {us / 1e3:9.2f}  {100 * us / busy:5.1f} %  {n:6d}  "
                   f"{us / n:8.2f}  {name[:90]}")
-    import numpy as np
     tokens = np.asarray(res.tokens)
     if args.save_tokens:
         np.save(args.save_tokens, tokens)
