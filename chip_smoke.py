@@ -68,10 +68,37 @@
    snapshot's calls per probe must equal the 31 steps x a one-shot
    probe's; the ``[probe]`` lines, the table and the bump chart are
    printed by ``serve``;
-11. times each kernel (CUDA events, median) beside its plain version, a
+11. trains tinyllama-1.1b at full width and depth (22 layers, f32
+   master params, bf16 compute, remat full; random weights from seed 0;
+   B 8 x S 2048 tokens a step from the port's ``TokenPipeline``, seed 0)
+   through ``build_train_step``: first the flash kernel at the training
+   shape, its output and row statistics (m, l) against the plain version
+   and the output with statistics bitwise the serving launch's, and the
+   backward (``_flash_bwd``) from the kernel's forward against the same
+   backward from the plain forward; then 2 warm-up and 4 timed steps
+   (finite losses, flash launches == 2 x 22 x steps: forward and remat
+   recompute; no paged or SSD launch), step wall, tokens/s, peak memory
+   and model FLOP/s against the bf16 peak, a profiled step, the
+   optimizer's time and its 2-D row scans' share; the step's forward and
+   backward with the kernel forward against the same with the plain
+   forward (loss, grad norm, every gradient leaf); the same step
+   unprobed and probed (model clock, every scope a
+   probe): params, moments, loss and grad norm bitwise equal, record ==
+   oracle, no write-guard copy, 44 flash launches, and probe paths and
+   calls equal to the same step's probed on the CPU at smoke width with
+   22 layers and the card's row and chunk plans (so the backward's
+   ``~bwd`` and ``rematted_computation`` scopes reach the card's autograd
+   thread), apart from the optimizer's scans over the leaves over 128
+   MiB, which equal the reference rule's (7: five stacked leaves by
+   layer, the embedding and unembedding by row); probed against unprobed walls, transitions and launches
+   a step, the ``~bwd`` share of the model clock; then the trainer
+   (``launch.train.train``, its ``--probe``: a ``ProbeSession``) for 4
+   steps, its ``[probe]`` lines and tables printed;
+12. times each kernel (CUDA events, median) beside its plain version, a
    library call where one computes the same function (attention: SDPA
    under its flash backend), and its bound, at the main path's shapes:
-   flash for the whole prefill and for a chunk (Sq=128 at q offset 384),
+   flash for the whole prefill and for a chunk (Sq=128 at q offset 384)
+   and, with its statistics, at the training shape (B 8, S 2048),
    paged with all 8 rows at pos 543 and with random positions, the SSD
    scan at the mamba2-370m prefill shape, one probe transition (two
    events); and counts the tensor-core instructions (HMMA, HGMMA) in
@@ -86,6 +113,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -124,6 +152,31 @@ PAGED_ATOL = 1e-3
 # state is f32 on both sides, f32 summation order over up to 1024 steps.
 SSD_RTOL = dict(y=2e-2, state=1e-2)
 SSD_F32_RTOL = dict(y=8e-3, state=2e-5)
+
+# the training phase, kernel statistics against the plain version: m is
+# a maximum of f32 scores, the kernel's taken in log2 units and scaled
+# back (a few f32 ulps of |m| <~ 10); l sums ~2048 exp terms in f32 in
+# another order, with the MUFU exp2 (a few ulps each)
+STATS_M_ATOL, STATS_L_RTOL = 1e-4, 1e-4
+# the flash backward from the kernel's forward against the same backward
+# from the plain forward, bf16 grads: the two forwards' outputs differ by
+# a few bf16 ulps (FLASH_ATOL) and their m, l by the above, and the
+# backward rounds p and ds to bf16: a few bf16 ulps (2^-8 relative each)
+# of the largest |grad|
+BWD_RTOL = 2e-2
+# one forward and backward of the train step with the kernel forward
+# against one with the plain forward (same params and batch): the two
+# attention outputs differ by a few bf16 ulps in each of 22 layers. The
+# limits are ~35x, 10x and 2x the card's readings at this step (loss
+# 2.9e-6, grad norm 5.0e-4, the worst gradient leaf 9.3e-3 of its
+# largest |value|, the embedding's; NVIDIA H100 80GB HBM3, 700 W). They
+# hold the kernel's integration: a non-causal forward, an output 1 % off
+# or row statistics off by 1 % or left in log2 units fail them. At random
+# weights q.k is small and attention near uniform, so a softmax scale
+# 10 % off moves the step by less than the bf16 noise: the train flash
+# check (a), on unit-normal q, k, v, holds the scale.
+STEP_LOSS_ATOL, STEP_GNORM_RTOL, STEP_GRAD_RTOL = 1e-4, 5e-3, 2e-2
+TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, SESSION_STEPS = 8, 2048, 2, 4, 4
 
 ARCH, BATCH, PROMPT, MAX_NEW, CHUNK = "tinyllama-1.1b", 8, 512, 32, 8
 WALL_TURNS = 5
@@ -976,6 +1029,371 @@ def profiled_ssm_phase(torch, fa, pa, ssd, serve, plain, dev):
     del m, p, cache
 
 
+def _tree_equal(torch, a, b) -> bool:
+    from repro_torch.optim import adamw
+    la, lb = adamw.tree_leaves(a), adamw.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _train_flops(cfg, B, S) -> float:
+    """Model FLOPs of one train step: 2 N T a matmul pass over the N
+    matmul weights (the layers' and the unembedding; the embedding is a
+    gather) plus the causal attention products, once forward, twice
+    backward and once more in the remat recompute (layers and loss
+    chunks): 8 N T + 4 attention."""
+    from repro_torch.kernels.flash_attention import flash_cost
+    d, L = cfg.d_model, cfg.num_layers
+    H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    per_layer = d * hd * (2 * H + 2 * kv) + 3 * d * cfg.d_ff
+    n_mm = L * per_layer + d * cfg.padded_vocab_size
+    import torch
+    q = torch.empty((B, H, S, hd), device="meta")
+    k = torch.empty((B, kv, S, hd), device="meta")
+    attn = L * flash_cost(q, k, k)[0]
+    return 8.0 * n_mm * B * S + 4.0 * attn
+
+
+def profile_train_step(torch, run, wall_ms: float) -> None:
+    """One train step under ``torch.profiler``: device busy time (the
+    union of kernel, memcpy and memset intervals) against the unprofiled
+    step wall, and device time by kernel, the largest first."""
+    from collections import defaultdict
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = os.path.join(ROOT, "build", "profile")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "train_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset") and "dur" in e]
+    assert dev, "the profiler recorded no device activity"
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+    n_ops = sum(1 for e in events if e.get("cat") == "cpu_op")
+    print(f"train step profiled: device busy {busy / 1e3:.1f} ms = "
+          f"{100 * busy / wall_ms / 1e3:.1f} % of the unprofiled "
+          f"{wall_ms:.1f} ms wall; {len(dev)} device activities, {n_ops} "
+          f"host ops; device time by kernel (ms, share of busy, calls):")
+    for name, (us, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:12]:
+        print(f"  {us / 1e3:9.2f}  {100 * us / busy:5.1f} %  {n:6d}  "
+              f"{name[:110]}")
+
+
+def check_train_flash(torch, fa, dev):
+    """The flash kernel at the training shape (B 8, 32 q heads over 4 kv
+    heads, S 2048, D 64): output and row statistics against the plain
+    version; the backward (``_flash_bwd``) from the kernel's forward
+    against the same backward from the plain forward."""
+    from repro_torch.models import attention as attn
+    B, H, Hkv, S, D = TRAIN_B, 32, 4, TRAIN_S, 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    out, m, l = fa.flash_attention(q, k, v, with_stats=True)
+    po, pm, pl = fa.flash_attention_plain(q, k, v, with_stats=True)
+    serve_out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - po.float()).abs().max().item()
+    m_err = (m - pm).abs().max().item()
+    l_err = ((l - pl).abs() / pl).max().item()
+    same = torch.equal(serve_out, out)
+    print(f"train flash (a) S=2048 B=8: max |kernel - plain| out {err:.3e} "
+          f"(atol {FLASH_ATOL}), m {m_err:.3e} (atol {STATS_M_ATOL}), l rel "
+          f"{l_err:.3e} (rtol {STATS_L_RTOL}); output with stats == "
+          f"without, bitwise: {same}")
+    assert err <= FLASH_ATOL and m_err <= STATS_M_ATOL
+    assert l_err <= STATS_L_RTOL and same
+    assert torch.isfinite(m).all() and (l >= 1.0).all()
+    # backward from each forward, same cotangent; (B,S,H,D) layout
+    dout = torch.randn((B, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=2) for t in (kt, vt))
+    grads = []
+    for o_, m_, l_ in ((out, m, l), (po, pm, pl)):
+        grads.append(attn._flash_bwd(1024, 1024, (qt, kr, vr, o_.transpose(
+            1, 2), m_, l_), dout))
+    torch.cuda.synchronize()
+    bwd_err = max((a.float() - b.float()).abs().max().item() /
+                  b.float().abs().max().item() for a, b in zip(*grads))
+    print(f"train flash (b) backward from the kernel's forward vs from the "
+          f"plain forward: max |d| / max |grad| {bwd_err:.3e} (rtol "
+          f"{BWD_RTOL})")
+    assert bwd_err <= BWD_RTOL
+    assert all(torch.isfinite(g.float()).all() for g in grads[0])
+    flops, nbytes = fa.flash_cost(q, k, v, with_stats=True)
+    return dict(inputs=(q, k, v), err=err, bound=bound(nbytes, flops),
+                stats_err=(m_err, l_err), bwd_err=bwd_err)
+
+
+def step_kernel_vs_plain(torch, fa, model, params, batch, kernel=None):
+    """The train step's loss and gradients (``loss_fn`` under
+    ``torch.autograd.grad``, as ``build_train_step`` takes them) with
+    the flash forward by ``kernel`` (default: the CUDA kernel's wrapper)
+    and by its plain function. Returns |loss diff|, the grad norms'
+    relative difference, the largest max |d| / max |grad| over the
+    gradient leaves, and that leaf's index."""
+    from unittest import mock
+    from repro_torch.models import attention as attn
+    from repro_torch.optim import adamw
+
+    def loss_and_grads(fwd):
+        leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(True),
+                                params)
+        with mock.patch.object(attn, "flash_attention", fwd), \
+                torch.enable_grad():
+            loss, _ = model.loss_fn(leaves, batch)
+            grads = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+        return loss.detach(), list(grads)
+
+    lk, gk = loss_and_grads(kernel or fa.flash_attention)
+    lp, gp = loss_and_grads(fa.flash_attention_plain)
+    dl = abs(float(lk) - float(lp))
+    nk, np_ = float(adamw.global_norm(gk)), float(adamw.global_norm(gp))
+    rel = [((a.float() - b.float()).abs().max() /
+            b.float().abs().max()).item() for a, b in zip(gk, gp)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return dl, abs(nk / np_ - 1), rel[worst], worst
+
+
+def adamw_scans(params) -> dict:
+    """The reference optimizer's loop nodes for ``params``
+    (``src/repro/optim/adamw.py``: every leaf of two or more dimensions
+    over 128 MiB is updated under a ``lax.scan`` over its leading axis),
+    in leaf order: {``optimizer/adamw/scan#k``: trip count}."""
+    from repro_torch.optim import adamw
+    big = [p for p in adamw.tree_leaves(params)
+           if p.dim() >= 2 and p.numel() * p.element_size() > 128 * 2**20]
+    return {f"optimizer/adamw/scan#{i}": p.shape[0]
+            for i, p in enumerate(big)}
+
+
+def train_phase(torch, fa, pa, ssd, dev, smi):
+    """Step 11: train tinyllama-1.1b at full width and depth (random
+    weights from seed 0, batches from the port's TokenPipeline, seed 0)
+    through ``build_train_step``, probe one step, and run the trainer's
+    ``ProbeSession`` (``launch.train.train(probe_targets=...)``)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.core import ProbeConfig, decode_record, probe
+    from repro_torch.core.hierarchy import write_copies
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import make_schedule
+
+    tf = check_train_flash(torch, fa, dev)
+    cfg = get_config(ARCH)
+    B, S = TRAIN_B, TRAIN_S
+    model = Model(cfg)
+    tcfg = TrainConfig(total_steps=100, warmup_steps=10)
+    step = build_train_step(model, tcfg)
+    params = model.init(0, device=dev)
+    opt = adamw.init(params, cfg.moment_dtype)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B, seed=0))
+    n_batches = TRAIN_WARM + TRAIN_STEPS + 1
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                pipe.batch_at(i).items()} for i in range(n_batches)]
+    counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+
+    def run(n, first):
+        nonlocal params, opt
+        walls, losses = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batches[first + i])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+        return walls, losses
+
+    w_warm, l_warm = run(TRAIN_WARM, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters:
+        c.launches = 0
+    walls, losses = run(TRAIN_STEPS, TRAIN_WARM)
+    launches = [c.launches for c in counters]
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"train tinyllama-1.1b full width, B={B} S={S}: losses "
+          f"{[round(x, 4) for x in l_warm + losses]}; flash/paged/ssd "
+          f"launches {launches} over {TRAIN_STEPS} steps")
+    assert all(math.isfinite(x) for x in l_warm + losses)
+    assert launches == [2 * cfg.num_layers * TRAIN_STEPS, 0, 0], launches
+    ms = statistics.median(walls) * 1e3
+    flops = _train_flops(cfg, B, S)
+    print(f"train step wall {ms:.1f} ms (median of {TRAIN_STEPS}, host clock, "
+          f"synced; runs {[round(w * 1e3, 1) for w in walls]}), "
+          f"{B * S / ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, {flops:.3e} model FLOP a step = "
+          f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{100 * flops / (ms / 1e3) / BF16_FLOPS:.1f} % of the dense bf16 "
+          f"peak ({smi})")
+
+    profile_train_step(torch, lambda: step(params, opt, batches[-1]), ms)
+
+    # the optimizer alone, and the part of it in the 2-D leaves' scans (a
+    # row at a time: the embedding and the unembedding)
+    sched = make_schedule(cfg.schedule, tcfg)
+    rows = {str(i): p for i, p in enumerate(adamw.tree_leaves(params))
+            if p.dim() == 2 and
+            p.numel() * p.element_size() > adamw.SCAN_THRESHOLD_BYTES}
+    rows_opt = adamw.init(rows, cfg.moment_dtype)
+    opt_ms = walls_ms(torch, {
+        "update": lambda: adamw.update(params, params, opt, tcfg, sched),
+        "rows": lambda: adamw.update(rows, rows, rows_opt, tcfg, sched)},
+        reps=1)
+    del rows, rows_opt
+    print(f"optimizer update {opt_ms['update']:.1f} ms a step, of which the "
+          f"row scans of the 2-D leaves {opt_ms['rows']:.1f} ms (one run "
+          f"after a warm-up, host clock, synced)")
+
+    # the step's forward and backward with the flash forward by the kernel
+    # and by its plain function, same params and batch
+    batch = batches[-1]
+    dl, dg, dgrad, leaf = step_kernel_vs_plain(torch, fa, model, params,
+                                               batch)
+    print(f"train step, kernel forward vs plain forward: |loss diff| {dl:.3e}"
+          f" (atol {STEP_LOSS_ATOL}), grad norm rel {dg:.3e} (rtol "
+          f"{STEP_GNORM_RTOL}), max |d| / max |grad| over the leaves "
+          f"{dgrad:.3e} at leaf {leaf} (rtol {STEP_GRAD_RTOL})")
+    assert dl <= STEP_LOSS_ATOL and dg <= STEP_GNORM_RTOL
+    assert dgrad <= STEP_GRAD_RTOL
+
+    # the same step unprobed and probed (model clock, every scope a probe)
+    copies0 = write_copies()
+    pf = probe(step, ProbeConfig(inline="off_all", max_probes=500),
+               device=dev)
+    t0 = time.perf_counter()
+    pf.ensure_built(params, opt, batch)
+    cap_s = time.perf_counter() - t0
+    want = step(params, opt, batch)
+    for c in counters:
+        c.launches = 0
+    got, rec = pf(params, opt, batch)
+    p_launches = [c.launches for c in counters]
+    eq = (_tree_equal(torch, got[0], want[0])
+          and _tree_equal(torch, tuple(got[1]), tuple(want[1]))
+          and all(torch.equal(got[2][k], want[2][k]) for k in want[2]))
+    del got, want
+    oc = pf.oracle(params, opt, batch)
+    dec = decode_record(rec)
+    paths = pf.probe_paths()
+    exact = (dec["cycle"] == oc.cycle and list(dec["calls"]) == oc.calls
+             and list(dec["totals"]) == oc.totals
+             and list(dec["starts"]) == oc.starts
+             and list(dec["ends"]) == oc.ends)
+    copies = write_copies() - copies0
+    print(f"probed train step: outputs (params, moments, loss, grad norm) "
+          f"== unprobed bitwise: {eq}; record == oracle: {exact}; flash "
+          f"launches {p_launches[0]}; write-guard copies {copies}; "
+          f"{len(paths)} probes, capture {cap_s:.1f} s")
+    assert eq and exact and copies == 0
+    assert p_launches == [2 * cfg.num_layers, 0, 0], p_launches
+
+    # the same step probed on the CPU at smoke width, 22 layers, with the
+    # card's row and chunk plans (two q blocks of the flash backward, one
+    # loss chunk): the same paths and calls, but the optimizer's scans
+    # over the leaves over 128 MiB, which only full width has; those
+    # equal the reference's rule applied to the full-width params
+    ccfg = smoke_config(ARCH).replace(num_layers=cfg.num_layers,
+                                      loss_chunk=128)
+    cm = Model(ccfg)
+    cp = cm.init(0, device="cpu")
+    cb = {k: v[:2, :128].cpu() % ccfg.vocab_size for k, v in batch.items()}
+    cpf = probe(build_train_step(cm, tcfg),
+                ProbeConfig(inline="off_all", max_probes=500), device="cpu")
+    _, crec = cpf(cp, adamw.init(cp), cb)
+    cpu = list(zip(cpf.probe_paths(), decode_record(crec)["calls"].tolist()))
+    card = list(zip(paths, dec["calls"].tolist()))
+    scans = [(p, c) for p, c in card if p.startswith("optimizer/adamw/scan#")]
+    same = [pc for pc in card if pc not in scans] == cpu
+    bwd = [p for p in paths if "~bwd" in p]
+    print(f"probe paths and calls on the card == the CPU's at smoke width: "
+          f"{same} ({len(bwd)} ~bwd paths, "
+          f"{sum('rematted_computation' in p for p in paths)} under "
+          f"rematted_computation); the card's optimizer scans: {scans}")
+    want_scans = adamw_scans(params)
+    print(f"the card's optimizer scans == the reference rule's "
+          f"{sorted(want_scans.items())}: {dict(scans) == want_scans}")
+    assert same and bwd
+    assert len(scans) == len(want_scans) and dict(scans) == want_scans
+
+    ids = {p: i for i, p in enumerate(paths)}
+    bwd_share = int(dec["totals"][ids["loss~bwd"]]) / dec["cycle"]
+    walls_pu = walls_ms(torch, {"unprobed": lambda: step(params, opt, batch),
+                                "probed": lambda: pf(params, opt, batch)},
+                        reps=3)
+    run_stats = pf.last_run
+    print(f"probe overhead: step wall {walls_pu['unprobed']:.1f} ms unprobed, "
+          f"{walls_pu['probed']:.1f} ms probed (median of 3, in turns); "
+          f"{run_stats['transitions']} transitions, {run_stats['launches']} "
+          f"probe_events launches a step; ~bwd share of the model clock "
+          f"{100 * bwd_share:.1f} % ({smi})")
+    del pf
+    del params, opt, batches
+    torch.cuda.empty_cache()
+
+    # the trainer's ProbeSession (its --probe): JAX's settings
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    _, _, hist = train(ARCH, smoke=False, steps=SESSION_STEPS, batch=B,
+                       seq=S, probe_targets=("",), probe_every=2,
+                       log_every=2, device=dev)
+    print(f"trainer under a ProbeSession: {SESSION_STEPS} steps in "
+          f"{time.perf_counter() - t0:.1f} s (init and capture included), "
+          f"losses {[round(x, 4) for x in hist]}, flash launches "
+          f"{fa.flash_attention.launches}")
+    assert len(hist) == SESSION_STEPS and all(math.isfinite(x) for x in hist)
+    # the capture's run launches the kernel too
+    assert fa.flash_attention.launches == \
+        2 * cfg.num_layers * (SESSION_STEPS + 1)
+    torch.cuda.empty_cache()
+    return dict(flash=tf, launches=launches[0], step_ms=ms, peak=peak)
+
+
+def train_kernel(torch, fa, tr) -> dict:
+    """The flash kernel's line at the training shape, with statistics:
+    timed held, beside its plain version and SDPA's flash backend."""
+    import torch.nn.functional as F
+    q, k, v = tr["flash"]["inputs"]
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, with_stats=True))
+    no_stats = time_ms(lambda: fa.flash_attention(q, k, v))
+    plain = time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                     with_stats=True), reps=3)
+    sdpa, how = sdpa_flash(torch, F, q, k, v, 0)
+    lib = time_ms(sdpa)
+    print(f"flash at the training shape (B 8, H 32 over 4, S 2048, D 64), "
+          f"with statistics: {ms * 1e3:.1f} us held (bound "
+          f"{tr['flash']['bound'][0] * 1e3:.1f} us by "
+          f"{tr['flash']['bound'][1]}), without statistics {no_stats * 1e3:.1f}"
+          f" us (the statistics cost {100 * (ms / no_stats - 1):+.1f} %), "
+          f"plain {plain * 1e3:.1f} us, SDPA ({how}) {lib * 1e3:.1f} us")
+    return dict(name="flash_attention (train, with_stats)", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:121",
+                launches=tr["launches"], max_abs_err=tr["flash"]["err"],
+                ms=ms, plain_ms=plain, bound_ms=tr["flash"]["bound"][0],
+                bound_by=tr["flash"]["bound"][1], library_ms=lib)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1014,7 +1432,6 @@ def main() -> int:
         assert sass[name]["HMMA"] + sass[name]["HGMMA"] > 0, (
             f"the {name} kernels run no tensor-core instruction")
     pev = check_probe_events(torch, kpe, dev)
-
     flash = check_flash(torch, fa, flash_attention_ref, dev)
     paged = check_paged(torch, pa, dev)
     scan = check_ssd(torch, ssd, ssd_ref, dev)
@@ -1026,6 +1443,7 @@ def main() -> int:
     probed = probe_phase(torch, fa, ssd, kpe, dev)
     pe_launches = probed_engine_phase(torch, fa, pa, kpe, dev)
     profiled_ssm_phase(torch, fa, pa, ssd, serve, ssm_plain, dev)
+    tr = train_phase(torch, fa, pa, ssd, dev, smi)
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -1116,6 +1534,7 @@ def main() -> int:
              launches=pe_launches, max_abs_err=float(pev["err"]),
              ms=pe_ms, plain_ms=pe_plain, bound_ms=pev["bound"][0],
              bound_by=pev["bound"][1], library_ms=None),
+        train_kernel(torch, fa, tr),
     ]
     for kn in kernels:
         print(f"{kn['name']}: {kn['ms'] * 1e3:.1f} us (bound "

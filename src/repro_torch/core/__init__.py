@@ -16,7 +16,8 @@ Port of ``repro.core``'s probe path::
     print(pf.report(record).table())
 
 Stages (paper Fig 3):
-  1 pragma      pragma.probe / ProbeConfig; scope markers (scope)
+  1 pragma      pragma.probe / ProbeConfig; scope markers (scope;
+                scope.grad / scope.remat for a backward's scopes)
   2 extraction  hierarchy.capture (one run under a dispatch mode)
   3 IP          instrument.Runner + kernels.probe_events (+ buffer spill)
   5 results     report (table / timeline / bump chart), oracle (ILA)

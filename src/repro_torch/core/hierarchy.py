@@ -25,6 +25,10 @@ run (``core.oracle``) is kept free of side effects the same way. Writes
 the dispatcher does not see (a kernel writing through a raw pointer, or
 numpy through ``.numpy()``) are not restored.
 
+The backward of a gradient taken with ``scope.grad`` is recorded like
+the forward: autograd carries the dispatch mode to the threads that run
+the backward, and the node hooks move the frames (``core.scope``).
+
 Every aten operation is priced by ``core.costmodel``. A hand kernel's
 region is ONE operation; nothing inside it is recorded. A visit that
 repeats a site (a loop iteration, a scope in a loop) must repeat its
@@ -134,7 +138,10 @@ class _WriteGuard:
 
     Before an operation writes (its schema marks the argument as
     written), the storage it writes is copied once, unless the run made
-    it; ``restore`` copies every saved storage back."""
+    it; ``restore`` copies every saved storage back. ``copies`` counts
+    the storages copied by every guard of the process (a functional step,
+    such as the train step, makes none)."""
+    copies = 0
 
     def __init__(self):
         self.fresh: set = set()            # data_ptr of storages made here
@@ -163,6 +170,7 @@ class _WriteGuard:
             return
         view = torch.empty(0, dtype=torch.uint8, device=t.device).set_(st)
         self.saved[ptr] = (view, view.clone())
+        _WriteGuard.copies += 1
 
     def after(self, func, out) -> None:
         outs = out if isinstance(out, (list, tuple)) else (out,)
@@ -348,6 +356,12 @@ class Capture(OpTracker):
         finalize(self.tree)
         return Hierarchy(root=self.tree, sites=self.sites,
                          segments=self.segments, ops=self.ops)
+
+
+def write_copies() -> int:
+    """Storages the capture and oracle runs of this process have copied
+    to undo in-place writes (see ``_WriteGuard``)."""
+    return _WriteGuard.copies
 
 
 def capture(fn, *args, **kwargs) -> Tuple[Hierarchy, Any]:

@@ -43,16 +43,49 @@ package's rules exactly:
 
 Branch predicates and while conditions are read on the host (``bool``),
 which waits for the device: eager PyTorch cannot branch on the device.
+
+Gradients (``grad``, ``remat``; JAX's ``value_and_grad`` and
+``jax.checkpoint``). JAX's trace holds the backward as equations whose
+name stacks wrap the forward's (``transpose(jvp(loss))/layers/...``),
+which its hierarchy turns into ``loss~bwd/layers/...``: the first
+segment below the point where the gradient was taken gets ``~bwd``, the
+rest keep the forward's names, loops run backwards under their own
+``scan#k``, and a rematerialised forward runs first in each transposed
+loop body, under ``rematted_computation``. Eager autograd runs the
+backward as a graph of nodes, so the tracker records, as the forward
+runs, which frame stack each stretch of autograd sequence numbers was
+created under; ``grad`` puts a pre-hook on every node of the graph, and
+the hook moves the frame stack to the backward mirror of the node's
+forward frames before the node runs. ``remat`` is
+``torch.utils.checkpoint`` whose region ends in an identity that saves a
+tensor, so the recompute is the first thing the region's backward runs,
+and it runs under ``rematted_computation``. The backward of CUDA tensors
+runs on autograd's device thread, which does not inherit the caller's
+context variables: the hook makes the tracker active on whatever thread
+runs it, and a tracker no longer live (its run ended) is ignored by the
+markers.
 """
 from __future__ import annotations
 
+import bisect
 import contextvars
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 _ACTIVE: "contextvars.ContextVar[Optional[Tracker]]" = contextvars.ContextVar(
     "repro_torch_probe_tracker", default=None)
 
 END = ("end",)                     # the event that closes a frame
+_SEQ = torch._C._autograd._get_sequence_nr   # next autograd node's number
+
+
+def _live() -> "Optional[Tracker]":
+    """The active tracker, unless its run has ended (a stale one left on
+    autograd's device thread by an earlier backward)."""
+    rec = _ACTIVE.get()
+    return rec if rec is not None and rec.live else None
 
 
 class _Null:
@@ -77,7 +110,7 @@ class named_scope:
         self.rec = None
 
     def __enter__(self):
-        rec = self.rec = _ACTIVE.get()
+        rec = self.rec = _live()
         if rec is not None:
             rec.push(self.name)
         return self
@@ -92,7 +125,7 @@ def scan(length: int):
     """``lax.scan`` over ``length`` steps: ``for i in scan(n): body``.
     Each iteration is one visit of node ``<path>/scan#k``. Leaving the
     loop early (``break``) is not allowed while probed."""
-    rec = _ACTIVE.get()
+    rec = _live()
     if rec is None:
         return range(length)
     return rec.scan(int(length))
@@ -101,7 +134,7 @@ def scan(length: int):
 def while_loop(cond_fn: Callable[[Any], Any], body_fn: Callable[[Any], Any],
                init: Any) -> Any:
     """``lax.while_loop``: ``val = body_fn(val)`` while ``cond_fn(val)``."""
-    rec = _ACTIVE.get()
+    rec = _live()
     if rec is None:
         val = init
         while bool(cond_fn(val)):
@@ -114,7 +147,7 @@ def switch(index, branches: Sequence[Callable], *operands) -> Any:
     """``lax.switch``: ``branches[index](*operands)``, index clamped.
     The branches should not mutate their operands: a capture runs every
     branch once, to know each branch's scopes and costs."""
-    rec = _ACTIVE.get()
+    rec = _live()
     i = min(max(int(index), 0), len(branches) - 1)
     if rec is None:
         return branches[i](*operands)
@@ -131,10 +164,61 @@ def kernel_region(name: str, cost: Callable[[], Tuple[float, float]]):
     plain version): a capture or oracle prices it as ONE operation named
     ``name`` from ``cost() -> (flops, bytes)`` and prices nothing inside
     it, so the record does not depend on which route ran."""
-    rec = _ACTIVE.get()
+    rec = _live()
     if rec is None:
         return _NULL
     return rec.kernel(name, cost)
+
+
+def grad(outputs, inputs) -> Tuple[torch.Tensor, ...]:
+    """``torch.autograd.grad(outputs, inputs)``: the backward of JAX's
+    ``value_and_grad``. While a probe runs, its operations land under the
+    backward scopes (see the module docstring)."""
+    rec = _live()
+    if rec is None:
+        return torch.autograd.grad(outputs, inputs)
+    return rec.grad(outputs, inputs)
+
+
+class _RematEnd(torch.autograd.Function):
+    """Identity at the end of a checkpointed region that saves a tensor:
+    it is the region's first node in the backward, and unpacking that
+    tensor runs the recompute before any other node of the region."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.save_for_backward(xs[0])
+        return xs if len(xs) > 1 else xs[0]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.saved_tensors                   # the recompute runs here
+        return gs
+
+
+def remat(fn: Callable, *args) -> Any:
+    """``jax.checkpoint(fn)(*args)``: ``torch.utils.checkpoint``
+    (non-reentrant, no early stop, no RNG state) whose recompute runs first
+    in the region's backward and, while a probe runs, under
+    ``rematted_computation`` at the backward frame of the call. ``fn``
+    returns a tensor or a tuple of tensors."""
+    import torch.utils.checkpoint as tc
+    first = [True]
+
+    def body(*a):
+        rec = None if first[0] else _live()
+        first[0] = False
+        if rec is None:
+            out = fn(*a)
+        else:
+            with named_scope("rematted_computation"):
+                out = fn(*a)
+        return _RematEnd.apply(*out) if isinstance(out, tuple) \
+            else _RematEnd.apply(out)
+
+    with tc.set_checkpoint_early_stop(False):
+        return tc.checkpoint(body, *args, use_reentrant=False,
+                             preserve_rng_state=False)
 
 
 # --------------------------------------------------------------- tracker
@@ -143,7 +227,7 @@ class Frame:
     """One visit of a site: a named scope, a scan iteration, a while
     condition or body, a branch, or the root."""
     __slots__ = ("site", "path", "ord", "kind", "entry", "cur",
-                 "transparent", "loop_path")
+                 "transparent", "loop_path", "length")
 
     def __init__(self, site: int, path: str, kind: str, entry: "Frame" = None,
                  transparent: bool = False, loop_path: Optional[str] = None):
@@ -157,6 +241,7 @@ class Frame:
         self.cur = path
         self.transparent = transparent
         self.loop_path = loop_path
+        self.length = 0                # a scan iteration: the trip count
 
 
 class SiteTable:
@@ -209,16 +294,24 @@ class Tracker:
         self.root = Frame(0, "", "root")
         self.stack: List[Frame] = [self.root]
         self.in_kernel = False
+        self.live = False
         self._token = None
+        # forward frame stacks by autograd sequence number (see ``grad``)
+        self._tag_seq: List[int] = []
+        self._tag_stack: List[Tuple[Frame, ...]] = []
+        self._bwd = 0                  # > 0 while a backward runs
 
     # -- activation ------------------------------------------------------
     def __enter__(self):
         self._token = _ACTIVE.set(self)
+        self.live = True
         self.frame_open(self.root)
         self.seg_begin(self.root)
+        self._tag()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        self.live = False
         _ACTIVE.reset(self._token)
         if exc_type is None:
             if len(self.stack) != 1:
@@ -260,6 +353,7 @@ class Tracker:
         self.stack.append(f)
         self.frame_open(f)
         self.seg_begin(f)
+        self._tag()
         return f
 
     def _close(self, f: Frame) -> None:
@@ -268,6 +362,13 @@ class Tracker:
         self.seg_end(f, END)
         self.stack.pop()
         self.frame_close(f)
+        self._tag()
+
+    def _tag(self) -> None:
+        """Autograd nodes made from here on were made under this stack."""
+        if not self._bwd and torch.is_grad_enabled():
+            self._tag_seq.append(_SEQ())
+            self._tag_stack.append(tuple(self.stack))
 
     def _resume(self, parent: Frame) -> None:
         parent.ord += 1
@@ -309,8 +410,10 @@ class Tracker:
         sid, path = self._loop_site(parent, "scan")
         self.nodes(path, "loop", ())
         for i in range(length):
-            f = self._open(Frame(sid, path, "iter", None, parent.transparent,
-                                 loop_path=path))
+            f = Frame(sid, path, "iter", None, parent.transparent,
+                      loop_path=path)
+            f.length = length
+            self._open(f)
             self.iteration(path, length)
             yield i
             self._close(f)
@@ -361,3 +464,104 @@ class Tracker:
 
     def kernel(self, name: str, cost):
         return _NULL
+
+    # -- backward ------------------------------------------------------------
+    def grad(self, outputs, inputs):
+        """``torch.autograd.grad`` with every node of the graph hooked so
+        that it runs at the backward mirror of its forward frames."""
+        outs = [outputs] if isinstance(outputs, torch.Tensor) else \
+            list(outputs)
+        mirror = _Mirror(self)
+        hooks, seen = [], set()
+        todo = [o.grad_fn for o in outs]
+        while todo:
+            node = todo.pop()
+            if node is None or node in seen:
+                continue
+            seen.add(node)
+            hooks.append(node.register_prehook(
+                functools.partial(mirror.enter, node)))
+            todo.extend(n for n, _ in node.next_functions)
+        self._bwd += 1
+        try:
+            grads = torch.autograd.grad(outs, inputs)
+        finally:
+            self._bwd -= 1
+            for h in hooks:
+                h.remove()
+        mirror.close()
+        return grads
+
+
+class _Mirror:
+    """The backward's frames: for each node, the mirror of the forward
+    frames it was made under, below the frame ``grad`` was called at
+    (the base). The first named scope gets ``~bwd``; a forward scan's
+    iterations run as iterations of a backward loop of its own, kept
+    open from one iteration to the next; a while loop or a branch has no
+    backward here (the train step has none)."""
+
+    def __init__(self, rec: Tracker):
+        self.rec = rec
+        self.prefix = tuple(rec.stack)
+        self.cur: List[Tuple[Frame, Frame]] = []   # (forward, backward)
+        self.loop = None      # (depth, forward site, backward site, path)
+
+    def enter(self, node, grad_outputs):
+        rec = self.rec
+        if _ACTIVE.get() is not rec:     # autograd's device thread
+            _ACTIVE.set(rec)
+        i = bisect.bisect_right(rec._tag_seq, node._sequence_nr()) - 1
+        fwd = rec._tag_stack[i] if i >= 0 else ()
+        n = len(self.prefix)
+        rel = fwd[n:] if fwd[:n] == self.prefix else ()
+        j = 0
+        while j < len(self.cur) and j < len(rel) and self.cur[j][0] is rel[j]:
+            j += 1
+        if j == len(self.cur) == len(rel):
+            return None
+        self._close_to(j, rel)
+        for f in rel[j:]:
+            self._open(f)
+        return None
+
+    def close(self) -> None:
+        self._close_to(0, ())
+
+    def _close_to(self, j: int, rel) -> None:
+        rec = self.rec
+        while len(self.cur) > j:
+            f, b = self.cur.pop()
+            rec._close(b)
+            k = len(self.cur)
+            if (b.kind == "iter" and k == j and k < len(rel)
+                    and rel[k].kind == "iter" and rel[k].site == f.site):
+                self.loop = (k, f.site, b.site, b.path)   # next iteration
+            else:
+                rec._resume(rec.top)
+
+    def _open(self, f: Frame) -> None:
+        rec = self.rec
+        parent = rec.top
+        if f.kind == "scope":
+            name = f.path.rsplit("/", 1)[-1]
+            if not any(b.kind == "scope" for _, b in self.cur):
+                name += "~bwd"
+            rec.push(name)
+        elif f.kind == "iter":
+            loop, self.loop = self.loop, None
+            if loop is not None and loop[:2] == (len(self.cur), f.site):
+                sid, path = loop[2], loop[3]
+            else:
+                sid, path = rec._loop_site(parent, "scan")
+                rec.nodes(path, "loop", ())
+            b = Frame(sid, path, "iter", None, parent.transparent,
+                      loop_path=path)
+            b.length = f.length
+            rec._open(b)
+            rec.iteration(path, f.length)
+        else:
+            raise NotImplementedError(
+                f"no backward through a {f.kind} frame ({f.path!r}): the "
+                f"port's gradients follow scans and named scopes only")
+        self.cur.append((f, rec.top))

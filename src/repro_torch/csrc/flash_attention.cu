@@ -26,6 +26,13 @@
 // the two groups' (m, l, acc) merge in a fixed order. The heaviest q
 // tiles (the causal tail) are launched first.
 //
+// With `stats` given, the CTA also writes each row's softmax statistics
+// after the merge, in the convention of the XLA path (_flash_row) that
+// the backward reads: m, the row's maximum score in natural units (-inf
+// where the row saw no key), and l, the sum of exp(s - m), at least
+// 1e-37; as f32 planes m (B,H,Sq) then l (B,H,Sq). Without it nothing
+// else changes: the launch computes and writes what it did before.
+//
 // The kv walk always starts at key 0 with the same block size, the same
 // parity of blocks goes to the same group, a block fully masked for a row
 // is an exact no-op for it (p = 0, corr = 1), a group that saw nothing of
@@ -157,8 +164,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, int* __restrict__ probe,
-                 int H, int Hkv, int Sq, int Skv, int q_offset, int causal,
-                 float scale) {
+                 float* __restrict__ stats, int H, int Hkv, int Sq, int Skv,
+                 int q_offset, int causal, float scale) {
   constexpr int LD = row_stride<D>();
   constexpr int KD = D / 16;  // k steps of the QK^T product
   constexpr int ND = D / 8;   // n tiles of the PV product
@@ -349,7 +356,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   if (group == 1) return;
-  float c0[2], c1[2], l_safe[2];
+  float c0[2], c1[2], l_safe[2], m_row[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float m1 = sM[(ND * 4 + r) * GROUP_THREADS + slot];
@@ -358,6 +365,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     c0[r] = rescale(m[r], mm);
     c1[r] = rescale(m1, mm);
     l_safe[r] = fmaxf(l[r] * c0[r] + l1 * c1[r], 1e-37f);
+    m_row[r] = mm;
   }
   static_assert(MERGE * GROUP_THREADS * sizeof(float) <=
                     GROUPS * 4 * TILE * sizeof(__nv_bfloat16),
@@ -378,6 +386,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
+  if (stats != nullptr && tg == 0) {  // one lane of the four a row has
+    const size_t plane = (size_t)gridDim.y * H * Sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = wq * 16 + gr + 8 * r;
+      if (row < rows) {
+        const size_t i = (size_t)(b * H + h) * Sq + row0 + row;
+        stats[i] = m_row[r] * 0.6931471805599453f;  // log2 units -> natural
+        stats[plane + i] = l_safe[r];
+      }
+    }
+  }
   if (probe != nullptr && threadIdx.x == 0) {
     int* pr = probe + ((size_t)(b * H + h) * ntiles + tile) * 2;
     pr[0] = nk;    // kv blocks visited
@@ -387,8 +407,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* probe,
-           int B, int H, int Hkv, int Sq, int Skv, int q_offset, int causal,
-           float scale, int device, cudaStream_t stream) {
+           void* stats, int B, int H, int Hkv, int Sq, int Skv, int q_offset,
+           int causal, float scale, int device, cudaStream_t stream) {
   // the shared-memory opt-in is set once per (instantiation, device)
   static bool configured[MAX_DEVICES] = {};
   const size_t smem = smem_bytes<D>();
@@ -402,17 +422,19 @@ int launch(const void* q, const void* k, const void* v, void* out, void* probe,
   flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<int*>(probe), H, Hkv, Sq, Skv, q_offset, causal, scale);
+      static_cast<int*>(probe), static_cast<float*>(stats), H, Hkv, Sq, Skv,
+      q_offset, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B,H,Sq,D), k/v (B,Hkv,Skv,D), out (B,H,Sq,D): bf16, contiguous.
-// probe (B,H,ceil(Sq/64),2) int32 or null. Returns a cudaError_t.
+// probe (B,H,ceil(Sq/64),2) int32 or null; stats (2,B,H,Sq) f32 (m, l) or
+// null. Returns a cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, void* probe, int B, int H,
-                                   int Hkv, int Sq, int Skv, int D,
+                                   void* out, void* probe, void* stats, int B,
+                                   int H, int Hkv, int Sq, int Skv, int D,
                                    int q_offset, int causal, float scale,
                                    int device, void* stream) {
   int current = -1;
@@ -423,11 +445,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, out, probe, B, H, Hkv, Sq, Skv, q_offset, causal,
-                      scale, device, s);
+    return launch<64>(q, k, v, out, probe, stats, B, H, Hkv, Sq, Skv, q_offset,
+                      causal, scale, device, s);
   if (D == 128)
-    return launch<128>(q, k, v, out, probe, B, H, Hkv, Sq, Skv, q_offset, causal,
-                       scale, device, s);
+    return launch<128>(q, k, v, out, probe, stats, B, H, Hkv, Sq, Skv,
+                       q_offset, causal, scale, device, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -42,6 +42,13 @@ Differences from the TPU kernel, all deliberate:
 The probe output counts, per (b, h, q tile), kv blocks visited and
 computed, with the TPU kernel's block-plan semantics (the causal skip is
 decided by the tile's last row).
+
+The statistics output (``with_stats``, for the training backward,
+``models.attention``) is each row's softmax maximum m and sum l in f32,
+(B, H, Sq) each, in the convention of the XLA path's ``_flash_row``: m
+in natural units (-inf for a row that saw no key), l = sum exp(s - m),
+at least 1e-37. The kernel writes them after its two warp groups merge;
+without them the launch is the serving launch, unchanged.
 """
 from __future__ import annotations
 
@@ -60,9 +67,9 @@ BLOCK_K = 64
 HEAD_DIMS = (64, 128)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _I, _I, ctypes.c_float, _I,
-                                       _P]}
+_SIGNATURES = {"flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _I, _I, _I, ctypes.c_float,
+                                       _I, _P]}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -126,7 +133,7 @@ def _flash_row(q_blk, k_ctx, v_ctx, q_offset: int, kv_chunk: int,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                          with_probe: bool = False):
+                          with_probe: bool = False, with_stats: bool = False):
     """The kernel's function in plain PyTorch (port of ``_flash_fwd`` over
     the kernel's row plan). Same arguments and results as
     ``flash_attention``; kv is repeated per q head as ``_repeat_kv``
@@ -142,19 +149,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
     qt = q.transpose(1, 2)
     scale = 1.0 / math.sqrt(D)
     plan = _row_plan(Sq, Skv, q_offset, causal)
-    outs = []
+    outs, ms, ls = [], [], []
     for (r0, r1, n) in plan:
-        o, _, _ = _flash_row(qt[:, r0:r1], kr[:, :n * BLOCK_K],
+        o, m, l = _flash_row(qt[:, r0:r1], kr[:, :n * BLOCK_K],
                              vr[:, :n * BLOCK_K], q_offset + r0, BLOCK_K,
                              scale, causal, Skv)
         outs.append(o.to(q.dtype))
-    out = torch.cat(outs, dim=1).transpose(1, 2)
-    if not with_probe:
-        return out
-    nk = _cdiv(Skv, BLOCK_K)
-    counts = torch.tensor([[nk, n] for (_, _, n) in plan], dtype=torch.int32,
-                          device=q.device)
-    return out, counts.expand(B, H, len(plan), 2).contiguous()
+        ms.append(m)
+        ls.append(l)
+    res = [torch.cat(outs, dim=1).transpose(1, 2)]
+    if with_probe:
+        nk = _cdiv(Skv, BLOCK_K)
+        counts = torch.tensor([[nk, n] for (_, _, n) in plan],
+                              dtype=torch.int32, device=q.device)
+        res.append(counts.expand(B, H, len(plan), 2).contiguous())
+    if with_stats:
+        res += [torch.cat(ms, dim=2), torch.cat(ls, dim=2)]
+    return res[0] if len(res) == 1 else tuple(res)
 
 
 def _check(q, k, v, q_offset: int, causal: bool):
@@ -177,26 +188,30 @@ def _check(q, k, v, q_offset: int, causal: bool):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                    with_probe: bool = False):
+                    with_probe: bool = False, with_stats: bool = False):
     """Causal GQA flash attention.
 
     q: (B, H, Sq, D); k, v: (B, Hkv, Skv, D), H % Hkv == 0, kv head
     ``h // (H // Hkv)``; q row ``i`` sits at position ``q_offset + i``.
     Returns (B, H, Sq, D) in q.dtype [, probe (B, H, ceil(Sq/64), 2)
-    int32 if with_probe].
+    int32 if with_probe] [, m, l (B, H, Sq) f32 if with_stats (see the
+    module docstring)]; a tuple when more than the output is asked for.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16, D in (64, 128), contiguous) or raise.
     """
     _check(q, k, v, q_offset, causal)
     with scope.kernel_region("flash_attention",
-                             lambda: flash_cost(q, k, v, q_offset, causal)):
-        return _flash(q, k, v, causal, q_offset, with_probe)
+                             lambda: flash_cost(q, k, v, q_offset, causal,
+                                                with_stats)):
+        return _flash(q, k, v, causal, q_offset, with_probe, with_stats)
 
 
-def flash_cost(q, k, v, q_offset: int = 0, causal: bool = True):
+def flash_cost(q, k, v, q_offset: int = 0, causal: bool = True,
+               with_stats: bool = False):
     """(FLOPs, bytes) of one call, as its bound counts them: 4 B H D per
-    visible (q, k) pair; q, k, v read once, the output written once."""
+    visible (q, k) pair; q, k, v read once, the output (and the f32
+    statistics, if asked for) written once."""
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     if causal:       # row i sees keys 0 .. q_offset + i (< Skv)
@@ -204,13 +219,17 @@ def flash_cost(q, k, v, q_offset: int = 0, causal: bool = True):
     else:
         pairs = Sq * Skv
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    if with_stats:
+        nbytes += 2 * 4 * B * H * Sq
     return 4.0 * B * H * D * pairs, float(nbytes)
 
 
-def _flash(q, k, v, causal: bool, q_offset: int, with_probe: bool):
+def _flash(q, k, v, causal: bool, q_offset: int, with_probe: bool,
+           with_stats: bool):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset, with_probe=with_probe)
+                                     q_offset=q_offset, with_probe=with_probe,
+                                     with_stats=with_stats)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
     B, H, Sq, D = q.shape
@@ -225,15 +244,23 @@ def _flash(q, k, v, causal: bool, q_offset: int, with_probe: bool):
     out = torch.empty_like(q)
     probe = (torch.empty((B, H, _cdiv(Sq, BLOCK_Q), 2), dtype=torch.int32,
                          device=q.device) if with_probe else None)
+    stats = (torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
+             if with_stats else None)
     lib = _build.load("flash_attention", _SIGNATURES)
     code = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         probe.data_ptr() if with_probe else None,
+        stats.data_ptr() if with_stats else None,
         B, H, Hkv, Sq, Skv, D, q_offset, int(causal), 1.0 / math.sqrt(D),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "flash_attention_fwd")
     flash_attention.launches += 1
-    return (out, probe) if with_probe else out
+    res = [out]
+    if with_probe:
+        res.append(probe)
+    if with_stats:
+        res += [stats[0], stats[1]]
+    return res[0] if len(res) == 1 else tuple(res)
 
 
 flash_attention.launches = 0

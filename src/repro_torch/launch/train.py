@@ -1,0 +1,183 @@
+"""End-to-end trainer (port of ``repro.launch.train``).
+
+``--probe`` runs the whole loop under a streaming ``ProbeSession``
+(every probe spilling, 16 probes, the JAX trainer's settings) and prints
+a ``[probe]`` snapshot every ``--probe-every`` steps (default: the log
+period), then the final table and bump chart. Checkpoints are the JAX
+package's format (``checkpoint.Checkpointer``): atomic, async, with the
+data pipeline's step for exactly-once resumption. The model runs on the
+GPU unless ``device="cpu"`` (``--device cpu``) is passed; with no GPU
+it raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --batch 2 --seq 32
+
+Not ported yet (ROADMAP Queue 1): ``--mesh`` (mesh-aware probing of a
+data-parallel step), ``--autotune`` / ``--tune-cache`` (DSE-tuned kernel
+configs); both raise.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import get_config, smoke_config
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.distributed.steps import build_train_step
+from repro_torch.models.model import Model
+from repro_torch.optim import adamw
+
+
+def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
+          steps: int = 20, batch: int = 8, seq: int = 128,
+          mesh_shape=None, probe_targets: Optional[tuple] = None,
+          probe_mesh: Optional[tuple] = None,
+          checkpoint_dir: Optional[str] = None, resume: bool = False,
+          tcfg: Optional[TrainConfig] = None, log_every: int = 10,
+          probe_every: int = 0, autotune: bool = False,
+          tune_cache: Optional[str] = None,
+          status_port: Optional[int] = None, device=None):
+    """Train ``arch`` for ``steps`` steps; returns (params, opt_state,
+    losses). Parameters come from ``Model.init(tcfg.seed)``, batches
+    from ``TokenPipeline`` (seed ``tcfg.seed``)."""
+    if mesh_shape or probe_mesh:
+        raise NotImplementedError(
+            "--mesh (mesh-aware probing of a sharded step) needs the "
+            "multi-device port (ROADMAP Queue 1)")
+    if autotune or tune_cache:
+        raise NotImplementedError(
+            "--autotune / --tune-cache (DSE-tuned kernel configs) are not "
+            "ported yet (ROADMAP Queue 1)")
+    dev = resolve_device(device)
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    model = Model(cfg)
+    tcfg = tcfg or TrainConfig(
+        total_steps=steps, warmup_steps=max(steps // 10, 1),
+        checkpoint_dir=checkpoint_dir or os.path.join(
+            tempfile.gettempdir(), "repro_ckpt"))
+
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=batch, seed=tcfg.seed))
+    params = model.init(tcfg.seed, device=dev)
+    opt_state = adamw.init(params, cfg.moment_dtype)
+
+    ckpt = None
+    start_step = 0
+    if checkpoint_dir:
+        ckpt = Checkpointer(checkpoint_dir, keep=tcfg.keep_checkpoints,
+                            async_save=tcfg.async_checkpoint)
+        last = ckpt.latest()
+        if resume and last is not None:
+            (params, opt_state), extra = ckpt.restore(
+                last, (params, opt_state))
+            start_step = int(extra["step"])
+            pipe.state.step = int(extra["data_step"])
+
+    step_fn = build_train_step(model, tcfg)
+    plane = None
+    if status_port is not None:
+        from repro_torch.telemetry import ControlPlane
+        plane = ControlPlane(status_port).start()
+    bus = plane.bus if plane is not None else None
+    session = None
+    if probe_targets is not None:
+        from repro_torch.core import ProbeConfig, ProbeSession
+        session = ProbeSession(
+            step_fn, ProbeConfig(targets=tuple(probe_targets),
+                                 offload=1.0, max_probes=16),
+            window_steps=max(probe_every or log_every, 1),
+            bus=bus, source="train/step", device=dev)
+        run = session.step
+    else:
+        run = step_fn
+
+    history = []
+    t0 = time.time()
+    for step in range(start_step, steps):
+        batch_np = pipe.batch_at(step)
+        pipe.state.step = step + 1
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        params, opt_state, metrics = run(params, opt_state, b)
+        loss = float(metrics["loss"])
+        history.append(loss)
+        if step % log_every == 0 or step == steps - 1:
+            dt = time.time() - t0
+            print(f"step {step:5d} loss {loss:8.4f} "
+                  f"lr {float(metrics['lr']):.2e} "
+                  f"gnorm {float(metrics['grad_norm']):7.3f} "
+                  f"({dt:.1f}s)", flush=True)
+        if session is not None and \
+                session.steps % (probe_every or log_every) == 0:
+            snap = session.snapshot()
+            print(f"[probe] {snap.steps} steps, span={snap.span} "
+                  f"cycles, state={snap.state_nbytes}B", flush=True)
+            print(snap.table(), flush=True)
+        if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
+            ckpt.save(step + 1, (params, opt_state),
+                      extra={"step": step + 1,
+                             "data_step": pipe.state.step})
+    if ckpt:
+        ckpt.save(steps, (params, opt_state),
+                  extra={"step": steps, "data_step": pipe.state.step})
+        ckpt.wait()
+    if session is not None:
+        final = session.close()
+        if final is not None:
+            print("\n# final streaming probe telemetry")
+            print(final.table())
+            print(final.bump_chart())
+    if plane is not None:
+        plane.finish()
+    return params, opt_state, history
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--full", action="store_true",
+                    help="full-width config (default: the smoke config, "
+                         "whose head dim 16 the CUDA kernel does not take)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' to run "
+                         "the plain versions of the kernels)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--probe", action="store_true",
+                    help="profile the train step with a live ProbeSession")
+    ap.add_argument("--mesh", default=None,
+                    help="not ported yet (ROADMAP Queue 1): raises")
+    ap.add_argument("--probe-targets", default="",
+                    help="comma-separated probe subtree roots")
+    ap.add_argument("--probe-every", type=int, default=0,
+                    help="snapshot period in steps (default: log-every)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="not ported yet (ROADMAP Queue 1): raises")
+    ap.add_argument("--tune-cache", default=None,
+                    help="not ported yet (ROADMAP Queue 1): raises")
+    ap.add_argument("--status-port", type=int, default=None,
+                    help="expose live telemetry over HTTP on this port "
+                         "(0 = OS-assigned; prints the bound URL)")
+    args = ap.parse_args()
+    train(args.arch, smoke=not args.full, steps=args.steps,
+          batch=args.batch, seq=args.seq,
+          probe_targets=(tuple(args.probe_targets.split(","))
+                         if args.probe else None),
+          probe_mesh=(args.mesh,) if args.mesh else None,
+          probe_every=args.probe_every,
+          checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+          autotune=args.autotune, tune_cache=args.tune_cache,
+          status_port=args.status_port, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

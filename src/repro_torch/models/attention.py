@@ -1,30 +1,39 @@
-"""GQA attention: prefill (flash kernel) + single-token decode.
+"""GQA attention: training and prefill (flash kernel) + single-token decode.
 
-Port of ``repro.models.attention``. Prefill runs through the port's flash
-kernel wrapper (``kernels.flash_attention``): the CUDA kernel for CUDA
-tensors, its plain version (the port of ``_flash_row``/``_flash_fwd``)
-for CPU tensors. The JAX package computes the same function with XLA ops
-(``causal_flash_xla``). Decode keeps the compact grouped layout (the KV
-cache is not repeated) and one global softmax, operation for operation
-as ``attn_decode``.
+Port of ``repro.models.attention``. Training and prefill run through
+the port's flash kernel wrapper (``kernels.flash_attention``): the CUDA
+kernel for CUDA tensors, its plain version (the port of
+``_flash_row``/``_flash_fwd``) for CPU tensors. The JAX package computes
+the same function with XLA ops (``causal_flash_xla``). Decode keeps the
+compact grouped layout (the KV cache is not repeated) and one global
+softmax, operation for operation as ``attn_decode``.
 
 Padded q heads (``padded_heads``) carry dead weights whose outputs JAX
 masks to zero (``_head_mask``); here attention runs over the real heads
 only and the pad heads' outputs are zeros, the same values. The kernel
 maps q head h to kv head h // q_per_kv, so nothing repeats kv
-(``_repeat_kv``) outside the flash kernel's plain version.
+(``_repeat_kv``) outside the flash kernel's plain version and the
+backward.
+
+Training (``attn_train``) takes the gradient through a hand-written
+flash VJP, as the JAX package's ``causal_flash_xla`` does: the forward
+is the flash wrapper with its row statistics (``with_stats``: the CUDA
+kernel on the card, the plain ``_flash_row`` path on the CPU), and the
+backward is ``_flash_bwd`` in PyTorch ops, recomputing p chunk by chunk
+from the saved (m, l), so nothing O(S^2) is kept. No Pallas kernel of
+the JAX package has a backward, so neither has the port's kernel.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import _bf16, flash_attention
 from repro_torch.models.layers import Param, apply_rope
 
 
@@ -86,7 +95,151 @@ def out_proj(o, wo):
     return o.flatten(-2) @ wo.reshape(n * h, d)
 
 
+# --------------------------------------------- flash VJP (training)
+
+def _row_plan(S: int, q_block: int, kv_chunk: int
+              ) -> Tuple[int, List[Tuple[int, int, int]]]:
+    """JAX's q-block plan: (q block, [(row offset, causal kv context,
+    kv chunk)])."""
+    q_block = min(q_block, S)
+    if S % q_block:
+        q_block = math.gcd(S, q_block) or S
+    rows = []
+    for i in range(S // q_block):
+        ctx = (i + 1) * q_block
+        chunk = min(kv_chunk, ctx)
+        chunk = math.gcd(ctx, chunk) if ctx % chunk else chunk
+        rows.append((i * q_block, ctx, chunk))
+    return q_block, rows
+
+
+def _flash_row_bwd(q_blk, k_ctx, v_ctx, o_blk, do_blk, m, l,
+                   q_offset: int, kv_chunk: int, scale: float):
+    """Flash backward for one q block row (FA-2 style), operation for
+    operation as the JAX package's: p is recomputed chunk by chunk from
+    the saved (m, l); products take bf16 inputs and accumulate in f32.
+    q_blk, o_blk, do_blk: (B, Sq, H, hd); k_ctx, v_ctx: (B, Skv, H, hd),
+    kv repeated per q head; m, l: (B, H, Sq). Returns (dq_blk f32,
+    dk_ctx f32, dv_ctx f32)."""
+    B, Sq, H, HD = q_blk.shape
+    Skv = k_ctx.shape[1]
+    dev = q_blk.device
+    qb = _bf16(q_blk)
+    do = do_blk.transpose(1, 2).float()                     # (B,H,Sq,hd)
+    o = o_blk.transpose(1, 2).float()
+    delta = torch.sum(do * o, dim=-1)                       # (B,H,Sq)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    do_b = _bf16(do)
+    dq = torch.zeros((B, Sq, H, HD), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for c in scope.scan(Skv // kv_chunk):
+        k_c = _bf16(k_ctx[:, c * kv_chunk:(c + 1) * kv_chunk])
+        v_c = _bf16(v_ctx[:, c * kv_chunk:(c + 1) * kv_chunk])
+        s = torch.einsum("bqhd,bkhd->bhqk", qb, k_c) * scale
+        k_pos = c * kv_chunk + torch.arange(kv_chunk, device=dev)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]) / l[..., None],
+                        0.0)
+        p_b = _bf16(p)
+        dvs.append(torch.einsum("bhqk,bhqd->bkhd", p_b, do_b))
+        dp = torch.einsum("bhqd,bkhd->bhqk", do_b, v_c)
+        ds = _bf16(p * (dp - delta[..., None]) * scale)
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, k_c)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qb))
+    return dq, torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
+def _flash_bwd(q_block: int, kv_chunk: int, res, dout):
+    """JAX's ``_flash_bwd``: q (B,S,H,hd), k/v repeated to H heads, out,
+    and the (B,H,S) statistics m, l; dk/dv accumulate over the q block
+    rows in the input dtype, as the JAX package's do (each element takes
+    at most one addition a row)."""
+    q, k, v, out, m, l = res
+    B, S, H, HD = q.shape
+    scale = 1.0 / math.sqrt(HD)
+    qb, rows = _row_plan(S, q_block, kv_chunk)
+    dq_rows = []
+    dk = torch.zeros((B, S, H, HD), dtype=k.dtype, device=k.device)
+    dv = torch.zeros((B, S, H, HD), dtype=v.dtype, device=v.device)
+    for off, ctx, chunk in rows:
+        with scope.named_scope("qblk_bwd"):
+            dq_r, dk_r, dv_r = _flash_row_bwd(
+                q[:, off:off + qb], k[:, :ctx], v[:, :ctx],
+                out[:, off:off + qb], dout[:, off:off + qb],
+                m[..., off:off + qb], l[..., off:off + qb], off, chunk, scale)
+            dq_rows.append(dq_r.to(q.dtype))
+            pad = (0, 0, 0, 0, 0, S - ctx)
+            dk = dk + F.pad(dk_r.to(k.dtype), pad)
+            dv = dv + F.pad(dv_r.to(v.dtype), pad)
+    return torch.cat(dq_rows, dim=1), dk, dv
+
+
+def _sum_groups(g, n_kv: int):
+    """(B,S,H,hd) cotangent of kv repeated to H heads -> (B,S,n_kv,hd):
+    the sum over each kv head's q heads, in f32, in ascending q head
+    order, rounded once to g's dtype (the transpose of ``_repeat_kv``)."""
+    B, S, H, HD = g.shape
+    grp = g.view(B, S, n_kv, H // n_kv, HD)
+    acc = grp[:, :, :, 0].float()
+    for j in range(1, H // n_kv):
+        acc = acc + grp[:, :, :, j].float()
+    return acc.to(g.dtype)
+
+
+class _CausalFlash(torch.autograd.Function):
+    """Causal GQA flash attention with the JAX package's flash VJP.
+
+    q: (B,S,H,hd) (real heads only); k, v: (B,S,kv,hd), not repeated.
+    Returns (B,S,H,hd) in q.dtype. The forward is the flash wrapper
+    (kernel on the card, plain version on the CPU) with its row
+    statistics; the backward repeats kv per q head, runs ``_flash_bwd``
+    and sums each kv head's gradient over its q heads (``_sum_groups``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_block: int, kv_chunk: int):
+        out, m, l = flash_attention(q.transpose(1, 2).contiguous(),
+                                    k.transpose(1, 2).contiguous(),
+                                    v.transpose(1, 2).contiguous(),
+                                    causal=True, with_stats=True)
+        out = out.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.plan = (q_block, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        rep = q.shape[2] // k.shape[2]
+        kr = k.repeat_interleave(rep, dim=2)
+        vr = v.repeat_interleave(rep, dim=2)
+        dq, dk, dv = _flash_bwd(*ctx.plan, (q, kr, vr, out, m, l),
+                                dout.to(q.dtype))
+        n_kv = k.shape[2]
+        return dq, _sum_groups(dk, n_kv), _sum_groups(dv, n_kv), None, None
+
+
+def causal_flash(q, k, v, q_block: int, kv_chunk: int):
+    """Differentiable causal GQA flash attention (see ``_CausalFlash``)."""
+    return _CausalFlash.apply(q, k, v, q_block, kv_chunk)
+
+
 # ----------------------------------------------------------- public ops
+
+def attn_train(params, x, positions, cfg: ModelConfig):
+    """Full-sequence causal self-attention (training forward), with the
+    flash VJP. The kernel runs whatever ``cfg.attn_impl`` says, as in
+    prefill: it is the port's one route."""
+    with scope.named_scope("qkv"):
+        q, k, v = _project_qkv(params, x, cfg, positions)
+    with scope.named_scope("flash"):
+        H, Hp = cfg.num_heads, q.shape[2]
+        o = causal_flash(q[:, :, :H], k, v, cfg.attn_chunk, cfg.attn_chunk)
+        if Hp != H:
+            o = F.pad(o, (0, 0, 0, Hp - H))
+    with scope.named_scope("out_proj"):
+        return out_proj(o.to(x.dtype), params["wo"])
+
 
 def attn_prefill(params, x, positions, cfg: ModelConfig):
     """Full-sequence causal self-attention that also returns the layer's

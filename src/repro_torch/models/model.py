@@ -1,6 +1,7 @@
-"""Model facade: schema/init, prefill, decode.
+"""Model facade: schema/init, train loss, prefill, decode.
 
-Port of the serving half of ``repro.models.model``. Parameters are nested
+Port of ``repro.models.model`` (the train loss for the dense family).
+Parameters are nested
 dicts of tensors with the JAX package's layouts (``layers.materialize``
 or ``convert.params_from_numpy``).
 
@@ -13,7 +14,7 @@ unchanged, so the result is the same and no step copies the weights.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -24,6 +25,26 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Param, materialize
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+Z_LOSS_WEIGHT = 1e-4
+
+
+class _GradDtypeBarrier(torch.autograd.Function):
+    """Identity whose backward casts the cotangent to ``dtype``: JAX's
+    ``_grad_dtype_barrier``, which keeps the f32 cotangent of the f32
+    logits from running down the residual stream."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+def _grad_dtype_barrier(x, dtype_str: str):
+    return _GradDtypeBarrier.apply(x, getattr(torch, dtype_str))
 
 
 def unsupported(cfg: ModelConfig) -> str:
@@ -100,6 +121,57 @@ class Model:
         f32-accumulate product, as JAX's preferred_element_type=f32."""
         w = self._unembed_weight(params).to(x.dtype)
         return self._mask_pad(x.float() @ w.float())
+
+    def _chunked_xent(self, params, x, labels):
+        """Vocab-parallel, seq-chunked cross entropy (+ z-loss).
+
+        Never materializes (B, S, V) logits; each chunk runs under
+        ``scope.remat``, so the backward recomputes the chunk's f32
+        logits instead of keeping them. Returns (nll, z_loss) means."""
+        cfg = self.cfg
+        B, S, D = x.shape
+        chunk = min(cfg.loss_chunk, S)
+        if S % chunk:
+            chunk = S            # fall back: no chunking on odd lengths
+        w = self._unembed_weight(params)
+        V = cfg.padded_vocab_size
+        pad_mask = torch.arange(V, device=x.device) >= cfg.vocab_size
+
+        def body(x_, l_):
+            with scope.named_scope("logits"):
+                logits = x_.float() @ w.to(x_.dtype).float()
+                logits = logits.masked_fill(pad_mask, float("-inf"))
+            with scope.named_scope("xent"):
+                m = logits.amax(dim=-1, keepdim=True).detach()
+                logz = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) \
+                    + m[..., 0]
+                ll = torch.gather(logits, -1, l_.long()[..., None])[..., 0]
+                return torch.sum(logz - ll), torch.sum(torch.square(logz))
+
+        nll = zl = torch.zeros((), dtype=torch.float32, device=x.device)
+        with scope.named_scope("loss"):
+            for c in scope.scan(S // chunk):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                c_nll, c_zl = scope.remat(body, x[:, sl], labels[:, sl])
+                nll, zl = nll + c_nll, zl + c_zl
+            n_tok = B * S
+            return nll / n_tok, zl / n_tok
+
+    # ------------------------------------------------------------- train
+    def loss_fn(self, params, batch) -> Tuple[torch.Tensor,
+                                              Dict[str, torch.Tensor]]:
+        """batch: {"tokens", "labels"}: (B, S) -> (loss, {"nll",
+        "z_loss", "aux_loss"}), scalar f32 tensors."""
+        cfg = self.cfg
+        p = self._compute_cast(params)
+        x = self._embed_in(p, batch)
+        B, S, _ = x.shape
+        positions = self._positions(S, B, x.device)
+        x, aux = tfm.stack_apply(p["stack"], x, positions, cfg)
+        x = _grad_dtype_barrier(x, cfg.compute_dtype)
+        nll, zl = self._chunked_xent(p, x, batch["labels"])
+        loss = nll + Z_LOSS_WEIGHT * zl + aux
+        return loss, {"nll": nll, "z_loss": zl, "aux_loss": aux}
 
     # ----------------------------------------------------------- serving
     def prefill(self, params, batch, cache_len: int):

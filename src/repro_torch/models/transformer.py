@@ -1,6 +1,7 @@
-"""Decoder blocks and layer stacks (prefill, decode).
+"""Decoder blocks and layer stacks (training, prefill, decode).
 
-Port of the dense and ``ssm`` branches of ``repro.models.transformer``.
+Port of the dense and ``ssm`` branches of ``repro.models.transformer``
+(training: the dense family only).
 Layer parameters stay stacked along a leading layer axis, as the JAX
 schema has them; a Python loop over ``scope.scan`` takes the place of
 ``lax.scan``, under the JAX package's scope names (``layers``,
@@ -39,6 +40,66 @@ def stack_schemas(cfg: ModelConfig) -> Dict[str, Any]:
     return {"layers": stack_schema(block_schema(cfg), cfg.num_layers),
             "ln_f": rmsnorm_schema(cfg.d_model)}
 
+
+def unbind_tree(tree, n: int):
+    """The ``n`` layers of a stacked parameter tree, as views: one
+    ``unbind`` a leaf, so the backward stacks each leaf's gradients once
+    (indexing layer by layer would add a full-size gradient per layer)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.unbind(0)
+    parts = {k: unbind_tree(v, n) for k, v in tree.items()}
+    return [{k: parts[k][i] for k in parts} for i in range(n)]
+
+
+# ------------------------------------------------------- train forward
+
+def _attn_mlp_block(lp, x, positions, cfg: ModelConfig):
+    with scope.named_scope("attn"):
+        h = attn.attn_train(lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
+                            positions, cfg)
+    x = x + h
+    with scope.named_scope("mlp"):
+        h = mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
+    return x + h
+
+
+def _remat(fn, cfg: ModelConfig):
+    """JAX's ``_remat``: ``"full"`` keeps nothing of the layer for the
+    backward (``scope.remat``: ``torch.utils.checkpoint``), ``"none"``
+    keeps everything."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs) is not ported yet "
+            "(ROADMAP Queue 1); no shipped config uses it")
+    return lambda *a: scope.remat(fn, *a)
+
+
+def stack_apply(params, x, positions, cfg: ModelConfig):
+    """Run the full layer stack (training forward). Returns (x,
+    aux_loss_sum); the dense family has no auxiliary loss."""
+    if cfg.family != "dense" or cfg.moe is not None:
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported yet (ROADMAP "
+            f"Queue 1: the ssm training branch, _stack_apply_ssm)")
+
+    def body(lp, h):
+        with scope.named_scope("layer"):
+            return _attn_mlp_block(lp, h, positions, cfg)
+
+    body = _remat(body, cfg)
+    L = cfg.num_layers
+    with scope.named_scope("layers"):
+        layers = unbind_tree(params["layers"], L)
+        for li in scope.scan(L):
+            x = body(layers[li], x)
+    with scope.named_scope("final_norm"):
+        x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ------------------------------------------------------------ serving
 
 def mlp_residual(lp, h, cfg: ModelConfig):
     with scope.named_scope("mlp"):

@@ -10,7 +10,11 @@ kernels' 64-row tile, one chunk and 16 chunks, one head a group and
 partial head blocks, the zero-padded tail, strided b/c views aligned and
 not, bitwise invariance to batching); the probe on the card, and a
 streaming session over the engine's paged decode step, whose spilled
-rows arrive through their copy events. Every test needs an NVIDIA GPU
+rows arrive through their copy events; the flash kernel's row
+statistics (m, l) against the plain version's, and the training
+backward from the kernel's forward against the same backward from the
+plain forward, then through the ``autograd.Function`` with GQA. Every
+test needs an NVIDIA GPU
 and nvcc and skips without them. On the card, with no JAX installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -465,3 +469,57 @@ def test_session_over_the_engine_decode_on_the_card(dev):
     for r in snap.rows:
         assert r.observed == r.calls > 0, r.path
     s.close()
+
+
+# row statistics: m a maximum of f32 scores taken in log2 units and scaled
+# back (a few f32 ulps), l a sum of exp terms in another order with the
+# MUFU exp2 (a few ulps each)
+STATS_M_ATOL, STATS_L_RTOL = 1e-4, 1e-4
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", [
+    (2, 8, 2, 1024, 64), (1, 4, 4, 300, 128), (2, 4, 1, 65, 64)])
+def test_flash_kernel_row_statistics_match_plain(dev, B, H, Hkv, S, D):
+    gen = torch.Generator(device=dev).manual_seed(B * S + D)
+    q, k, v = (_bf16(shape, gen, dev) for shape in
+               ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    out, m, l = fa.flash_attention(q, k, v, with_stats=True)
+    po, pm, pl = fa.flash_attention_plain(q, k, v, with_stats=True)
+    assert torch.equal(out, fa.flash_attention(q, k, v))
+    assert (out.float() - po.float()).abs().max().item() <= FLASH_ATOL
+    assert (m - pm).abs().max().item() <= STATS_M_ATOL
+    assert ((l - pl).abs() / pl).max().item() <= STATS_L_RTOL
+
+
+# bf16 grads from two forwards whose outputs and statistics are a few
+# ulps apart: a few bf16 ulps (2^-8 relative) of the largest |grad| (see
+# chip_smoke.py)
+BWD_RTOL = 2e-2
+
+
+def test_flash_backward_from_the_kernel_forward_matches_plain(dev):
+    from repro_torch.models import attention as attn
+    B, H, Hkv, S, D = 2, 8, 2, 512, 64
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, dout = (_bf16(shape, gen, dev) for shape in
+                     ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                      (B, S, H, D)))
+    qk, kk, vk = (t.clone().requires_grad_() for t in (q, k, v))
+    fa.flash_attention.launches = 0
+    out = attn.causal_flash(qk, kk, vk, 256, 256)
+    assert fa.flash_attention.launches == 1
+    got = torch.autograd.grad(out, (qk, kk, vk), dout)
+    # the plain forward's statistics, the same backward
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    po, pm, pl = fa.flash_attention_plain(qh, kh, vh, with_stats=True)
+    kr, vr = (t.repeat_interleave(H // Hkv, dim=2) for t in (k, v))
+    dq, dk, dv = attn._flash_bwd(256, 256, (q, kr, vr, po.transpose(1, 2),
+                                            pm, pl), dout)
+    want = (dq, attn._sum_groups(dk, Hkv), attn._sum_groups(dv, Hkv))
+    assert (out.float() - po.transpose(1, 2).float()).abs().max() <= \
+        FLASH_ATOL
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        top = w.float().abs().max().item()
+        assert err <= BWD_RTOL * top, (err, top)

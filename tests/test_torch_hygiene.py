@@ -31,6 +31,12 @@ PORT_MODULES = (
     "repro_torch.engine",
     "repro_torch.engine.pagetable", "repro_torch.engine.step",
     "repro_torch.engine.engine", "repro_torch.launch.serve",
+    "repro_torch.optim", "repro_torch.optim.schedule",
+    "repro_torch.optim.quantized", "repro_torch.optim.adamw",
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
+    "repro_torch.distributed", "repro_torch.distributed.steps",
+    "repro_torch.launch.train",
 )
 
 
@@ -49,7 +55,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
     """With no GPU and no device="cpu", serve() (profiled or not),
-    Model.init, probe(), ProbeSession(fn) and init_state raise."""
+    train() (probed or not), Model.init, probe(), ProbeSession(fn) and
+    init_state raise."""
     from repro_torch.configs.registry import smoke_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import Model
@@ -60,6 +67,11 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
         serve(batch=1, prompt_len=4, max_new=1, profile=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(smoke_config("tinyllama-1.1b")).init(0)
+    from repro_torch.launch.train import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(steps=1, batch=1, seq=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(steps=1, batch=1, seq=8, probe_targets=("",))
     from repro_torch.core import ProbeSession, init_state, probe
     with pytest.raises(RuntimeError, match="device='cpu'"):
         probe(lambda x: x)
@@ -82,3 +94,20 @@ def test_serve_engine_and_legacy_loop_agree_on_cpu():
         assert (res.tokens == base.tokens).all(), over
         assert res.stats["retraces"] == 0
         assert torch.isfinite(res.first_logits[:, :257]).all()
+
+
+def test_trainer_cli_on_the_cpu_and_its_unported_flags():
+    """``python -m repro_torch.launch.train --device cpu`` trains (and
+    probes); ``--mesh`` and ``--autotune`` raise, naming the roadmap."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
+            "cpu", "--steps", "4", "--batch", "2", "--seq", "32"]
+    out = subprocess.run(base + ["--probe", "--probe-every", "2"], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         check=True).stdout
+    assert "step     3 loss" in out and out.count("[probe] ") == 2
+    assert "# final streaming probe telemetry" in out
+    from repro_torch.launch.train import train
+    for kw in (dict(probe_mesh=(2,)), dict(autotune=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train(steps=1, batch=1, seq=8, device="cpu", **kw)
