@@ -105,6 +105,20 @@
    each library's SASS (cuobjdump): the flash and SSD kernels must have
    some.
 
+13. grid-step probing (``ProbeConfig(kernel_probes=...)``): the
+   tinyllama prefill (8 x 512) with ``flash_kernel`` probed (record ==
+   oracle, logits bitwise, 22 flash and 22 ``probe_grid`` launches, grid
+   calls 22 x 8 x 32 x 8 x 8, kernel-scope totals == grid totals; then
+   every probe spilling at depth 256: ``kv_block``'s step cycles take two
+   values, as many computed as the kernel's counts, and the grid keeps
+   every step), probed against unprobed wall; the fold given a non-causal
+   launch's counter block (record != oracle); the engine's chunked
+   prefill step (128 rows at q offset 384) with the same checks; the
+   mamba2 prefill (8 x 1024) with ``ssd_kernel`` (48 folds, grid calls 48
+   x 8 x 32 x 4) and its wall; the engine's paged decode step at the
+   serving shape with ``paged_kernel`` (record == oracle, outputs and
+   pools bitwise); then the fold kernel's time beside its bound.
+
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
 {"ok": true, "device": {...}}.
@@ -363,6 +377,19 @@ def check_paged(torch, pa, dev):
     print(f"paged: all {B} rows at pos {s_max - 1}: max |kernel - plain| "
           f"{err_full:.3e} (atol {PAGED_ATOL})")
     assert err_full <= PAGED_ATOL
+    # the counter block (slots read per row, kv head, tile) against the
+    # plain version's, at both position sets; the output with it is the
+    # output without it
+    for what, args in (("mixed pos", (pages, pos)), ("serve pos", full)):
+        o_c, got = pa._paged(q, pool_k, pool_v, *args, True)
+        _, want = pa.paged_attention_plain(q, pool_k, pool_v, *args,
+                                           with_counts=True)
+        diff = (got.long() - want.long()).abs().max().item()
+        same = torch.equal(o_c, pa.paged_attention(q, pool_k, pool_v, *args))
+        print(f"paged counter block {tuple(got.shape)} at {what}: max "
+              f"|kernel - plain| {diff} (exact), output bitwise the "
+              f"uncounted one: {same}")
+        assert diff == 0 and same
 
     def paged_bound(pos):
         visible = int((pos.long() + 1).clamp(max=s_max).sum())
@@ -419,6 +446,18 @@ def check_ssd(torch, ssd, ssd_ref, dev):
           f"{fst.abs().max().item():.3f}")
     assert all(errs[k] <= SSD_RTOL[k] and f32[k] <= SSD_F32_RTOL[k]
                for k in errs)
+    # the counter block (sub-chunks scanned per b, h, chunk) against the
+    # plain version's; the output with it is the output without it
+    y_c, st_c, got = ssd._ssd(x, a, b, c, chunk, chunk, H // G, 1, True,
+                              True)
+    _, want = ssd.ssd_scan_plain(x, a, b, c, chunk=chunk, h_per_g=H // G,
+                                 with_counts=True)
+    diff = (got.long() - want.long()).abs().max().item()
+    same = torch.equal(y_c, y) and torch.equal(st_c, st)
+    print(f"ssd counter block {tuple(got.shape)} at L={L}: max |kernel - "
+          f"plain| {diff} (exact), y and state bitwise the uncounted ones: "
+          f"{same}")
+    assert diff == 0 and same
 
     x2, a2, b2, c2 = ssd_inputs(torch, dev, 2, 512, H, P, 2, N, seed=3)
     y2, st2 = ssd.ssd_scan(x2, a2, b2, c2, chunk=chunk, pipeline=2,
@@ -582,6 +621,15 @@ def check_probe_events(torch, kpe, dev):
     return dict(state=ks, codes=codes, err=err, bound=bound(nbytes, 0.0))
 
 
+def _record_equals_oracle(dec, oc) -> bool:
+    n = len(oc.calls)
+    return (dec["cycle"] == oc.cycle and all(
+        int(dec[k][i]) == getattr(oc, k)[i]
+        for k in ("starts", "ends", "totals", "calls") for i in range(n))
+        and all([tuple(r) for r in dec["ring"][i].tolist()] == oc.ring[i]
+                for i in range(n)))
+
+
 def probe_program(torch, name, fn, make, counters, want, kpe):
     """Probe one full-width program in both cycle sources; returns the
     numbers the report prints."""
@@ -603,12 +651,7 @@ def probe_program(torch, name, fn, make, counters, want, kpe):
     same = all(torch.equal(a, b) for a, b in zip(_flat(out), plain))
     dec = decode_record(rec)
     oc = pf.oracle(*make())
-    exact = (dec["cycle"] == oc.cycle and all(
-        int(dec[k][i]) == getattr(oc, k)[i]
-        for k in ("starts", "ends", "totals", "calls")
-        for i in range(len(oc.calls))) and all(
-        [tuple(r) for r in dec["ring"][i].tolist()] == oc.ring[i]
-        for i in range(len(oc.calls))))
+    exact = _record_equals_oracle(dec, oc)
     stats = pf.last_run
     print(f"probe [{name}] model clock: {len(pf.probe_paths())} probes, "
           f"capture {capture_s * 1e3:.0f} ms; record == oracle: {exact}; "
@@ -730,6 +773,268 @@ def probe_phase(torch, fa, ssd, kpe, dev):
     return dict(launches=res["launches"], flash_wall=res["wall"],
                 flash_calls=res["calls"], ssd_wall=sres["wall"],
                 ssd_calls=sres["calls"])
+
+
+def kernel_probed(torch, name, fn, make, kernels, launches, counters, kpe,
+                  cfg, grid_calls, twin=None):
+    """One program probed with ``cfg`` (kernel probes on): the record
+    equals the oracle integer for integer, the outputs equal the unprobed
+    ones bitwise (``twin`` makes the unprobed call's arguments when the
+    program writes its inputs), each kernel and the fold launch
+    ``launches`` times, the grid probes' calls are ``grid_calls``,
+    kernel-scope totals equal grid totals. Returns (pf, record, report,
+    numbers)."""
+    from repro_torch.core import decode_record, probe
+    pf = probe(fn, cfg)
+    t0 = time.perf_counter()
+    pf.ensure_built(*make())
+    capture_s = time.perf_counter() - t0
+    args = make()
+    want = _flat(fn(*(twin() if twin else make())))
+    for c in counters.values():
+        c.launches = 0
+    kpe.probe_grid.launches = 0
+    out, rec = pf(*args)
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    folds = kpe.probe_grid.launches
+    same = all(torch.equal(a, b) for a, b in zip(_flat(out), want))
+    dec = decode_record(rec)
+    t0 = time.perf_counter()
+    oc = pf.oracle(*make())
+    oracle_s = time.perf_counter() - t0
+    exact = _record_equals_oracle(dec, oc)
+    paths = list(pf.probe_paths())
+    grids = [i for i, p in enumerate(paths) if p.endswith("/grid")]
+    calls = [int(dec["calls"][i]) for i in grids]
+    sums = all(int(dec["totals"][i]) == int(dec["totals"][paths.index(
+        paths[i].rsplit("/", 1)[0])]) for i in grids)
+    rep = pf.report(rec)
+    print(f"kernel probe [{name}]: {len(paths)} probes, capture "
+          f"{capture_s * 1e3:.0f} ms, oracle {oracle_s:.1f} s; record == "
+          f"oracle: {exact}; outputs bitwise == unprobed: {same}; kernel "
+          f"launches {got}, probe_grid launches {folds} (want {launches} "
+          f"each); grid calls {calls} (want [{grid_calls}]); kernel-scope "
+          f"totals == grid totals: {sums}; {pf.last_run}")
+    assert exact and same and sums and grids
+    assert folds == launches == pf.last_run["folds"]
+    assert all(got[k] == launches for k in kernels), got
+    assert calls == [grid_calls], calls
+    return pf, rec, rep, dict(folds=folds, dec=dec, oc=oc, args=args)
+
+
+def _skew(torch, name, rep, path, counts, n_calls):
+    """The causal skew in the device record: ``kv_block``'s step
+    durations take two values (computed, skipped), as many computed as
+    the kernel's computed counts say, and the grid's recorded steps are
+    every step and sum to its total."""
+    kv = rep.row(path + "/kv_block")
+    grid = rep.row(path)
+    durs = [e - s for s, e in kv.iters]
+    gd = [e - s for s, e in grid.iters]
+    values = sorted(set(durs))
+    computed = n_calls * int(counts[..., 1].sum())
+    ok = (len(values) == 2 and durs.count(values[1]) == computed
+          and len(gd) == grid.calls and sum(gd) == grid.total_cycles
+          and max(gd) > min(gd))
+    print(f"kernel probe [{name}] causal skew in the device record: "
+          f"kv_block step cycles {values} (skipped, computed), "
+          f"{durs.count(values[-1])} computed steps (the kernel's counts: "
+          f"{computed}); grid steps recorded {len(gd)}/{grid.calls}, "
+          f"cycles {min(gd)}..{max(gd)}, sum == total: "
+          f"{sum(gd) == grid.total_cycles}")
+    assert ok
+
+
+def kernel_probe_phase(torch, fa, pa, ssd, kpe, dev, smi):
+    """Grid-step probing (``ProbeConfig(kernel_probes=...)``) over the
+    full-width main paths: (a) the tinyllama prefill, (b) a chunked
+    prefill step at q offset 384, (c) the mamba2 prefill, (d) a paged
+    decode step, (e) a foreign counter block caught. Returns the fold
+    kernel's line numbers."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import ProbeConfig, decode_record, probe, scope
+    from repro_torch.core import kernel_grid_heat, kernel_grid_table
+    from repro_torch.engine import build_chunk_prefill, build_paged_decode
+    from repro_torch.models import Model
+    counters = dict(flash=fa.flash_attention, paged=pa.paged_attention,
+                    ssd=ssd.ssd_scan)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    base = ProbeConfig(inline="off_all", max_probes=64, buffer_depth=4)
+    print(f"# grid-step probing ({smi})")
+    folds = 0
+
+    # (a) the tinyllama prefill, 8 x 512
+    m = Model(get_config(ARCH))
+    p = m._compute_cast(m.init(0, dev))
+    cfg = m.cfg
+    L, H, Hkv, hd = (cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    cache_len = PROMPT + MAX_NEW
+    toks = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
+                         generator=gen, dtype=torch.int32)
+
+    def prefill(p_, b):
+        return m.prefill(p_, b, cache_len)
+    fcfg = base.replace(kernel_probes=("flash_kernel",))
+    nq = -(-PROMPT // fa.BLOCK_Q)
+    steps = BATCH * H * nq * nq
+    pf, rec, rep, a = kernel_probed(
+        torch, f"{ARCH} prefill {BATCH}x{PROMPT}", prefill,
+        lambda: (p, {"tokens": toks}), ("flash",), L,
+        dict(flash=fa.flash_attention), kpe, fcfg, L * steps)
+    folds += a["folds"]
+    kpath = next(q for q in pf.probe_paths() if q.endswith("/grid"))
+    print(kernel_grid_table(pf.hierarchy, rep))
+    qz = torch.zeros((BATCH, H, PROMPT, hd), dtype=torch.bfloat16, device=dev)
+    kz = torch.zeros((BATCH, Hkv, PROMPT, hd), dtype=torch.bfloat16,
+                     device=dev)
+    _, counts = fa.flash_attention(qz, kz, kz, with_probe=True)
+    spf, _, srep, sa = kernel_probed(
+        torch, f"{ARCH} prefill {BATCH}x{PROMPT}, every probe spilling at "
+        f"depth 256", prefill, lambda: (p, {"tokens": toks}), ("flash",), L,
+        dict(flash=fa.flash_attention), kpe,
+        fcfg.replace(offload=1.0, buffer_depth=256), L * steps)
+    folds += sa["folds"]
+    _skew(torch, "prefill", srep, kpath, counts.cpu(), L)
+    print("\n".join(kernel_grid_heat(spf.hierarchy, srep).splitlines()[:9]))
+    print(f"  spilled rows {spf.sink.dumps}, fold dumps included; report "
+          f"history of every spilled probe == the oracle's: "
+          f"{all(r.iters == sa['oc'].history[i] for i, r in enumerate(srep.rows) if spf.assignment.spill[i])}")
+    del spf, srep, sa
+    w = walls_ms(torch, dict(unprobed=lambda: prefill(p, {"tokens": toks}),
+                             probed=lambda: pf(p, {"tokens": toks})), reps=5)
+    print(f"kernel probe [prefill] wall per call (median of 5, in turns): "
+          f"unprobed {w['unprobed']:.2f} ms, probed with kernel probes "
+          f"{w['probed']:.2f} ms ({100 * (w['probed'] / w['unprobed'] - 1):+.0f}"
+          f" %) ({smi})")
+    walls = dict(prefill=w)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pf(p, {"tokens": toks})
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "probe_grid" in e.key]
+    print(f"kernel probe [prefill] probe_grid kernels under torch.profiler: "
+          f"{sum(e.count for e in ev)}, "
+          f"{sum(getattr(e, 'device_time_total', 0) for e in ev):.1f} us of "
+          f"device time")
+
+    # (e) a foreign counter block: the causal plan folded with the counts
+    # of a non-causal launch
+    q1 = torch.randn((BATCH, H, PROMPT, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    k1, v1 = (torch.randn((BATCH, Hkv, PROMPT, hd), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+
+    def teeth(q, k, v):
+        with scope.named_scope("attn"):
+            with scope.kernel_region(
+                    "flash_attention", lambda: fa.flash_cost(q, k, v),
+                    lambda: fa.flash_plan(q, k, v)) as region:
+                out = fa.flash_attention(q, k, v)
+                _, wrong = fa.flash_attention(q, k, v, causal=False,
+                                              with_probe=True)
+                region.fold(wrong)
+            return out
+    tpf = probe(teeth, base.replace(kernel_probes=("*",)))
+    _, trec = tpf(q1, k1, v1)
+    tdec = decode_record(trec)
+    toc = tpf.oracle(q1, k1, v1)
+    caught = not _record_equals_oracle(tdec, toc)
+    print(f"kernel probe [teeth]: the fold given a non-causal launch's "
+          f"counter block: record != oracle: {caught} (clock {tdec['cycle']}"
+          f" against the oracle's {toc.cycle})")
+    assert caught
+
+    # (b) a chunked prefill step: 128 rows at q offset 384 (24 context
+    # pages of 16, a chunk of 8), against a pool of random K/V
+    ps, ctx, chunk = 16, 24, 8
+    pool_shape = (L, ctx + 2, ps, Hkv, hd)
+    pools = [torch.randn(pool_shape, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    cstep = build_chunk_prefill(m, ctx, chunk, ps)
+    cb = {"tokens": toks[:1, :chunk * ps],
+          "ctx_pages": torch.arange(1, ctx + 1, device=dev,
+                                    dtype=torch.int32),
+          "last_idx": torch.tensor([chunk * ps - 1], device=dev,
+                                   dtype=torch.int32)}
+    csteps = H * 2 * (ctx + chunk) * ps // fa.BLOCK_K
+    cpf, _, crep, ca = kernel_probed(
+        torch, "chunked prefill 128 rows at q offset 384", cstep,
+        lambda: (p, pools[0], pools[1], cb), ("flash",), L,
+        dict(flash=fa.flash_attention), kpe,
+        fcfg.replace(offload=1.0, buffer_depth=64), L * csteps)
+    folds += ca["folds"]
+    qc = torch.zeros((1, H, chunk * ps, hd), dtype=torch.bfloat16,
+                     device=dev)
+    kc = torch.zeros((1, Hkv, (ctx + chunk) * ps, hd), dtype=torch.bfloat16,
+                     device=dev)
+    _, ccounts = fa.flash_attention(qc, kc, kc, q_offset=ctx * ps,
+                                    with_probe=True)
+    ckpath = next(q for q in cpf.probe_paths() if q.endswith("/grid"))
+    _skew(torch, "chunk", crep, ckpath, ccounts.cpu(), L)
+    del cpf, crep, ca, pools, m, p, pf, rec, rep
+    torch.cuda.empty_cache()
+
+    # (c) the mamba2 prefill, 8 x 1024
+    m = Model(get_config(SSM_ARCH))
+    p = m._compute_cast(m.init(0, dev))
+    stoks = torch.randint(0, m.cfg.vocab_size, (BATCH, SSM_PROMPT),
+                          device=dev, generator=gen, dtype=torch.int32)
+    from repro_torch.models.ssm import ssm_dims
+    sd = ssm_dims(m.cfg)
+    ssteps = BATCH * sd["heads"] * (SSM_PROMPT // min(sd["chunk"], SSM_PROMPT))
+
+    def sprefill(p_, b):
+        return m.prefill(p_, b, SSM_PROMPT + MAX_NEW)
+    spf, _, _, sa = kernel_probed(
+        torch, f"{SSM_ARCH} prefill {BATCH}x{SSM_PROMPT}", sprefill,
+        lambda: (p, {"tokens": stoks}), ("ssd",), m.cfg.num_layers,
+        dict(ssd=ssd.ssd_scan), kpe,
+        base.replace(kernel_probes=("ssd_kernel",)), m.cfg.num_layers * ssteps)
+    folds += sa["folds"]
+    w = walls_ms(torch, dict(unprobed=lambda: sprefill(p, {"tokens": stoks}),
+                             probed=lambda: spf(p, {"tokens": stoks})),
+                 reps=5)
+    print(f"kernel probe [mamba2 prefill] wall per call (median of 5, in "
+          f"turns): unprobed {w['unprobed']:.2f} ms, probed with kernel "
+          f"probes {w['probed']:.2f} ms "
+          f"({100 * (w['probed'] / w['unprobed'] - 1):+.0f} %) ({smi})")
+    walls["ssm_prefill"] = w
+    del spf, sa, m, p
+    torch.cuda.empty_cache()
+
+    # (d) a paged decode step of the engine at the serving shape: 8 rows
+    # near the end of 34 pages of 16, pool of 274 pages, positions given
+    # as host ints
+    m = Model(get_config(ARCH))
+    p = m._compute_cast(m.init(0, dev))
+    n_pages, P = 34, 274
+    dshape = (L, P, ps, Hkv, hd)
+    dpools = [torch.randn(dshape, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    twins = [t.clone() for t in dpools]
+    pages = (torch.randperm(P - 1, generator=gen, device=dev)[
+        :BATCH * n_pages] + 1).to(torch.int32).reshape(BATCH, n_pages)
+    pos = [PROMPT + 31 - 3 * i for i in range(BATCH)]
+    dstep = build_paged_decode(m, BATCH, n_pages, ps, use_kernel=True)
+    db = {"tokens": toks[:, -1:], "pages": pages,
+          "pos": torch.tensor(pos, dtype=torch.int32, device=dev),
+          "pos_host": tuple(pos)}
+    dpf, _, _, da = kernel_probed(
+        torch, f"{ARCH} paged decode {BATCH} rows at pos {pos[-1]}..{pos[0]}",
+        dstep, lambda: (p, dpools[0], dpools[1], db), ("paged",), L,
+        dict(paged=pa.paged_attention), kpe,
+        base.replace(kernel_probes=("paged_kernel",)),
+        L * BATCH * n_pages, twin=lambda: (p, twins[0], twins[1], db))
+    folds += da["folds"]
+    same_pools = all(torch.equal(a_, b_) for a_, b_ in zip(dpools, twins))
+    print(f"kernel probe [decode]: pools after the probed and the unprobed "
+          f"step bitwise equal: {same_pools}")
+    assert same_pools
+    del dpf, da, dpools, twins, m, p
+    torch.cuda.empty_cache()
+    return dict(folds=folds, walls=walls)
 
 
 def serve_runs(torch, fa, pa, ssd, serve):
@@ -1394,6 +1699,74 @@ def train_kernel(torch, fa, tr) -> dict:
                 bound_by=tr["flash"]["bound"][1], library_ms=lib)
 
 
+# the H100's published peak table gives no integer rate; the fold's
+# integer work is held to its float32 rate outside the tensor cores
+CUDA_CORE_OPS = 67e12
+
+
+def fold_line(torch, fa, kpe, dev, launches) -> dict:
+    """The fold kernel (``probe_grid``) at the prefill's flash grid (8 x
+    32 x 8 x 8 steps, ring depth 4): against its plain version on copies
+    of one state (prior calls and ring rows, two of the four ids
+    spilling into a dump block), then its device time held, its plain
+    version's, its bound (four ids, none spilling)."""
+    import numpy as np
+    from repro_torch.core import init_state
+    q = torch.zeros((BATCH, 32, PROMPT, 64), dtype=torch.bfloat16,
+                    device=dev)
+    kv = torch.zeros((BATCH, 4, PROMPT, 64), dtype=torch.bfloat16, device=dev)
+    plan = fa.flash_plan(q, kv, kv)
+    _, counts = fa.flash_attention(q, kv, kv, with_probe=True)
+    _, want = fa.flash_attention_plain(q, kv, kv, with_probe=True)
+    assert torch.equal(counts, want)
+    cnp = counts.cpu().numpy()
+
+    rng = np.random.default_rng(7)
+    ids, spill, depth = [0, 1, 2, 3], [False, True, False, True], 4
+    base = init_state(4, depth, dev)
+    base["calls"].copy_(torch.tensor([3, 6, 1, 0], device=dev))
+    base["cycle"].fill_(int(rng.integers(0, 1 << 30)))
+    base["ring"].copy_(torch.from_numpy(
+        rng.integers(0, 1 << 20, (4, depth, 2))).to(dev))
+    rows, offs = kpe.grid_dump_rows(base["calls"].tolist(), ids, spill,
+                                    plan.steps, depth)
+    ks = {k: v.clone() for k, v in base.items()}
+    ps = {k: v.clone() for k, v in base.items()}
+    dk, dp = (torch.zeros((len(rows), depth, 2), dtype=torch.int64,
+                          device=dev) for _ in range(2))
+    kpe.probe_grid(ks, plan, counts, ids, spill, dk, offs)
+    kpe.probe_grid_plain(ps, plan, cnp, ids, spill, dp, offs)
+    torch.cuda.synchronize()
+    err = max([(ks[k] - ps[k]).abs().max().item() for k in ks]
+              + [(dk - dp).abs().max().item()])
+    print(f"probe_grid == plain at {plan.steps} steps (flash counts == "
+          f"plain; 2 of 4 ids spilling, {len(rows)} dump rows; cycle, cnt, "
+          f"calls, ring, dump): max |diff| {err} (exact)")
+    assert err == 0
+
+    ids, spill = [0, 1, 2, 3], [False] * 4
+    st = init_state(4, 4, dev)
+    ms = time_ms(lambda: kpe.probe_grid(st, plan, counts, ids, spill))
+    plain = time_ms(lambda: kpe.probe_grid_plain(st, plan, cnp, ids, spill),
+                    reps=5, hold=False)
+    # each counter read once; per id its three planes and calls read and
+    # written, the clock, and the first `depth` ring slots written
+    nbytes = counts.numel() * 4 + 4 * 4 * 8 * 2 + 16 + 4 * 4 * 16
+    # per step and id: a rule, a table read, an add, a ring test
+    ops = plan.steps * len(ids) * 4
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS
+    bnd = max(t_b, t_o) * 1e3
+    by = "bytes" if t_b >= t_o else "operations"
+    print(f"probe_grid (the fold) at {plan.steps} steps: {ms * 1e3:.1f} us "
+          f"held (bound {bnd * 1e3:.3f} us by {by}), plain {plain * 1e3:.1f} "
+          f"us, {launches} launches in the grid-step phase's probed runs")
+    return dict(name="probe_grid", route="cuda",
+                source="src/repro_torch/csrc/probe_events.cu",
+                replaces="src/repro/core/kernelprobe.py:379",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1444,6 +1817,7 @@ def main() -> int:
     pe_launches = probed_engine_phase(torch, fa, pa, kpe, dev)
     profiled_ssm_phase(torch, fa, pa, ssd, serve, ssm_plain, dev)
     tr = train_phase(torch, fa, pa, ssd, dev, smi)
+    kprobe = kernel_probe_phase(torch, fa, pa, ssd, kpe, dev, smi)
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -1509,6 +1883,7 @@ def main() -> int:
                        reps=5, hold=False)
     print(f"probe_events one transition: host time per launch "
           f"{host_us(lambda: launch(pcodes, 7)):.1f} us")
+    fold = fold_line(torch, fa, kpe, dev, kprobe["folds"])
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -1535,6 +1910,7 @@ def main() -> int:
              ms=pe_ms, plain_ms=pe_plain, bound_ms=pev["bound"][0],
              bound_by=pev["bound"][1], library_ms=None),
         train_kernel(torch, fa, tr),
+        fold,
     ]
     for kn in kernels:
         print(f"{kn['name']}: {kn['ms'] * 1e3:.1f} us (bound "

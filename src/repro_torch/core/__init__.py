@@ -21,19 +21,24 @@ Stages (paper Fig 3):
   2 extraction  hierarchy.capture (one run under a dispatch mode)
   3 IP          instrument.Runner + kernels.probe_events (+ buffer spill)
   5 results     report (table / timeline / bump chart), oracle (ILA)
+  kernels       ProbeConfig(kernel_probes=...): grid-step probing of the
+                hand kernels (kernelprobe, kernels.probe_events.probe_grid,
+                KernelOracle, kernel_grid_table / kernel_grid_heat)
   streaming     ProbeSession: the probe kept running across steps, with
                 constant-memory aggregates (StreamingSink, StreamAggregator)
 """
 from repro_torch.core import scope
 from repro_torch.core.hierarchy import Hierarchy, capture
 from repro_torch.core.instrument import decode_record, init_state
-from repro_torch.core.oracle import Oracle
+from repro_torch.core.oracle import KernelOracle, Oracle
 from repro_torch.core.pragma import ProbeConfig, ProbedFunction, probe
-from repro_torch.core.report import Report, bump_chart
+from repro_torch.core.report import (Report, bump_chart, kernel_grid_heat,
+                                     kernel_grid_table)
 from repro_torch.core.streaming import (ProbeSession, StreamAggregator,
                                         StreamingSink, StreamSnapshot)
 
 __all__ = ["scope", "probe", "ProbeConfig", "ProbedFunction", "Hierarchy",
            "capture", "Oracle", "Report", "bump_chart", "decode_record",
            "init_state", "ProbeSession", "StreamingSink", "StreamAggregator",
-           "StreamSnapshot"]
+           "StreamSnapshot", "KernelOracle", "kernel_grid_table",
+           "kernel_grid_heat"]

@@ -30,7 +30,11 @@ Views (``view``, ``t``, ``transpose``, ``expand``, ``select``, ``slice``,
 only change a tensor's metadata. (JAX prices a reshape by its bytes,
 since XLA may copy; the two clocks differ there on purpose.) A hand
 kernel's region (``scope.kernel_region``) is priced once from the FLOPs
-and bytes its wrapper states, whatever route runs it.
+and bytes its wrapper states, whatever route runs it. With grid-step
+probing (``core.kernelprobe``) a matched region is priced step by step
+instead: each inner scope's per-step work through ``roofline_cycles``
+from its per-block FLOPs and bytes, and the step's block transfer at the
+grid node through ``transfer_cycles``, the one definition of that term.
 
 Host read-outs (``_local_scalar_dense``: ``.item()``, ``bool(t)``) are
 not device operations here: the markers read branch predicates with
@@ -145,6 +149,14 @@ def op_cost(func, args, kwargs, out) -> OpCost:
         flops = max((t.numel() for t in outs), default=0)
     return OpCost(flops=int(flops), bytes=int(total_bytes), comm_bytes=0,
                   cycles=roofline_cycles(int(flops), int(total_bytes)))
+
+
+def transfer_cycles(block_bytes: int) -> int:
+    """Cycles of one grid step's block transfer (the HBM term alone),
+    the port's ``pallas_dma_cycles``: the grid-step plans price their
+    grid node with it, and the capture, the run and the oracle all read
+    the plan's value."""
+    return int(math.ceil(int(block_bytes) / HBM_BYTES_PER_CYCLE))
 
 
 def kernel_cost(flops: float, nbytes: float) -> OpCost:

@@ -30,15 +30,27 @@ the forward: autograd carries the dispatch mode to the threads that run
 the backward, and the node hooks move the frames (``core.scope``).
 
 Every aten operation is priced by ``core.costmodel``. A hand kernel's
-region is ONE operation; nothing inside it is recorded. A visit that
-repeats a site (a loop iteration, a scope in a loop) must repeat its
-segments exactly; one that does not (data-dependent shapes) raises,
-since the table could not price it. A capture runs every branch of a
+region is ONE operation; nothing inside it is recorded. A region that
+declares a grid plan (``core.kernelprobe``) is also a marker event of
+its own, and the capture keeps both views of it: ``Captured.view(
+kernel_probes)`` builds the hierarchy for a set of kernel probes without
+running the function again (a retarget that flips them reuses the
+capture, as the JAX package re-extracts its cached trace). In a view
+whose ``kernel_probes`` match the region's body, the region is the
+reference's subtree ``kernel/<body>#i`` (kind ``kernel``) / ``grid``
+(kind ``loop``, ``trip_count`` the grid's steps, ``grid`` the grid) /
+the body's inner scopes; otherwise it is the one operation it always
+was, and the tree is the one it was before kernel probing existed. A
+visit that repeats a site (a loop iteration, a scope in a loop) must
+repeat its segments exactly; one that does not (data-dependent shapes)
+raises, since the table could not price it. A capture runs every branch of a
 ``scope.switch``/``cond`` (the taken one's result is returned), so the
 tree holds every branch, as the jaxpr does.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 import sys
 from dataclasses import dataclass, field
@@ -48,12 +60,15 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import costmodel as cm
+from repro_torch.core import kernelprobe as kp
 from repro_torch.core import scope as sc
 
 _CORE_DIR = os.path.dirname(os.path.abspath(__file__)) + os.sep
 _KERNELS_DIR = os.path.join(os.path.dirname(_CORE_DIR[:-1]), "kernels") + os.sep
 _TORCH_DIR = os.sep + "torch" + os.sep
 _LOOP_KINDS = ("scan", "while", "cond")
+_TRIGGERS = _LOOP_KINDS + ("kernel",)
+_PLACEHOLDER = "\0kernel:"         # a kernel site's slot among children
 
 
 @dataclass
@@ -61,7 +76,9 @@ class ScopeNode:
     name: str
     path: str
     kind: str = "scope"               # scope | loop | while | cond | root
-    trip_count: Optional[int] = None  # scan loops
+                                      # | kernel
+    trip_count: Optional[int] = None  # scan loops, kernel grids
+    grid: Optional[Tuple[int, ...]] = None   # a kernel's grid node
     dynamic: bool = False             # subtree contains while/cond
     n_eqns: int = 0                   # aten ops directly here, one visit
     own_cycles: int = 0               # direct-op cycles per single visit
@@ -95,8 +112,24 @@ class Segment:
     @property
     def triggers(self) -> bool:
         """Does the stretch run anything at its path (an operation, or a
-        loop / branch point, which JAX counts as an equation)?"""
-        return self.n_ops > 0 or self.nxt[0] in _LOOP_KINDS
+        loop / branch point or kernel call, which JAX counts as an
+        equation)?"""
+        return self.n_ops > 0 or self.nxt[0] in _TRIGGERS
+
+
+@dataclass(frozen=True)
+class KernelSite:
+    """A kernel region that declares a grid plan, at one site: its
+    parent's path, its flat cycles (the region priced as one operation)
+    and its plan's signature; ``path`` is its ``kernel/<body>#i`` node in
+    a view whose kernel probes match it, else None."""
+    body: str
+    parent: str
+    flat: int
+    plan: Tuple[Any, ...]             # GridPlan.signature()
+    source: str = ""
+    op_index: Optional[int] = None    # its entry in ``ops[parent]``
+    path: Optional[str] = None
 
 
 @dataclass
@@ -105,6 +138,19 @@ class Hierarchy:
     sites: sc.SiteTable
     segments: Dict[Tuple[int, int], Segment]
     ops: Dict[str, List[Tuple[str, int]]]   # path -> (op, cycles), one visit
+    kernels: Dict[int, KernelSite] = field(default_factory=dict)
+    kernel_probes: Tuple[str, ...] = ()
+    captured: "Optional[Captured]" = None
+    # kernel path -> (its last host counter block, as bytes; the grid's
+    # cycles for it): the runs' clock mirror, priced once per block
+    grid_cycles: Dict[str, Tuple[bytes, int]] = field(default_factory=dict)
+
+    def with_kernel_probes(self, kernel_probes) -> "Hierarchy":
+        """The view of the same capture for other kernel probes."""
+        kernel_probes = tuple(kernel_probes)
+        if kernel_probes == self.kernel_probes or self.captured is None:
+            return self
+        return self.captured.view(kernel_probes)
 
     def node(self, path: str) -> Optional[ScopeNode]:
         return self.root.find(path)
@@ -208,6 +254,7 @@ class _OpMode(TorchDispatchMode):
 class _Region:
     """A kernel region: one priced operation, nothing inside recorded."""
     __slots__ = ("rec", "name", "cost")
+    probed = False
 
     def __init__(self, rec, name, cost):
         self.rec, self.name, self.cost = rec, name, cost
@@ -219,6 +266,38 @@ class _Region:
 
     def __exit__(self, *exc):
         self.rec.in_kernel = False
+        return False
+
+    def fold(self, counters) -> None:
+        """No counter block is asked for here."""
+
+
+class _KernelEvent:
+    """A kernel region with a grid plan, in a capture or an oracle run: a
+    marker event of its own (``scope.kernel_region``). The kernel runs as
+    it runs unprobed (no counter block is asked for); the tracker's
+    ``kernel_enter`` prices it."""
+    probed = False
+
+    def __init__(self, rec, name, cost, plan):
+        self.rec, self.name, self.cost, self.plan = rec, name, cost, plan
+        self.parent = self.sid = None
+
+    def __enter__(self):
+        self.parent, self.sid = self.rec.kernel_event(self.name)
+        # what the pricing reads (a device input brought to the host)
+        # is not an operation of the program
+        self.rec.in_kernel = True
+        self.rec.kernel_enter(self)
+        return self
+
+    def fold(self, counters) -> None:
+        """The capture and the oracle never read a counter block."""
+
+    def __exit__(self, exc_type, exc, tb):
+        self.rec.in_kernel = False
+        if exc_type is None:
+            self.rec.kernel_done(self.parent)
         return False
 
 
@@ -242,10 +321,15 @@ class OpTracker(sc.Tracker):
         self.priced(func.overloadpacket.__name__,
                     cm.op_cost(func, args, kwargs, out))
 
-    def kernel(self, name, cost):
-        return sc._NULL if self.in_kernel else _Region(self, name, cost)
+    def kernel(self, name, cost, plan=None):
+        if self.in_kernel:
+            return sc._NULL
+        if plan is None:
+            return _Region(self, name, cost)
+        return _KernelEvent(self, name, cost, plan)
 
     def priced(self, name: str, cost: cm.OpCost) -> None: ...
+    def kernel_enter(self, ev: _KernelEvent) -> None: ...
 
 
 class Capture(OpTracker):
@@ -257,6 +341,7 @@ class Capture(OpTracker):
         self._acc: Dict[int, list] = {}
         self._touched: set = {""}
         self._first: set = set()       # sites whose first visit is done
+        self.kernels: Dict[int, KernelSite] = {}
 
     # -- tree ------------------------------------------------------------
     def _ensure(self, path: str, kind: str = "scope",
@@ -326,6 +411,33 @@ class Capture(OpTracker):
         self._first.add(f.site)
         self._acc.pop(id(f), None)
 
+    # -- kernel regions with a plan: both views kept ---------------------
+    def kernel_enter(self, ev):
+        plan = ev.plan()
+        flat = cm.kernel_cost(*ev.cost()).cycles
+        sig = plan.signature()
+        old = self.kernels.get(ev.sid)
+        if old is not None:
+            if (old.plan, old.flat) != (sig, flat):
+                raise RuntimeError(
+                    f"two visits of kernel {plan.body} at "
+                    f"{ev.parent.path or '/'} differ ({old.plan}, "
+                    f"{old.flat} cycles, then {sig}, {flat}): shapes that "
+                    f"depend on data cannot be priced from one capture")
+            return
+        f = ev.parent
+        op_index = None
+        if not self._acc[id(f)][2]:
+            lst = self.ops.setdefault(f.path, [])
+            op_index = len(lst)
+            lst.append((ev.name, flat))
+        self.kernels[ev.sid] = KernelSite(
+            body=plan.body, parent=f.path, flat=flat, plan=sig,
+            source=user_source(), op_index=op_index)
+        node = self.tree.find(f.path)
+        node.children[f"{_PLACEHOLDER}{ev.sid}"] = ScopeNode(
+            name="", path="", kind="placeholder")
+
     # -- branches: every branch runs once, the taken one's result counts -
     def switch(self, index, branches, operands):
         parent = self.top
@@ -341,21 +453,104 @@ class Capture(OpTracker):
         return out
 
     # -- result ------------------------------------------------------------
-    def hierarchy(self) -> Hierarchy:
-        def finalize(node: ScopeNode) -> Tuple[int, bool]:
-            total, dyn = node.own_cycles, node.dynamic
-            for c in node.children.values():
-                sub, d = finalize(c)
-                mult = c.trip_count if (c.kind == "loop" and
-                                        c.trip_count) else 1
-                total += sub * mult
-                dyn = dyn or d or c.kind in ("while", "cond")
-            node.static_cycles, node.dynamic = total, dyn
-            return total, dyn
+    def result(self) -> "Captured":
+        return Captured(tree=self.tree, sites=self.sites,
+                        segments=self.segments, ops=self.ops,
+                        kernels=self.kernels)
 
-        finalize(self.tree)
-        return Hierarchy(root=self.tree, sites=self.sites,
-                         segments=self.segments, ops=self.ops)
+
+def _finalize(node: ScopeNode) -> Tuple[int, bool]:
+    total, dyn = node.own_cycles, node.dynamic
+    for c in node.children.values():
+        sub, d = _finalize(c)
+        mult = c.trip_count if (c.kind == "loop" and c.trip_count) else 1
+        total += sub * mult
+        dyn = dyn or d or c.kind in ("while", "cond")
+    node.static_cycles, node.dynamic = total, dyn
+    return total, dyn
+
+
+@dataclass
+class Captured:
+    """What one capture run recorded, before kernel probes are chosen:
+    the tree with a placeholder where each kernel site with a plan was
+    first seen, the segment table, the operations, and the kernel
+    sites. ``view`` resolves the placeholders for a set of kernel
+    probes."""
+    tree: ScopeNode
+    sites: sc.SiteTable
+    segments: Dict[Tuple[int, int], Segment]
+    ops: Dict[str, List[Tuple[str, int]]]
+    kernels: Dict[int, KernelSite]
+
+    def view(self, kernel_probes=()) -> Hierarchy:
+        kernel_probes = tuple(kernel_probes)
+        tree = copy.deepcopy(self.tree)
+        ops = {p: list(v) for p, v in self.ops.items()}
+        kernels: Dict[int, KernelSite] = {}
+        index: Dict[str, int] = {}
+        dropped: Dict[str, set] = {}
+
+        def resolve(node: ScopeNode) -> None:
+            kids: Dict[str, ScopeNode] = {}
+            for key, child in node.children.items():
+                if not key.startswith(_PLACEHOLDER):
+                    kids[key] = child
+                    resolve(child)
+                    continue
+                sid = int(key[len(_PLACEHOLDER):])
+                ks = self.kernels[sid]
+                if not kp.matches(kernel_probes, ks.body):
+                    node.n_eqns += 1
+                    node.own_cycles += ks.flat
+                    kernels[sid] = ks
+                    continue
+                root = kids.get(kp.KERNEL_SEG)
+                if root is None:
+                    root = kids[kp.KERNEL_SEG] = ScopeNode(
+                        name=kp.KERNEL_SEG, source=ks.source,
+                        path=sc._join(node.path, kp.KERNEL_SEG))
+                i = index.get(node.path, 0)
+                index[node.path] = i + 1
+                knode = _kernel_subtree(ks, kp.kernel_path(node.path,
+                                                           ks.body, i))
+                root.children[knode.name] = knode
+                kernels[sid] = dataclasses.replace(ks, path=knode.path)
+                if ks.op_index is not None:
+                    dropped.setdefault(ks.parent, set()).add(ks.op_index)
+            node.children = kids
+
+        resolve(tree)
+        for path, idx in dropped.items():
+            ops[path] = [o for i, o in enumerate(ops[path]) if i not in idx]
+            if not ops[path]:
+                del ops[path]
+        _finalize(tree)
+        return Hierarchy(root=tree, sites=self.sites,
+                         segments=self.segments, ops=ops, kernels=kernels,
+                         kernel_probes=kernel_probes, captured=self)
+
+
+def _kernel_subtree(ks: KernelSite, kpath: str) -> ScopeNode:
+    """``<body>#i`` / ``grid`` / the inner scopes, priced per step from
+    the plan: the grid node holds the transfer term, each scope its most
+    expensive table entry (the widest branch, as the JAX package's
+    static column prices a ``pl.when``)."""
+    body, grid, transfer, scopes = ks.plan[:4]
+    knode = ScopeNode(name=kpath.rsplit("/", 1)[-1], path=kpath,
+                      kind="kernel", source=ks.source)
+    gpath = f"{kpath}/{kp.GRID_SEG}"
+    steps = 1
+    for g in grid:
+        steps *= g
+    gnode = knode.children[kp.GRID_SEG] = ScopeNode(
+        name=kp.GRID_SEG, path=gpath, kind="loop", trip_count=steps,
+        grid=tuple(grid), n_eqns=1, own_cycles=transfer, source=ks.source)
+    for scp in scopes:
+        gnode.children[scp.name] = ScopeNode(
+            name=scp.name, path=f"{gpath}/{scp.name}", n_eqns=scp.ops,
+            own_cycles=max(scp.table), source=ks.source)
+    return knode
 
 
 def write_copies() -> int:
@@ -365,8 +560,10 @@ def write_copies() -> int:
 
 
 def capture(fn, *args, **kwargs) -> Tuple[Hierarchy, Any]:
-    """Run ``fn`` once under the capture; returns (hierarchy, outputs)."""
+    """Run ``fn`` once under the capture; returns (hierarchy, outputs).
+    The hierarchy is the view without kernel probes;
+    ``with_kernel_probes`` gives the others from the same run."""
     cap = Capture()
     with cap:
         out = fn(*args, **kwargs)
-    return cap.hierarchy(), out
+    return cap.result().view(), out

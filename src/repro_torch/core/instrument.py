@@ -33,6 +33,17 @@ keeps plain int64 and has no counters module. As in the packed layout,
 an enter subtracts "now" from TOTALS and the exit adds it back, so no
 ``last`` plane is needed.
 
+A kernel region that the hierarchy probes (``core.kernelprobe``:
+``ProbeConfig(kernel_probes=...)``) is handled where it starts: the run
+flushes, moves to the kernel's path, asks the kernel for its counter
+block, and folds the grid's steps into the state with one
+``probe_grid`` launch, then moves back. The host's mirrors of the calls
+and the model clock come from the plan (grid calls from the grid alone,
+the cycles from the counts the inputs imply, held on the host where the
+caller gives them), so a session needs no device read a step for them.
+A region the hierarchy does not probe adds its flat cycles to the
+segment, as before.
+
 Outputs are untouched: the launches read and write only the state.
 The host counts every probe's calls (it issues the events), so it knows
 when a spilling probe's ring fills and queues a copy of the full row
@@ -49,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import kernelprobe as kp
 from repro_torch.core import scope as sc
 from repro_torch.core.buffer import HostSink
 from repro_torch.core.hierarchy import Hierarchy
@@ -155,6 +167,8 @@ class Runner(sc.Tracker):
             raise ValueError(f"unknown cycle source {cycle_source!r}")
         super().__init__(h.sites)
         self.segs = h.segments
+        self.kernels = h.kernels
+        self.grid_cycles = h.grid_cycles
         self.asg = asg
         self.state = state
         self.wall = cycle_source == "wallclock"
@@ -163,6 +177,7 @@ class Runner(sc.Tracker):
         self.pending = 0               # segment cycles not yet on the device
         self._ev: List[int] = []       # coded events of the next launch
         self.launches = 0
+        self.folds = 0                 # probe_grid launches
         self.transitions = 0
         self.dumps = 0
         self.cycles = 0                # model cycles added to the clock
@@ -226,6 +241,51 @@ class Runner(sc.Tracker):
             ready.record()
         self.sink.dump(*self._spilled, rows, ready)
 
+    def _fold(self, plan, counters, kpath: str) -> None:
+        """One ``probe_grid`` launch for a probed kernel call, with the
+        host's mirrors kept from the plan."""
+        # the clock mirror, from the counts the host holds (no device read)
+        counts = np.ascontiguousarray(plan.mirror(), np.int32)
+        if counts.shape != tuple(plan.counter_shape):
+            raise ValueError(f"{plan.body}: host counts {counts.shape}, the "
+                             f"plan's {tuple(plan.counter_shape)}")
+        raw = counts.tobytes()
+        ids = [self.asg.id_of(p) for p in kp.grid_paths(kpath, plan)]
+        ids = [-1 if i is None else i for i in ids]
+        spill = [i >= 0 and self.asg.spill[i] for i in ids]
+        dump, offs, rows = None, (), []
+        if self.sink is not None and any(spill):
+            rows, offs = kpe.grid_dump_rows(self.calls, ids, spill,
+                                            plan.steps, self.asg.depth)
+            if rows:
+                dump = torch.zeros((len(rows), self.asg.depth, 2),
+                                   dtype=torch.int64,
+                                   device=self.state["ring"].device)
+        kpe.probe_grid(self.state, plan, counters, ids, spill, dump, offs)
+        self.folds += 1
+        hit = self.grid_cycles.get(kpath)
+        if hit is None or hit[0] != raw:
+            hit = self.grid_cycles[kpath] = (raw, plan.cycles(counts))
+        self.cycles += hit[1]
+        if self.calls is not None:
+            for i in ids:
+                if i >= 0:
+                    self.calls[i] += plan.steps
+        if dump is not None:
+            host = torch.empty(dump.shape, dtype=dump.dtype,
+                               pin_memory=dump.device.type == "cuda")
+            host.copy_(dump, non_blocking=True)
+            self._blocks.append(host)
+            self._fill = len(host)
+            self._spilled[0].extend(pid for pid, _ in rows)
+            self._spilled[1].extend(base for _, base in rows)
+            self.dumps += len(rows)
+
+    def kernel(self, name, cost, plan=None):
+        if self.in_kernel or plan is None:
+            return sc._NULL          # priced in its segment
+        return _RunKernel(self, name, plan)
+
     def _move(self, old: str, new: str) -> None:
         a, b = self.asg.chain(old), self.asg.chain(new)
         i = 0
@@ -283,4 +343,69 @@ class Runner(sc.Tracker):
 
     def stats(self) -> Dict[str, int]:
         return dict(transitions=self.transitions, launches=self.launches,
-                    dumps=self.dumps, cycles=self.cycles)
+                    folds=self.folds, dumps=self.dumps, cycles=self.cycles)
+
+
+class _RunKernel:
+    """A kernel region with a plan in the instrumented run: its flat
+    cycles where the hierarchy does not probe it; else the move to its
+    path, the counter block asked for (``probed``), the fold, and the
+    move back. A probed region whose wrapper hands no counter block to
+    ``fold`` raises."""
+
+    def __init__(self, rec: Runner, name: str, plan):
+        self.rec, self.name, self.plan_fn = rec, name, plan
+        self.probed = self.folded = False
+
+    def __enter__(self):
+        rec = self.rec
+        self.parent, sid = rec.kernel_event(self.name)
+        ks = self.ks = rec.kernels.get(sid)
+        if ks is None:
+            raise RuntimeError(f"the run left the captured scope sequence: "
+                               f"kernel {self.name} at "
+                               f"{self.parent.path or '/'} was never "
+                               f"captured")
+        if ks.path is None:
+            if rec._ev:
+                rec._flush()
+            rec.pending += ks.flat
+        else:
+            if rec.wall:
+                raise ValueError("kernel probes require cycle_source="
+                                 "'model': grid steps inside one kernel "
+                                 "launch have no timestamps of their own")
+            self.plan = self.plan_fn()
+            if self.plan.signature() != ks.plan:
+                raise RuntimeError(
+                    f"kernel {self.plan.body} at {ks.path} declares "
+                    f"{self.plan.signature()}, the capture {ks.plan}")
+            self.cur = self.parent.entry.cur
+            rec._move(self.cur, ks.path)
+            rec._flush()
+            self.probed = True
+        rec.in_kernel = True
+        return self
+
+    def fold(self, counters) -> None:
+        if not self.probed:
+            return
+        if self.folded:
+            raise RuntimeError(f"kernel {self.plan.body}: a second counter "
+                               f"block for one call")
+        self.rec._fold(self.plan, counters, self.ks.path)
+        self.folded = True
+
+    def __exit__(self, exc_type, exc, tb):
+        rec = self.rec
+        rec.in_kernel = False
+        if exc_type is not None:
+            return False
+        if self.probed:
+            if not self.folded:
+                raise RuntimeError(
+                    f"kernel {self.plan.body} at {self.ks.path} was asked "
+                    f"for its counter block and handed none to the fold")
+            rec._move(self.ks.path, self.cur)
+        rec.kernel_done(self.parent)
+        return False

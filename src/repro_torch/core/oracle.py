@@ -12,14 +12,23 @@ check of the capture, the segment bookkeeping and the kernel, as the
 JAX ``Oracle`` re-evaluates the jaxpr. ``run`` executes the function;
 as in a capture, its in-place writes to tensors it did not create are
 undone when the run ends (``hierarchy._WriteGuard``), so the caller's
-caches are left as they were. ``KernelOracle`` (grid-step replay) is
-not ported yet.
+caches are left as they were.
+
+A kernel region with a grid plan whose body the oracle's
+``kernel_probes`` match is replayed step by step with Python integers
+(``core.kernelprobe``): the same transitions as the fold, with each
+step's cycles from the plan and the counts its *inputs* imply
+(``GridPlan.expected``), never from the kernel's counter block, so
+device record == oracle also checks that the kernel skipped what the
+plan says. ``KernelOracle`` adds the grid-totals helper.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
+from repro_torch.core import costmodel as cm
+from repro_torch.core import kernelprobe as kp
 from repro_torch.core.hierarchy import OpTracker
 from repro_torch.core.instrument import ProbeAssignment
 
@@ -46,10 +55,14 @@ class OracleCounters:
 
 
 class Oracle(OpTracker):
-    def __init__(self, assignment: ProbeAssignment):
+    def __init__(self, assignment: ProbeAssignment,
+                 kernel_probes: Sequence[str] = ()):
         super().__init__()
         self.asg = assignment
+        self.kernel_probes = tuple(kernel_probes)
         self.st = OracleCounters(n=assignment.n, depth=assignment.depth)
+        self._kpaths: Dict[int, str] = {}      # kernel site -> its path
+        self._kindex: Dict[str, int] = {}      # parent path -> kernels
 
     def run(self, fn, *args, **kwargs) -> OracleCounters:
         with self:
@@ -118,3 +131,53 @@ class Oracle(OpTracker):
                 pid = self.asg.id_of(f.loop_path)
                 if pid is not None:
                     self._exit(pid)
+
+    # -- kernel regions with a plan ----------------------------------------
+    def kernel_enter(self, ev):
+        plan = ev.plan()
+        if not kp.matches(self.kernel_probes, plan.body):
+            self.priced(ev.name, cm.kernel_cost(*ev.cost()))
+            return
+        f = ev.parent
+        kpath = self._kpaths.get(ev.sid)
+        if kpath is None:
+            i = self._kindex.get(f.path, 0)
+            self._kindex[f.path] = i + 1
+            kpath = self._kpaths[ev.sid] = kp.kernel_path(f.path, plan.body,
+                                                          i)
+        cur = f.entry.cur
+        self._transition(cur, kpath)
+        self.replay(plan, kpath)
+        self._transition(kpath, cur)
+
+    def replay(self, plan, kpath: str) -> None:
+        """The grid's steps, one transition at a time, in the TPU
+        kernel's order, from the counts the plan's inputs imply."""
+        paths = kp.grid_paths(kpath, plan)
+        gpath, inner = paths[0], paths[1:]
+        cycles = plan.step_cycles(plan.expected()).tolist()
+        st = self.st
+        for step in cycles:
+            self._transition(kpath, gpath)
+            st.cycle += plan.transfer
+            cur = gpath
+            for path, c in zip(inner, step):
+                self._transition(cur, path)
+                cur = path
+                st.cycle += c
+            self._transition(cur, gpath)
+            self._transition(gpath, kpath)
+
+
+class KernelOracle(Oracle):
+    """The oracle for kernel-level validation: the base class already
+    replays every matched kernel region grid step by grid step; this
+    one adds the grid totals, for the sum-of-grid-steps == kernel-scope
+    check."""
+
+    def grid_totals(self, counters: OracleCounters,
+                    paths: Tuple[str, ...]) -> Dict[str, int]:
+        """Per-grid-probe total cycles from a replay (paths ending in
+        ``/grid``), keyed by path."""
+        return {p: counters.totals[pid] for pid, p in enumerate(paths)
+                if p.endswith("/" + kp.GRID_SEG)}

@@ -9,17 +9,21 @@ Port of ``repro.core.pragma`` for eager PyTorch functions::
 The first call captures the function ONCE (``core.hierarchy``: one run
 under a recording dispatch mode, whose in-place writes are undone, so a
 step that updates its cache in place advances it once), selects probes,
-and then runs it instrumented (``core.instrument``). The capture is
+and then runs it instrumented (``core.instrument``).
+``kernel_probes`` (kernel body names, or ``"*"``) probes the grid steps
+of the matched hand kernels (``core.kernelprobe``); it needs the model
+clock, as in the JAX package. The capture is
 memoised per ``ProbedFunction``, keyed on the arguments' tree structure
 and their tensors' shapes, dtypes and devices; Python ints and floats
 are run-time values, as a traced int32 is in JAX (a scalar that changes
 shapes must be closed over). ``retarget`` changes the probes and reuses the capture
-(incremental synthesis). The function runs on its own tensors' devices;
-the probe state lives on ``device`` (the GPU unless 'cpu' is asked).
+(incremental synthesis), also when it flips ``kernel_probes``: the
+hierarchy for other kernel probes is another view of the same capture.
+The function runs on its own tensors' devices; the probe state lives on
+``device`` (the GPU unless 'cpu' is asked).
 
-Not in this port yet: ``kernel_probes`` (grid-step probing inside the
-hand kernels) and the ``legacy`` state layout (the JAX package's
-equivalence reference); asking for either raises.
+Not in this port: the ``legacy`` state layout (the JAX package's
+equivalence reference); asking for it raises.
 """
 from __future__ import annotations
 
@@ -52,13 +56,11 @@ class ProbeConfig:
                                           # when their ring fills
     cycle_source: str = "model"           # model | wallclock
     inline: str = "default"               # default | off_all | off_top
-    kernel_probes: Tuple[str, ...] = ()   # not ported: must stay empty
+    kernel_probes: Tuple[str, ...] = ()   # kernel body names to probe
+                                          # grid steps of ("*" = all)
     layout: str = "packed"                # not ported: only "packed"
 
     def __post_init__(self):
-        if self.kernel_probes:
-            raise NotImplementedError(
-                "kernel_probes (grid-step probing) is not ported yet")
         if self.layout != "packed":
             raise NotImplementedError(
                 f"state layout {self.layout!r} is not ported; the port has "
@@ -118,6 +120,7 @@ class ProbedFunction:
         self.sink = HostSink()
         self._hierarchy: Optional[Hierarchy] = None
         self._key = None
+        self._kernel_key: Tuple[str, ...] = ()
         self._assignment: Optional[ProbeAssignment] = None
         self.captures = 0
         self.capture_seconds = 0.0     # host time of the captures
@@ -126,16 +129,23 @@ class ProbedFunction:
     # -- stage 2: module extraction (once) ------------------------------
     def trace(self, *args, **kwargs) -> Hierarchy:
         """The hierarchy for these arguments' shapes (captured by one run
-        of the function the first time)."""
+        of the function the first time) and the config's kernel probes
+        (a view of the capture: flipping them captures nothing)."""
         leaves, spec = pytree.tree_flatten((args, kwargs))
         key = (spec, tuple(_leaf_key(x) for x in leaves))
+        kkey = tuple(self.config.kernel_probes)
         if self._hierarchy is None or key != self._key:
             t0 = time.perf_counter()
             self._hierarchy, _ = capture(self.fn, *args, **kwargs)
             self.capture_seconds += time.perf_counter() - t0
             self._key = key
+            self._kernel_key = ()
             self._assignment = None
             self.captures += 1
+        if kkey != self._kernel_key:
+            self._hierarchy = self._hierarchy.with_kernel_probes(kkey)
+            self._kernel_key = kkey
+            self._assignment = None
         return self._hierarchy
 
     @property
@@ -146,6 +156,10 @@ class ProbedFunction:
 
     # -- stage 3: probe selection ----------------------------------------
     def _build(self, *args, **kwargs) -> None:
+        if self.config.kernel_probes and self.config.cycle_source != "model":
+            raise ValueError("kernel_probes require cycle_source='model': "
+                             "grid steps run inside one kernel launch, so "
+                             "there is no timestamp per step")
         h = self.trace(*args, **kwargs)
         if self._assignment is not None:
             return
@@ -211,7 +225,8 @@ class ProbedFunction:
         """Host-int counters from an independent live-priced run (the
         function runs once more; its in-place writes are undone)."""
         self._build(*args, **kwargs)
-        return Oracle(self._assignment).run(self.fn, *args, **kwargs)
+        return Oracle(self._assignment, self.config.kernel_probes).run(
+            self.fn, *args, **kwargs)
 
     def report(self, record: Dict[str, Any]) -> Report:
         return build_report(self.hierarchy, self.assignment, record,

@@ -3,7 +3,8 @@
 Port of ``repro.core.report`` (the one-shot views, the streaming
 session's table and bump chart, the serving engine's phase, chunk and
 request bills, and the telemetry sentinel's tables; the mesh,
-kernel-grid and DSE views come with their modules). Builds per-probe
+DSE views come with their modules) and the kernel grid-step views
+(``kernel_grid_table``, ``kernel_grid_heat``). Builds per-probe
 rows (calls, total cycles, start/end, first-N iteration spans) from the
 decoded device record, merges offloaded history from the host sink, and
 renders a table, an ASCII execution timeline (the Fig 4 waveform) and a
@@ -140,6 +141,96 @@ def build_report(h: Hierarchy, asg: ProbeAssignment, record: Dict[str, Any],
                              source=node.source if node else "",
                              static_cycles=static, dynamic=dynamic))
     return Report(rows=rows, span=span, cycle_source=cycle_source)
+
+
+# ------------------------------------------- kernel grid-step rendering
+
+def _grid_rows(h: Hierarchy, report: Report):
+    """(row, ScopeNode) pairs for kernel grid probes in a report."""
+    out = []
+    for r in report.rows:
+        node = h.node(r.path)
+        if node is not None and node.kind == "loop" and node.grid:
+            out.append((r, node))
+    return out
+
+
+def kernel_grid_table(h: Hierarchy, report: Report) -> str:
+    """Per-kernel grid-step imbalance summary.
+
+    One row per probed ``kernel/<name>/grid`` scope: grid shape, steps
+    executed, recorded per-step durations (ring depth, or all steps
+    with offload) with min/mean/max and the step skew (max-min: the
+    causal-skip / tile-imbalance signal), plus the static per-step
+    estimate.
+    """
+    rows = _grid_rows(h, report)
+    if not rows:
+        return "(no kernel grid probes in this report)"
+    w = max(len(r.path) for r, _ in rows) + 2
+    lines = [f"{'kernel grid':<{w}}{'grid':>14}{'steps':>7}{'rec':>5}"
+             f"{'min':>8}{'mean':>9}{'max':>8}{'skew':>8}{'static/step':>12}"]
+    for r, node in rows:
+        durs = [e - s for s, e in r.iters]
+        per_visit = node.static_cycles
+        if durs:
+            lines.append(
+                f"{r.path:<{w}}{'x'.join(map(str, node.grid)):>14}"
+                f"{r.calls:>7}{len(durs):>5}{min(durs):>8}"
+                f"{sum(durs) / len(durs):>9.1f}{max(durs):>8}"
+                f"{max(durs) - min(durs):>8}{per_visit:>12}")
+        else:
+            lines.append(f"{r.path:<{w}}{'x'.join(map(str, node.grid)):>14}"
+                         f"{r.calls:>7}{0:>5}{'-':>8}{'-':>9}{'-':>8}"
+                         f"{'-':>8}{per_visit:>12}")
+    return "\n".join(lines)
+
+
+def kernel_grid_heat(h: Hierarchy, report: Report,
+                     path: Optional[str] = None,
+                     chars: str = " .:-=+*#%@") -> str:
+    """ASCII heat map of per-grid-step cycles for one kernel.
+
+    Rows/columns follow the grid (leading axes flattened into rows,
+    last, the sequential axis, across). Renders every recorded step
+    (all of them when the probe offloads, the first ``depth``
+    otherwise); dark cells are expensive tiles, so a causal flash
+    kernel shows its triangle. Defaults to the grid probe with the
+    largest step skew."""
+    rows = _grid_rows(h, report)
+    if not rows:
+        return "(no kernel grid probes in this report)"
+    if path is None:
+        def skew(r):
+            d = [e - s for s, e in r.iters]
+            return (max(d) - min(d)) if d else -1
+        row, node = max(rows, key=lambda rn: skew(rn[0]))
+    else:
+        match = [(r, n) for r, n in rows if r.path == path]
+        if not match:
+            raise ValueError(f"no grid probe at {path!r}; have "
+                             f"{[r.path for r, _ in rows]}")
+        row, node = match[0]
+    durs = np.asarray([e - s for s, e in row.iters], np.int64)
+    if durs.size == 0:
+        return f"# heat: {row.path} — no recorded steps"
+    lo, hi = int(durs.min()), int(durs.max())
+    span = (hi - lo) or 1
+    last = node.grid[-1]
+    full = durs.size % last == 0
+    grid2d = durs.reshape(-1, last) if full else durs.reshape(1, -1)
+    cell = len(str(hi)) + 1
+    lines = [f"# heat: {row.path} grid={'x'.join(map(str, node.grid))} "
+             f"recorded={durs.size}/{row.calls} steps "
+             f"(min={lo} max={hi} skew={hi - lo})"]
+    for r in range(grid2d.shape[0]):
+        cells = []
+        for c in range(grid2d.shape[1]):
+            v = int(grid2d[r, c])
+            shade = chars[int((v - lo) / span * (len(chars) - 1))]
+            cells.append(f"{shade}{v:>{cell}}")
+        lines.append(" ".join(cells))
+    return "\n".join(lines)
 
 
 def bump_chart(rankings: Dict[str, List[str]], width: int = 18) -> str:

@@ -90,12 +90,16 @@ def _live() -> "Optional[Tracker]":
 
 class _Null:
     __slots__ = ()
+    probed = False              # a kernel region: no counter block wanted
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         return False
+
+    def fold(self, counters) -> None:
+        """A kernel region's counter block: nothing to fold here."""
 
 
 _NULL = _Null()
@@ -159,15 +163,29 @@ def cond(pred, true_fn: Callable, false_fn: Callable, *operands) -> Any:
     return switch(1 if bool(pred) else 0, (false_fn, true_fn), *operands)
 
 
-def kernel_region(name: str, cost: Callable[[], Tuple[float, float]]):
+def kernel_region(name: str, cost: Callable[[], Tuple[float, float]],
+                  plan: Optional[Callable[[], Any]] = None):
     """The region of one hand-written kernel call (CUDA kernel or its
     plain version): a capture or oracle prices it as ONE operation named
     ``name`` from ``cost() -> (flops, bytes)`` and prices nothing inside
-    it, so the record does not depend on which route ran."""
+    it, so the record does not depend on which route ran.
+
+    ``plan() -> kernelprobe.GridPlan`` declares the kernel's grid for
+    ``ProbeConfig(kernel_probes=...)``. A region with a plan is a marker
+    event of its own (the end of a segment), whose node
+    ``kernel/<body>#i`` exists only when the probe's ``kernel_probes``
+    match its body. The wrapper asks the region whether it wants the
+    kernel's counter block (``region.probed``) and hands it over with
+    ``region.fold(counters)``; a probed region that gets none raises::
+
+        with scope.kernel_region(name, cost, plan) as region:
+            out, counts = launch(..., with_counts=region.probed)
+            region.fold(counts)
+    """
     rec = _live()
     if rec is None:
         return _NULL
-    return rec.kernel(name, cost)
+    return rec.kernel(name, cost, plan)
 
 
 def grad(outputs, inputs) -> Tuple[torch.Tensor, ...]:
@@ -462,8 +480,22 @@ class Tracker:
         self._close(f)
         return out
 
-    def kernel(self, name: str, cost):
+    def kernel(self, name: str, cost, plan=None):
         return _NULL
+
+    def kernel_event(self, name: str) -> Tuple[Frame, int]:
+        """A kernel region with a plan starts at the top frame: it ends
+        the frame's segment (an operation of the frame's path, as the
+        ``pallas_call`` equation is one) and has a site of its own.
+        Returns (frame, site)."""
+        parent = self.top
+        sid = self._site(parent, "kernel:" + name, parent.path)
+        self.seg_end(parent, ("kernel", name))
+        self.trigger(parent)
+        return parent, sid
+
+    def kernel_done(self, parent: Frame) -> None:
+        self._resume(parent)
 
     # -- backward ------------------------------------------------------------
     def grad(self, outputs, inputs):

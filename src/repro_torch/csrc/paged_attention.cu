@@ -23,6 +23,8 @@
 //      of bf16(exp(s - m) / l) * bf16 v; the last CTA of a (row, kv head)
 //      to arrive (an integer counter that launch 1 zeroes) sums the
 //      partials in tile order into the output.
+// Launch 2 can also write the probe's counter block: the slots each CTA
+// reads, per (row, kv head, tile) (0 for a tile past pos).
 // Masked slots are skipped: the TPU kernel gives them exp(-inf) = 0. No
 // floating-point atomics, and every reduction runs in an order fixed by
 // pos[b] alone, so each row's bits are independent of batch size, padding
@@ -217,9 +219,9 @@ paged_output_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ pool_k,
                     const __nv_bfloat16* __restrict__ pool_v,
                     const int* __restrict__ pages, const int* __restrict__ pos,
-                    float* __restrict__ out, float* __restrict__ scratch, int B,
-                    int kv, int g, int page_size, int n_pages, int pool_pages,
-                    float scale) {
+                    float* __restrict__ out, float* __restrict__ scratch,
+                    int* __restrict__ counts, int B, int kv, int g, int page_size,
+                    int n_pages, int pool_pages, float scale) {
   constexpr int LPR = HD / 8;
   constexpr int RPW = 32 / LPR;
   constexpr int ITERS = SPW / RPW;
@@ -239,6 +241,7 @@ paged_output_kernel(const __nv_bfloat16* __restrict__ q,
   uint4 qraw[G];
   load_q<HD, G>(qraw, q, bh, g, c);
   const Tile tl = tile_of(pos, b, t, s_max);
+  if (counts != nullptr && threadIdx.x == 0) counts[bh * nt + t] = max(tl.nv, 0);
   pool_rows(srow, pages, t, b, n_pages, page_size, pool_pages);
   if (tl.nv <= 0) {
     if (t == 0)  // no visible slot at all: the output is 0
@@ -354,9 +357,9 @@ paged_output_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD, int G>
 int launch(const void* q, const void* pool_k, const void* pool_v,
-           const void* pages, const void* pos, void* out, void* scratch, int B,
-           int kv, int g, int page_size, int n_pages, int pool_pages,
-           float scale, cudaStream_t stream) {
+           const void* pages, const void* pos, void* out, void* scratch,
+           void* counts, int B, int kv, int g, int page_size, int n_pages,
+           int pool_pages, float scale, cudaStream_t stream) {
   const int nt = (n_pages * page_size + TS - 1) / TS;
   const dim3 grid(nt, kv, B);
   paged_stats_kernel<HD, G><<<grid, THREADS, 0, stream>>>(
@@ -381,20 +384,21 @@ int launch(const void* q, const void* pool_k, const void* pool_v,
       static_cast<const __nv_bfloat16*>(pool_k),
       static_cast<const __nv_bfloat16*>(pool_v), static_cast<const int*>(pages),
       static_cast<const int*>(pos), static_cast<float*>(out),
-      static_cast<float*>(scratch), B, kv, g, page_size, n_pages, pool_pages,
-      scale);
+      static_cast<float*>(scratch), static_cast<int*>(counts), B, kv, g,
+      page_size, n_pages, pool_pages, scale);
 }
 
 template <int HD>
 int launch_g(const void* q, const void* pool_k, const void* pool_v,
              const void* pages, const void* pos, void* out, void* scratch,
-             int B, int kv, int g, int page_size, int n_pages, int pool_pages,
-             float scale, cudaStream_t stream) {
+             void* counts, int B, int kv, int g, int page_size, int n_pages,
+             int pool_pages, float scale, cudaStream_t stream) {
   if (g <= 8)
-    return launch<HD, 8>(q, pool_k, pool_v, pages, pos, out, scratch, B, kv, g,
-                         page_size, n_pages, pool_pages, scale, stream);
-  return launch<HD, MAXG>(q, pool_k, pool_v, pages, pos, out, scratch, B, kv, g,
-                          page_size, n_pages, pool_pages, scale, stream);
+    return launch<HD, 8>(q, pool_k, pool_v, pages, pos, out, scratch, counts, B,
+                         kv, g, page_size, n_pages, pool_pages, scale, stream);
+  return launch<HD, MAXG>(q, pool_k, pool_v, pages, pos, out, scratch, counts,
+                          B, kv, g, page_size, n_pages, pool_pages, scale,
+                          stream);
 }
 
 }  // namespace
@@ -402,11 +406,13 @@ int launch_g(const void* q, const void* pool_k, const void* pool_v,
 // q (B,kv,g,hd) bf16; pools (pool_pages,page_size,kv,hd) bf16; pages
 // (B,n_pages) int32; pos (B,) int32; out (B,kv,g,hd) f32; scratch: f32 of
 // B * kv * (g * (nt * hd + 2 * nt) + 1) elements, nt = ceil(n_pages *
-// page_size / 64). Returns a cudaError_t.
+// page_size / 64); counts: the probe's counter block, int32 (B, kv, nt),
+// or null. Returns a cudaError_t.
 extern "C" int paged_attention_fwd(const void* q, const void* pool_k,
                                    const void* pool_v, const void* pages,
                                    const void* pos, void* out, void* scratch,
-                                   int B, int kv, int g, int hd, int page_size,
+                                   void* counts, int B, int kv, int g, int hd,
+                                   int page_size,
                                    int n_pages, int pool_pages, float scale,
                                    int device, void* stream) {
   int current = -1;
@@ -418,11 +424,11 @@ extern "C" int paged_attention_fwd(const void* q, const void* pool_k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (g < 1 || g > MAXG) return (int)cudaErrorInvalidValue;
   if (hd == 64)
-    return launch_g<64>(q, pool_k, pool_v, pages, pos, out, scratch, B, kv, g,
-                        page_size, n_pages, pool_pages, scale, s);
+    return launch_g<64>(q, pool_k, pool_v, pages, pos, out, scratch, counts, B,
+                        kv, g, page_size, n_pages, pool_pages, scale, s);
   if (hd == 128)
-    return launch_g<128>(q, pool_k, pool_v, pages, pos, out, scratch, B, kv, g,
-                         page_size, n_pages, pool_pages, scale, s);
+    return launch_g<128>(q, pool_k, pool_v, pages, pos, out, scratch, counts, B,
+                         kv, g, page_size, n_pages, pool_pages, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -414,8 +414,9 @@ template <typename E, int N>
 __global__ void __launch_bounds__(THREADS, 2)
 ssd_chunk_scan_kernel(const E* __restrict__ x, const E* __restrict__ bm,
                       const E* __restrict__ cm, const float* __restrict__ acs,
-                      const E* __restrict__ prev, E* __restrict__ y, int L, int Q,
-                      int H, int G, int h_per_g, Strides sx, Strides sb,
+                      const E* __restrict__ prev, E* __restrict__ y,
+                      int* __restrict__ counts, int L, int Q, int H, int G,
+                      int h_per_g, int pipeline, Strides sx, Strides sb,
                       Strides sc) {
   constexpr int LDN = ld<E, N>(), LDX = ld<E, P>(), LDC = T + 4;
   constexpr int NJ = P / 8;          // n tiles of a warp's y columns
@@ -434,6 +435,11 @@ ssd_chunk_scan_kernel(const E* __restrict__ x, const E* __restrict__ bm,
   const int q0 = qt * T, QS = n_qt * T;
   const int r0 = rs * 16 + gr, r1 = r0 + 8;  // this lane's fragment rows
   const long long c0 = (long long)ci * Q;
+  // the probe's counter block: this sub-chunk scanned, for each head of
+  // the block, counted in its chunk of pipeline sub-chunks (one CTA of
+  // the sub-chunk adds: the one of q tile 0)
+  if (counts != nullptr && qt == 0 && tid < nh)
+    atomicAdd(counts + ((long long)b * H + h0 + tid) * (nc / pipeline) + ci / pipeline, 1);
 
   E* s_c = reinterpret_cast<E*>(smem);  // T x LDN  c rows of the q tile
   E* s_stage = s_c + T * LDN;           // b tile, HB x tiles
@@ -711,9 +717,9 @@ size_t max_smem(int Q) {
 
 template <typename E, int N>
 int launch(const void* x, const void* a, const void* b, const void* c, void* y,
-           void* state_out, void* acs, void* prev, int B, int L, int H, int G, int Q,
-           Strides sx, Strides sa, Strides sb, Strides sc, int device,
-           cudaStream_t stream) {
+           void* state_out, void* acs, void* prev, void* counts, int B, int L, int H,
+           int G, int Q, int pipeline, Strides sx, Strides sa, Strides sb, Strides sc,
+           int device, cudaStream_t stream) {
   // the shared-memory opt-in (the device's maximum) is set once per
   // (instantiation, device); each launch asks for what its Q needs
   static bool configured[MAX_DEVICES] = {};
@@ -741,8 +747,8 @@ int launch(const void* x, const void* a, const void* b, const void* c, void* y,
   ssd_chunk_scan_kernel<E, N><<<dim3((Q + T - 1) / T, nc, B * G * n_hb), THREADS,
                                 scan_smem<E, N>(Q), stream>>>(
       xe, static_cast<const E*>(b), static_cast<const E*>(c),
-      static_cast<const float*>(acs), static_cast<const E*>(prev), static_cast<E*>(y), L,
-      Q, H, G, h_per_g, sx, sb, sc);
+      static_cast<const float*>(acs), static_cast<const E*>(prev), static_cast<E*>(y),
+      static_cast<int*>(counts), L, Q, H, G, h_per_g, pipeline, sx, sb, sc);
   return (int)cudaGetLastError();
 }
 
@@ -762,11 +768,13 @@ extern "C" int ssd_scan_smem(int dtype, int N, int Q) {
 // 1), strided with a unit last dim and 16-byte aligned rows; a (B,L,H)
 // float32, strided; y (B,L,H,P) contiguous in x's dtype; state_out
 // (B,H,P,N) float32 or null. Scratch, contiguous: acs (B,H,L) float32 and
-// prev (B,H,L/Q-1,P,N) in x's dtype. Q divides L. Launches the two kernels
-// on `stream`; returns a cudaError_t.
+// prev (B,H,L/Q-1,P,N) in x's dtype. Q divides L. counts: the probe's
+// counter block, int32 (B,H,L/(Q*pipeline)) zeroed, or null. Launches the
+// two kernels on `stream`; returns a cudaError_t.
 extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* b, const void* c,
-                            void* y, void* state_out, void* acs, void* prev, int B, int L,
-                            int H, int G, int Pd, int N, int Q, int dtype, long long sxb,
+                            void* y, void* state_out, void* acs, void* prev, void* counts,
+                            int B, int L, int H, int G, int Pd, int N, int Q, int dtype,
+                            int pipeline, long long sxb,
                             long long sxl, long long sxh, long long sab, long long sal,
                             long long sah, long long sbb, long long sbl, long long sbg,
                             long long scb, long long scl, long long scg, int device,
@@ -777,14 +785,15 @@ extern "C" int ssd_scan_fwd(const void* x, const void* a, const void* b, const v
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
   }
-  if (B < 1 || L < 1 || G < 1 || H % G || Q < 1 || L % Q || Pd != P)
+  if (B < 1 || L < 1 || G < 1 || H % G || Q < 1 || L % Q || Pd != P || pipeline < 1 ||
+      (L / Q) % pipeline)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides sx{sxb, sxl, sxh}, sa{sab, sal, sah}, sb{sbb, sbl, sbg}, sc{scb, scl, scg};
 #define SSD_CASE(DT, E, NN)                                                                  \
   if (dtype == DT && N == NN)                                                                \
-    return launch<E, NN>(x, a, b, c, y, state_out, acs, prev, B, L, H, G, Q, sx, sa, sb, sc, \
-                         device, s);
+    return launch<E, NN>(x, a, b, c, y, state_out, acs, prev, counts, B, L, H, G, Q,       \
+                         pipeline, sx, sa, sb, sc, device, s);
   SSD_CASE(0, float, 64)
   SSD_CASE(0, float, 128)
   SSD_CASE(1, __nv_bfloat16, 64)

@@ -249,7 +249,7 @@ class InferenceEngine:
                 self._entry("decode", b), self.params, self.pool_k,
                 self.pool_v,
                 {"tokens": zero(b, 1), "pos": zero(b),
-                 "pages": zero(b, c.max_pages)})
+                 "pages": zero(b, c.max_pages), "pos_host": (0,) * b})
 
     def _step(self, phase: str, size, *args):
         """Run one step, return (outputs, model-clock cycle delta)."""
@@ -464,7 +464,8 @@ class InferenceEngine:
         (_, _, _, next_tok), d = self._step(
             "decode", bucket, self.params, self.pool_k, self.pool_v,
             {"tokens": self._tensor(toks), "pos": self._tensor(pos),
-             "pages": self._tensor(pages)})
+             "pages": self._tensor(pages),
+             "pos_host": tuple(int(p) for p in pos)})
         next_tok = next_tok.cpu().numpy()
         finished = []
         for i, r in enumerate(sel):

@@ -180,7 +180,7 @@ def build_chunk_prefill(model, ctx_pages: int, chunk_pages: int,
 
 
 def _paged_attend(lp, x, kp, vp, pages, pos, cfg, page_size: int,
-                  use_kernel: bool, pages_per_step: int):
+                  use_kernel: bool, pages_per_step: int, pos_host=None):
     """Write this token's K/V into the pool (in place), then attend over
     the row's pages. Returns (B, kv, g, hd) f32."""
     B = x.shape[0]
@@ -195,7 +195,8 @@ def _paged_attend(lp, x, kp, vp, pages, pos, cfg, page_size: int,
         vp[pidx, slot] = v_new[:, 0].to(vp.dtype)
     if use_kernel:
         return paged_attention(qg, kp, vp, pages, pos,
-                               pages_per_step=pages_per_step)
+                               pages_per_step=pages_per_step,
+                               pos_host=pos_host)
     with scope.named_scope("attend"):
         return paged_attention_plain(qg, kp, vp, pages, pos)
 
@@ -208,7 +209,9 @@ def build_paged_decode(model, batch_size: int, n_pages: int,
     fn(params, pool_k, pool_v, batch) with batch = {"tokens": (B, 1),
     "pos": (B,) int32, "pages": (B, n_pages) int32} ->
     (logits (B, V), pool_k, pool_v, next_tokens (B,)); the pools are
-    updated in place.
+    updated in place. The batch may also hold "pos_host", the positions
+    as a tuple of host ints, which a probe of the paged kernel's grid
+    steps needs (``paged_attention``); the engine always passes them.
     """
     cfg = model.cfg
 
@@ -230,7 +233,8 @@ def build_paged_decode(model, batch_size: int, n_pages: int,
                         o = _paged_attend(
                             lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
                             pool_k[li], pool_v[li], pages, pos, cfg,
-                            page_size, use_kernel, pages_per_step)
+                            page_size, use_kernel, pages_per_step,
+                            batch.get("pos_host"))
                         with scope.named_scope("out_proj"):
                             ow = o.reshape(B, 1, H, hd).to(x.dtype)
                             Hp = lp["attn"]["wo"].shape[0]

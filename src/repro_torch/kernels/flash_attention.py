@@ -41,7 +41,9 @@ Differences from the TPU kernel, all deliberate:
 
 The probe output counts, per (b, h, q tile), kv blocks visited and
 computed, with the TPU kernel's block-plan semantics (the causal skip is
-decided by the tile's last row).
+decided by the tile's last row). It is also the kernel's counter block
+for grid-step probing (``flash_plan``): a probed region asks for it and
+folds it into the probe state; an unprobed call's launch is unchanged.
 
 The statistics output (``with_stats``, for the training backward,
 ``models.attention``) is each row's softmax maximum m and sum l in f32,
@@ -56,9 +58,12 @@ import ctypes
 import math
 from typing import List, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import costmodel as cm
+from repro_torch.core import kernelprobe as kp
 from repro_torch.core import scope
 from repro_torch.kernels import _build
 
@@ -201,10 +206,56 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     (bf16, D in (64, 128), contiguous) or raise.
     """
     _check(q, k, v, q_offset, causal)
-    with scope.kernel_region("flash_attention",
-                             lambda: flash_cost(q, k, v, q_offset, causal,
-                                                with_stats)):
-        return _flash(q, k, v, causal, q_offset, with_probe, with_stats)
+    with scope.kernel_region(
+            "flash_attention",
+            lambda: flash_cost(q, k, v, q_offset, causal, with_stats),
+            lambda: flash_plan(q, k, v, q_offset, causal)) as region:
+        res = _flash(q, k, v, causal, q_offset, with_probe or region.probed,
+                     with_stats)
+        if not region.probed:
+            return res
+        parts = list(res)
+        region.fold(parts[1])
+        if not with_probe:
+            del parts[1]
+        return parts[0] if len(parts) == 1 else tuple(parts)
+
+
+def flash_plan(q, k, v, q_offset: int = 0, causal: bool = True):
+    """The TPU kernel's grid at the port's tiles, for grid-step probing
+    (``core.kernelprobe``): (B, H, ceil(Sq/64), ceil(Skv/64)), the kv
+    axis sequential, as ``_flash_kernel`` at ``block_q = block_k = 64``
+    and ``pipeline = 1``. Per step: the q, k, v and output tiles move at
+    the grid node; ``init`` zeroes the accumulators at the first kv
+    block; ``kv_block`` computes while the kv block is below the row's
+    computed count (column 1 of the probe counts: the causal skip by the
+    tile's last row, past ``q_offset``); ``finalize`` writes the tile at
+    the last computed block. A step whose branch is not taken costs its
+    predicate, one cycle."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    es = q.element_size()
+    nq, nk = _cdiv(Sq, BLOCK_Q), _cdiv(Skv, BLOCK_K)
+    bq, bk = BLOCK_Q, BLOCK_K
+    skip = cm.roofline_cycles(1, 0)
+    init = cm.roofline_cycles(bq * D + 2 * bq, 4 * (bq * D + 2 * bq))
+    block = cm.roofline_cycles(
+        4 * bq * bk * D + 14 * bq * bk,
+        es * (bq * D + 2 * bk * D) + 4 * (2 * bq * D + 4 * bq))
+    final = cm.roofline_cycles(bq * D, 4 * (bq * D + bq) + es * bq * D)
+
+    def expected():
+        rows = _row_plan(Sq, Skv, q_offset, causal)
+        counts = np.array([[nk, n] for (_, _, n) in rows], np.int32)
+        return np.broadcast_to(counts, (B, H, nq, 2)).copy()
+
+    return kp.GridPlan(
+        body="flash_kernel", grid=(B, H, nq, nk),
+        transfer=cm.transfer_cycles(es * 2 * (bq + bk) * D),
+        scopes=(kp.GridScope("init", kp.FIRST, (skip, init), ops=3),
+                kp.GridScope("kv_block", kp.BELOW, (skip, block), ops=9),
+                kp.GridScope("finalize", kp.AT_END, (skip, final), ops=3)),
+        counter_shape=(B, H, nq, 2), expected=expected, mirror=expected)
 
 
 def flash_cost(q, k, v, q_offset: int = 0, causal: bool = True,

@@ -39,14 +39,23 @@ pages sit in the pool.
 ``pages_per_step`` is the TPU kernel's DMA-group depth (a DSE axis). It
 must divide the page-table width, as there; this kernel does not stage
 pages in groups, so it does not change the work.
+
+Counter block (grid-step probing, ``paged_plan``): asked for by a probed
+region, launch 2 writes the slots each CTA reads, int32 (B, kv, tiles)
+(0 for a tile past ``pos``). Without it the launches are the unprobed
+ones.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
+from repro_torch.core import costmodel as cm
+from repro_torch.core import kernelprobe as kp
 from repro_torch.core import scope
 from repro_torch.kernels import _build
 
@@ -55,8 +64,8 @@ MAX_GROUP = 16                 # query rows per kv head the kernel serves
 TILE_SLOTS = 64                # slots per CTA (TS in the CUDA source)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _I, _I, _I, _I, _I, ctypes.c_float,
+_SIGNATURES = {"paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _I, _I, _I, _I, _I, _I, ctypes.c_float,
                                        _I, _P]}
 
 
@@ -64,11 +73,24 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def paged_attention_plain(q, pool_k, pool_v, pages, pos):
+def slot_counts(pos, n_pages: int, page_size: int, kv: int) -> np.ndarray:
+    """The counter block the kernel writes for these positions (host
+    ints or an array): slots read per (row, kv head, tile), the row's
+    slots 0 .. pos taken in tiles of ``TILE_SLOTS``."""
+    s_max = n_pages * page_size
+    nt = -(-s_max // TILE_SLOTS)
+    n = np.clip(np.asarray(pos, np.int64) + 1, 0, s_max)
+    c = np.clip(n[:, None] - TILE_SLOTS * np.arange(nt), 0, TILE_SLOTS)
+    return np.broadcast_to(c[:, None, :], (len(n), kv, nt)).astype(np.int32)
+
+
+def paged_attention_plain(q, pool_k, pool_v, pages, pos,
+                          with_counts: bool = False):
     """The kernel's function in plain PyTorch: the dense-gather attend of
     ``repro.engine.step._paged_attn_xla`` (gather every page of the row,
     mask slots past ``pos``, one global softmax). Same arguments and
-    result as ``paged_attention``."""
+    result as ``paged_attention``; ``with_counts`` also returns the
+    counter block the kernel writes."""
     B, kv, g, hd = q.shape
     s_max = pages.shape[1] * pool_k.shape[1]
     idx = pages.long()
@@ -82,7 +104,14 @@ def paged_attention_plain(q, pool_k, pool_v, pages, pos):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    return torch.einsum("bkgs,bskh->bkgh", _bf16(p / l), _bf16(vd))
+    out = torch.einsum("bkgs,bskh->bkgh", _bf16(p / l), _bf16(vd))
+    if not with_counts:
+        return out
+    nt = -(-s_max // TILE_SLOTS)
+    n = (pos.long() + 1).clamp(0, s_max)
+    c = (n[:, None] - TILE_SLOTS * torch.arange(nt, device=q.device)).clamp(
+        0, TILE_SLOTS)
+    return out, c[:, None, :].expand(B, kv, nt).to(torch.int32).contiguous()
 
 
 def _check(q, pool_k, pool_v, pages, pos, pages_per_step: int):
@@ -105,7 +134,8 @@ def _check(q, pool_k, pool_v, pages, pos, pages_per_step: int):
 
 
 def paged_attention(q, pool_k, pool_v, pages, pos, *,
-                    pages_per_step: int = 1):
+                    pages_per_step: int = 1,
+                    pos_host: Optional[Sequence[int]] = None):
     """Paged single-token GQA decode attention.
 
     q:       (B, kv_heads, q_per_kv, head_dim), cast to bf16 inside
@@ -114,6 +144,10 @@ def paged_attention(q, pool_k, pool_v, pages, pos, *,
     pages:   (B, n_pages) int32 page-table rows into the pool
     pos:     (B,) int32 current position (slots > pos are masked)
 
+    ``pos_host``: the same positions as host ints. A run that probes
+    ``paged_kernel``'s grid steps needs them (it prices the steps from
+    them, never reading ``pos`` from the device) and raises without.
+
     Returns (B, kv_heads, q_per_kv, head_dim) float32. CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise. The
     kernel clamps page ids into the pool.
@@ -121,8 +155,57 @@ def paged_attention(q, pool_k, pool_v, pages, pos, *,
     _check(q, pool_k, pool_v, pages, pos, pages_per_step)
     with scope.kernel_region(
             "paged_attention",
-            lambda: paged_cost(q, pool_k, pool_v, pages, pos)):
-        return _paged(q, pool_k, pool_v, pages, pos)
+            lambda: paged_cost(q, pool_k, pool_v, pages, pos),
+            lambda: paged_plan(q, pool_k, pages, pos, pages_per_step,
+                               pos_host)) as region:
+        res = _paged(q, pool_k, pool_v, pages, pos, region.probed)
+        if not region.probed:
+            return res
+        region.fold(res[1])
+        return res[0]
+
+
+def paged_plan(q, pool_k, pages, pos, pages_per_step: int = 1,
+               pos_host: Optional[Sequence[int]] = None):
+    """The TPU kernel's grid for grid-step probing (``core.kernelprobe``):
+    (B, n_pages / pages_per_step), the page axis sequential, as
+    ``_paged_kernel``. Per step: the q and output blocks move at the grid
+    node; ``copy_pages`` moves the K and V rows of the step's slots that
+    this kernel reads (slots ``<= pos``, from the counter block: data,
+    where the TPU kernel copies every page); ``attend`` runs the dense
+    softmax over the row's slots at the last step."""
+    B, kv, g, hd = q.shape
+    page_size, n_pages = pool_k.shape[1], pages.shape[1]
+    es = pool_k.element_size()
+    s_max = n_pages * page_size
+    nt, sps = -(-s_max // TILE_SLOTS), pages_per_step * page_size
+    skip = cm.roofline_cycles(1, 0)
+    copy = tuple(cm.roofline_cycles(0, 2 * es * hd * v)
+                 for v in range(kv * sps + 1))
+    attend = cm.roofline_cycles(
+        4 * kv * g * hd * s_max + 14 * kv * g * s_max,
+        2 * es * s_max * kv * hd + 2 * 4 * kv * g * hd)
+
+    def expected():
+        return slot_counts(pos.tolist(), n_pages, page_size, kv)
+
+    def mirror():
+        if pos_host is None or len(pos_host) != B:
+            raise ValueError(f"a probed paged_attention needs pos_host, "
+                             f"the {B} positions as host ints: the run "
+                             f"prices the grid steps without reading pos "
+                             f"from the device")
+        return slot_counts(pos_host, n_pages, page_size, kv)
+
+    return kp.GridPlan(
+        body="paged_kernel", grid=(B, n_pages // pages_per_step),
+        transfer=cm.transfer_cycles(kv * g * hd * (q.element_size() + 4)
+                                    + 4 * pages_per_step),
+        scopes=(kp.GridScope("copy_pages", kp.SLOTS, copy,
+                             ops=2 * pages_per_step),
+                kp.GridScope("attend", kp.LAST, (skip, attend), ops=6)),
+        counter_shape=(B, kv, nt), expected=expected, mirror=mirror,
+        geom=(kv, nt, TILE_SLOTS, sps))
 
 
 def paged_cost(q, pool_k, pool_v, pages, pos):
@@ -138,9 +221,10 @@ def paged_cost(q, pool_k, pool_v, pages, pos):
     return 4.0 * kv * g * hd * slots, float(nbytes)
 
 
-def _paged(q, pool_k, pool_v, pages, pos):
+def _paged(q, pool_k, pool_v, pages, pos, with_counts: bool = False):
     if q.device.type == "cpu":
-        return paged_attention_plain(q, pool_k, pool_v, pages, pos)
+        return paged_attention_plain(q, pool_k, pool_v, pages, pos,
+                                     with_counts)
     if q.device.type != "cuda":
         raise ValueError(f"no paged-attention kernel for {q.device}")
     B, kv, g, hd = q.shape
@@ -170,15 +254,18 @@ def _paged(q, pool_k, pool_v, pages, pos):
     scratch = torch.empty(B * kv * (g * (nt * hd + 2 * nt) + 1),
                           dtype=torch.float32, device=q.device)
     out = torch.empty((B, kv, g, hd), dtype=torch.float32, device=q.device)
+    counts = (torch.empty((B, kv, nt), dtype=torch.int32, device=q.device)
+              if with_counts else None)
     lib = _build.load("paged_attention", _SIGNATURES)
     code = lib.paged_attention_fwd(
         qb.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pages.data_ptr(),
         pos.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        counts.data_ptr() if with_counts else None,
         B, kv, g, hd, page_size, n_pages, P, 1.0 / math.sqrt(hd),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_attention_fwd")
     paged_attention.launches += 1
-    return out
+    return (out, counts) if with_counts else out
 
 
 paged_attention.launches = 0

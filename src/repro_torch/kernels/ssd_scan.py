@@ -85,16 +85,26 @@ to bf16, ``chip_smoke.py`` allows 2e-2 (y) and 1e-2 (state). f32 inputs
 stay in f32 throughout (1e-5 against the plain version on the card).
 
 Determinism contract: every CTA works on one batch row, in fixed loop
-orders, with no atomics, and a_cs is taken by one routine and read by
-both kernels; so row b of a batched call is bitwise equal to a batch-1
-call on row b.
+orders, with no atomics on the data path, and a_cs is taken by one
+routine and read by both kernels; so row b of a batched call is bitwise
+equal to a batch-1 call on row b.
+
+Counter block (grid-step probing, ``ssd_plan``): asked for by a probed
+region, the chunk-scan kernel adds one, per (b, h), for each sub-chunk
+of ``chunk // pipeline`` steps it scans, into an int32 (B, H, L/chunk)
+count of the TPU kernel's chunk it belongs to (an integer atomic, so the
+count does not depend on the CTAs' order). Without it the launches are
+the unprobed ones.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from repro_torch.core import costmodel as cm
+from repro_torch.core import kernelprobe as kp
 from repro_torch.core import scope
 from repro_torch.kernels import _build
 
@@ -105,7 +115,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # x / b / c / y
 KERNELS = ("ssd_state_kernel", "ssd_chunk_scan_kernel")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"ssd_scan_fwd": [_P] * 8 + [_I] * 8 + [_L] * 12 + [_I, _P],
+_SIGNATURES = {"ssd_scan_fwd": [_P] * 9 + [_I] * 9 + [_L] * 12 + [_I, _P],
                "ssd_scan_smem": [_I, _I, _I]}
 
 
@@ -148,11 +158,13 @@ def _dot(eq: str, u, v, dtype):
 
 
 def ssd_scan_plain(x, a, b, c, *, chunk: int, h_per_g: int,
-                   pipeline: int = 1, return_final_state: bool = False):
+                   pipeline: int = 1, return_final_state: bool = False,
+                   with_counts: bool = False):
     """The kernel's function in plain PyTorch: ``repro.models.ssm.
     ssd_chunked_xla`` op for op, over sub-chunks of ``chunk // pipeline``
     (the SSD function does not depend on the chunking). Same arguments
-    and results as ``ssd_scan``."""
+    and results as ``ssd_scan``; ``with_counts`` appends the counter
+    block the kernel writes (every sub-chunk scanned)."""
     Q = _check(x, a, b, c, chunk, pipeline, h_per_g)
     B, L, H, Pd = x.shape
     G, N = b.shape[2], b.shape[3]
@@ -189,9 +201,13 @@ def ssd_scan_plain(x, a, b, c, *, chunk: int, h_per_g: int,
         cs.permute(0, 1, 5, 2, 3, 4)                           # (B,C,Q,G,E,P)
 
     y = (y_diag + y_off).reshape(B, L, H, Pd)
+    res = [y]
     if return_final_state:
-        return y, state.reshape(B, H, Pd, N)
-    return y
+        res.append(state.reshape(B, H, Pd, N))
+    if with_counts:
+        res.append(torch.full((B, H, L // chunk), pipeline,
+                              dtype=torch.int32, device=x.device))
+    return res[0] if len(res) == 1 else tuple(res)
 
 
 def ssd_scan(x, a, b, c, *, chunk: int, h_per_g: int, pipeline: int = 1,
@@ -213,9 +229,46 @@ def ssd_scan(x, a, b, c, *, chunk: int, h_per_g: int, pipeline: int = 1,
     Q = _check(x, a, b, c, chunk, pipeline, h_per_g)
     with scope.kernel_region(
             "ssd_scan",
-            lambda: ssd_cost(x, a, b, c, chunk, return_final_state)):
-        return _ssd(x, a, b, c, Q, chunk, h_per_g, pipeline,
-                    return_final_state)
+            lambda: ssd_cost(x, a, b, c, chunk, return_final_state),
+            lambda: ssd_plan(x, b, chunk, pipeline)) as region:
+        res = _ssd(x, a, b, c, Q, chunk, h_per_g, pipeline,
+                   return_final_state, region.probed)
+        if not region.probed:
+            return res
+        region.fold(res[-1])
+        return res[0] if len(res) == 2 else res[:-1]
+
+
+def ssd_plan(x, b, chunk: int, pipeline: int):
+    """The TPU kernel's grid for grid-step probing (``core.kernelprobe``):
+    (B, H, L/chunk), the chunk axis sequential, as ``_ssd_kernel``. Per
+    step: the x, a, b, c and y blocks of the chunk move at the grid node;
+    ``init`` zeroes the (P, N) state at the first chunk; ``sub_chunk``
+    costs one sub-chunk's scan (its c.b, decayed products, state update)
+    for each sub-chunk the kernel counts in that chunk (``pipeline`` of
+    them)."""
+    B, L, H, P = x.shape
+    N = b.shape[3]
+    es, nc, Q = x.element_size(), L // chunk, chunk // pipeline
+    skip = cm.roofline_cycles(1, 0)
+    init = cm.roofline_cycles(P * N, 4 * P * N)
+    sub = cm.roofline_cycles(
+        2 * Q * Q * (N + P) + 4 * Q * P * N + 8 * (Q * Q + 2 * Q)
+        + 4 * Q * Q + 3 * P * N,
+        es * (2 * Q * P + 2 * Q * N) + 4 * Q + 2 * 4 * P * N)
+
+    def expected():
+        return np.full((B, H, nc), pipeline, np.int32)
+
+    return kp.GridPlan(
+        body="ssd_kernel", grid=(B, H, nc),
+        transfer=cm.transfer_cycles(es * (2 * chunk * P + 2 * chunk * N)
+                                    + 4 * chunk),
+        scopes=(kp.GridScope("init", kp.FIRST, (skip, init), ops=1),
+                kp.GridScope("sub_chunk", kp.COUNT,
+                             tuple(i * sub for i in range(pipeline + 1)),
+                             ops=7 * pipeline)),
+        counter_shape=(B, H, nc), expected=expected, mirror=expected)
 
 
 def ssd_cost(x, a, b, c, chunk: int, return_final_state: bool):
@@ -235,11 +288,12 @@ def ssd_cost(x, a, b, c, chunk: int, return_final_state: bool):
 
 
 def _ssd(x, a, b, c, Q: int, chunk: int, h_per_g: int, pipeline: int,
-         return_final_state: bool):
+         return_final_state: bool, with_counts: bool = False):
     if x.device.type == "cpu":
         return ssd_scan_plain(x, a, b, c, chunk=chunk, h_per_g=h_per_g,
                               pipeline=pipeline,
-                              return_final_state=return_final_state)
+                              return_final_state=return_final_state,
+                              with_counts=with_counts)
     if x.device.type != "cuda":
         raise ValueError(f"no SSD-scan kernel for {x.device}")
     B, L, H, P = x.shape
@@ -274,16 +328,20 @@ def _ssd(x, a, b, c, Q: int, chunk: int, h_per_g: int, pipeline: int,
     acs = torch.empty((B, H, L), dtype=torch.float32, device=dev)
     prev = torch.empty((B, H, max(nc - 1, 1), P, N), dtype=x.dtype,
                        device=dev)
+    counts = (torch.zeros((B, H, L // chunk), dtype=torch.int32, device=dev)
+              if with_counts else None)
     code = lib.ssd_scan_fwd(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
         state.data_ptr() if state is not None else None, acs.data_ptr(),
-        prev.data_ptr(),
-        B, L, H, G, P, N, Q, DTYPES[x.dtype],
+        prev.data_ptr(), counts.data_ptr() if with_counts else None,
+        B, L, H, G, P, N, Q, DTYPES[x.dtype], pipeline,
         *x.stride()[:3], *a.stride(), *b.stride()[:3], *c.stride()[:3],
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "ssd_scan_fwd")
     ssd_scan.launches += 1
-    return (y, state) if return_final_state else y
+    res = [y] + ([state] if return_final_state else []) + (
+        [counts] if with_counts else [])
+    return res[0] if len(res) == 1 else tuple(res)
 
 
 ssd_scan.launches = 0

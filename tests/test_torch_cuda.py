@@ -13,8 +13,12 @@ streaming session over the engine's paged decode step, whose spilled
 rows arrive through their copy events; the flash kernel's row
 statistics (m, l) against the plain version's, and the training
 backward from the kernel's forward against the same backward from the
-plain forward, then through the ``autograd.Function`` with GQA. Every
-test needs an NVIDIA GPU
+plain forward, then through the ``autograd.Function`` with GQA; each
+kernel's counter block for grid-step probing against its plain
+version's, with outputs bitwise the launch's without it, the
+``probe_grid`` fold against its plain version, and kernel-probed
+programs of the three kernels (record == oracle, outputs bitwise,
+offload). Every test needs an NVIDIA GPU
 and nvcc and skips without them. On the card, with no JAX installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -523,3 +527,185 @@ def test_flash_backward_from_the_kernel_forward_matches_plain(dev):
         err = (g.float() - w.float()).abs().max().item()
         top = w.float().abs().max().item()
         assert err <= BWD_RTOL * top, (err, top)
+
+
+# ------------------------------------------------- grid-step probing
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Skv,q_offset,causal", [
+    (2, 8, 2, 512, 512, 0, True), (1, 4, 4, 128, 512, 384, True),
+    (1, 4, 2, 100, 300, 200, True), (2, 4, 2, 256, 256, 0, False)])
+def test_flash_counter_block_matches_plain(dev, B, H, Hkv, Sq, Skv, q_offset,
+                                           causal):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = _bf16((B, H, Sq, 64), gen, dev)
+    k, v = (_bf16((B, Hkv, Skv, 64), gen, dev) for _ in range(2))
+    out, counts = fa.flash_attention(q, k, v, causal=causal,
+                                     q_offset=q_offset, with_probe=True)
+    _, want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                       q_offset=q_offset, with_probe=True)
+    assert torch.equal(counts, want)
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=causal,
+                                               q_offset=q_offset))
+
+
+@pytest.mark.parametrize("dtype,L,chunk,pipeline,G,H", [
+    (torch.bfloat16, 1024, 256, 1, 1, 32), (torch.bfloat16, 512, 256, 2, 2, 8),
+    (torch.float32, 384, 128, 4, 1, 4)])
+def test_ssd_counter_block_matches_plain(dev, dtype, L, chunk, pipeline, G,
+                                         H):
+    B, P, N = 2, 64, 128
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = (0.5 * torch.randn((B, L, H, P), generator=gen, device=dev)).to(dtype)
+    a = -0.3 * torch.rand((B, L, H), generator=gen, device=dev)
+    b, c = ((0.5 * torch.randn((B, L, G, N), generator=gen, device=dev)
+             ).to(dtype) for _ in range(2))
+    kw = dict(chunk=chunk, h_per_g=H // G, pipeline=pipeline)
+    y, counts = ssd._ssd(x, a, b, c, chunk // pipeline, chunk, H // G,
+                         pipeline, False, True)
+    _, want = ssd.ssd_scan_plain(x, a, b, c, with_counts=True, **kw)
+    assert torch.equal(counts, want)
+    assert torch.equal(y, ssd.ssd_scan(x, a, b, c, **kw))
+
+
+@pytest.mark.parametrize("pos", [[543] * 8, [0, 63, 64, 65, 127, 300, 500,
+                                             543]])
+def test_paged_counter_block_matches_plain(dev, pos):
+    B, kv, g, hd, ps, n_pages, P = 8, 4, 8, 64, 16, 34, 280
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((B, kv, g, hd), generator=gen, device=dev)
+    pk, pv = (_bf16((P, ps, kv, hd), gen, dev) for _ in range(2))
+    pages = torch.randperm(P - 1, generator=gen, device=dev)[:B * n_pages]
+    pages = (pages + 1).to(torch.int32).reshape(B, n_pages)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out, counts = pa._paged(q, pk, pv, pages, pos, True)
+    _, want = pa.paged_attention_plain(q, pk, pv, pages, pos,
+                                       with_counts=True)
+    assert torch.equal(counts, want)
+    assert torch.equal(out, pa.paged_attention(q, pk, pv, pages, pos))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_probe_grid_kernel_matches_plain(dev, seed):
+    """Random plans (every rule), counter blocks, ids, spill flags and
+    prior calls: the CUDA fold equals its plain version, state and
+    spilled rows, integer for integer; then a flash-sized plan (16384
+    steps) without spills."""
+    import numpy as np
+    from repro_torch.core import init_state
+    from repro_torch.core import kernelprobe as kp
+    from repro_torch.kernels import probe_events as kpe
+    rng = np.random.default_rng(seed)
+    rows_n, last = int(rng.integers(1, 40)), int(rng.integers(2, 70))
+    kv, nt, tile, sps = 2, 3, 4, int(rng.integers(1, 4))
+    rules = [kp.FIRST, kp.LAST, kp.BELOW, kp.AT_END, kp.CONST]
+    scopes = [kp.GridScope(f"s{j}", r, tuple(
+        int(x) for x in rng.integers(0, 1 << 20, 2)))
+        for j, r in enumerate(rules)]
+    scopes.append(kp.GridScope("cnt", kp.COUNT, tuple(
+        int(x) for x in rng.integers(0, 50, 4))))
+    scopes.append(kp.GridScope("slots", kp.SLOTS, tuple(
+        int(x) for x in rng.integers(0, 50, kv * 6 + 1))))
+    shape = (rows_n * max(last, 6) * 2,)
+    counters = rng.integers(-1, last + 2, shape).astype(np.int32)
+    plan = kp.GridPlan(body="k", grid=(rows_n, last),
+                       transfer=int(rng.integers(0, 99)),
+                       scopes=tuple(scopes), counter_shape=shape,
+                       expected=lambda: counters, mirror=lambda: counters,
+                       geom=(kv, nt, tile, sps))
+    n, depth = len(scopes) + 4, int(rng.integers(1, 6))
+    ids = [int(i) for i in rng.permutation(n)[:len(scopes) + 1]]
+    ids[int(rng.integers(len(ids)))] = -1
+    spill = [bool(x) for x in rng.integers(0, 2, len(ids))]
+    base = init_state(n, depth, device="cpu")
+    base["calls"].copy_(torch.from_numpy(rng.integers(0, 9, n)))
+    base["cycle"].fill_(int(rng.integers(0, 1 << 30)))
+    base["ring"].copy_(torch.from_numpy(rng.integers(0, 99, (n, depth, 2))))
+    rows, offs = kpe.grid_dump_rows(base["calls"].tolist(), ids, spill,
+                                    plan.steps, depth)
+    cpu = {k: v.clone() for k, v in base.items()}
+    gpu = {k: v.to(dev) for k, v in base.items()}
+    dump_c = torch.zeros((max(len(rows), 1), depth, 2), dtype=torch.int64)
+    dump_g = dump_c.to(dev)
+    kpe.probe_grid(cpu, plan, torch.from_numpy(counters), ids, spill, dump_c,
+                   offs)
+    kpe.probe_grid(gpu, plan, torch.from_numpy(counters).to(dev), ids, spill,
+                   dump_g, offs)
+    for k in cpu:
+        assert torch.equal(cpu[k], gpu[k].cpu()), k
+    assert torch.equal(dump_c, dump_g.cpu())
+
+    q = torch.zeros((8, 32, 512, 64), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((8, 4, 512, 64), dtype=torch.bfloat16, device=dev)
+    big = fa.flash_plan(q, kv, kv)
+    _, counts = fa.flash_attention(q, kv, kv, with_probe=True)
+    cpu, gpu = init_state(4, 4, "cpu"), init_state(4, 4, dev)
+    kpe.probe_grid(cpu, big, counts.cpu(), [0, 1, 2, 3], [False] * 4)
+    kpe.probe_grid(gpu, big, counts, [0, 1, 2, 3], [False] * 4)
+    for k in cpu:
+        assert torch.equal(cpu[k], gpu[k].cpu()), k
+    assert int(cpu["cycle"]) == big.cycles(big.expected())
+
+
+@pytest.mark.parametrize("name", ["flash", "ssd", "paged"])
+def test_kernel_probe_on_the_card_equals_oracle(dev, name):
+    """Each kernel probed inside a scan of 2 (``kernel_probes=("*",)``):
+    record == oracle, outputs bitwise the unprobed ones, one fold per
+    kernel call, with and without offload."""
+    from repro_torch.core import (ProbeConfig, decode_record, probe, scope)
+    from repro_torch.kernels import probe_events as kpe
+    gen = torch.Generator(device=dev).manual_seed(12)
+    if name == "flash":
+        args = (_bf16((2, 8, 256, 64), gen, dev),
+                _bf16((2, 2, 256, 64), gen, dev),
+                _bf16((2, 2, 256, 64), gen, dev))
+
+        def call(q, k, v):
+            return fa.flash_attention(q, k, v)
+    elif name == "ssd":
+        B, L, H, G = 2, 512, 8, 1
+        args = ((0.5 * torch.randn((B, L, H, 64), generator=gen, device=dev)
+                 ).to(torch.bfloat16),
+                -0.3 * torch.rand((B, L, H), generator=gen, device=dev),
+                _bf16((B, L, G, 128), gen, dev), _bf16((B, L, G, 128), gen,
+                                                       dev))
+
+        def call(x, a, b, c):
+            return ssd.ssd_scan(x, a, b, c, chunk=256, h_per_g=H // G,
+                                pipeline=2)
+    else:
+        B, kv, P = 4, 4, 40
+        pages = (torch.randperm(P - 1, generator=gen, device=dev)[:B * 8]
+                 + 1).to(torch.int32).reshape(B, 8)
+        args = (torch.randn((B, kv, 8, 64), generator=gen, device=dev),
+                _bf16((P, 16, kv, 64), gen, dev),
+                _bf16((P, 16, kv, 64), gen, dev), pages,
+                torch.tensor([0, 17, 64, 127], dtype=torch.int32, device=dev))
+
+        def call(*a):
+            return pa.paged_attention(*a, pos_host=(0, 17, 64, 127))
+
+    def fn(*a):
+        outs = []
+        with scope.named_scope("layers"):
+            for _ in scope.scan(2):
+                with scope.named_scope("k"):
+                    outs.append(call(*a))
+        return outs
+    for offload in (0.0, 1.0):
+        pf = probe(fn, ProbeConfig(inline="off_all", kernel_probes=("*",),
+                                   offload=offload, buffer_depth=4))
+        pf.ensure_built(*args)
+        kpe.probe_grid.launches = 0
+        out, rec = pf(*args)
+        torch.cuda.synchronize()
+        assert kpe.probe_grid.launches == 2 == pf.last_run["folds"]
+        assert all(torch.equal(a, b) for a, b in zip(out, fn(*args)))
+        oc = pf.oracle(*args)
+        dec = decode_record(rec)
+        assert dec["cycle"] == oc.cycle
+        for key in ("starts", "ends", "totals", "calls"):
+            assert [int(x) for x in dec[key]] == getattr(oc, key), key
+        rows = pf.report(rec).rows
+        for i, row in enumerate(rows):
+            if pf.assignment.spill[i]:
+                assert row.iters == oc.history[i], row.path

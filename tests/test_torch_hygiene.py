@@ -21,6 +21,7 @@ PORT_MODULES = (
     "repro_torch.kernels.probe_events",
     "repro_torch.core", "repro_torch.core.scope",
     "repro_torch.core.costmodel", "repro_torch.core.hierarchy",
+    "repro_torch.core.kernelprobe",
     "repro_torch.core.inline", "repro_torch.core.buffer",
     "repro_torch.core.instrument", "repro_torch.core.oracle",
     "repro_torch.core.report", "repro_torch.core.pragma",

@@ -572,8 +572,13 @@ def test_visits_that_differ_raise_at_capture():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ProbeConfig(kernel_probes=("*",))
+    """``layout="legacy"`` is not ported; kernel probes are, but, as in
+    the JAX package, only on the model clock."""
+    _, fn, args = _small("scan")
+    pf = probe(fn, ProbeConfig(kernel_probes=("*",),
+                               cycle_source="wallclock"), device="cpu")
+    with pytest.raises(ValueError, match="model"):
+        pf(*_torch_args(args))
     with pytest.raises(NotImplementedError):
         ProbeConfig(layout="legacy")
 
