@@ -117,7 +117,31 @@
    mamba2 prefill (8 x 1024) with ``ssd_kernel`` (48 folds, grid calls 48
    x 8 x 32 x 4) and its wall; the engine's paged decode step at the
    serving shape with ``paged_kernel`` (record == oracle, outputs and
-   pools bitwise); then the fold kernel's time beside its bound.
+   pools bitwise); then the fold kernel's time beside its bound;
+14. design-space exploration (``repro_torch.core.dse``): ``run_dse`` over
+   the tinyllama prefill (8 x 512) at 3 storages x 4 offload ratios, each
+   point's record == the oracle's and logits bitwise the unprobed ones,
+   and its Pareto table; ``DSEEngine.tune`` (a fresh eval cache under
+   build/) over flash at the training shape (B 8, S 2048), the model's
+   prefill (B 8, S 512) and the engine's one-prompt prefill (B 1, S 512),
+   paged at the engine's decode shape (8 rows at pos 543, bf16 queries),
+   the SSD scan at one mamba2-370m layer (8 x 1024) and the engine's
+   chunked-prefill quantum at 32 prompt pages: each flash and paged
+   tile's declared shared memory == what the kernel's attributes report
+   (for flash the C++ copy of the formula, the opt-in, with no static
+   shared memory, and the driver's occupancy at least the CTAs an SM the
+   tile is compiled for; for paged the compiler's static bytes), every
+   tile the budget keeps held against its plain version at that tile (a
+   tile it prunes refused by the kernel too), each chunk size's last
+   logits within ``CHUNK_LOGIT_ATOL`` of the whole prompt's (and a
+   changed context outside it), each measured candidate's probed
+   ``%globaltimer`` ns a step beside its CUDA-event time and whether the
+   two rank the candidates alike, flash at the training shape beside
+   SDPA, then a warm re-run: 0 new measurements, the same winner; then
+   ``serve --autotune`` from that cache beside the untuned serve: flash and
+   paged launches 22 x steps, every one at the winner tuned at its own
+   shape (the engine's prefill and decode), the ids shared (reported).
+   The kernels line lists every (kernel, tile) pair checked.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -190,6 +214,15 @@ BWD_RTOL = 2e-2
 # 10 % off moves the step by less than the bf16 noise: the train flash
 # check (a), on unit-normal q, k, v, holds the scale.
 STEP_LOSS_ATOL, STEP_GNORM_RTOL, STEP_GRAD_RTOL = 1e-4, 5e-3, 2e-2
+# a chunked-prefill schedule against the whole-prompt prefill, last
+# logits: each chunk's GEMMs run at another M, so every activation is
+# rounded to bf16 in another order, as between the port's and the JAX
+# package's bf16 logits (5e-2, PERF.md section 2); the card read 0 at
+# chunks of 4-32 pages and 4.151e-2 at 1-2 pages (NVIDIA H100 80GB HBM3,
+# 700 W). The check's teeth: another first half of the prompt (as a
+# schedule that lost the context would see) moves the last logits by
+# more, asserted on the card
+CHUNK_LOGIT_ATOL = 5e-2
 TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, SESSION_STEPS = 8, 2048, 2, 4, 4
 
 ARCH, BATCH, PROMPT, MAX_NEW, CHUNK = "tinyllama-1.1b", 8, 512, 32, 8
@@ -1458,7 +1491,7 @@ def step_kernel_vs_plain(torch, fa, model, params, batch, kernel=None):
     def loss_and_grads(fwd):
         leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(True),
                                 params)
-        with mock.patch.object(attn, "flash_attention", fwd), \
+        with mock.patch.object(attn.kops, "flash_attention", fwd), \
                 torch.enable_grad():
             loss, _ = model.loss_fn(leaves, batch)
             grads = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
@@ -1767,6 +1800,361 @@ def fold_line(torch, fa, kpe, dev, launches) -> dict:
                 bound_ms=bnd, bound_by=by, library_ms=None)
 
 
+# the step-14 tune: successive halving from 1 probed step to 4
+DSE_STEPS = 4
+
+
+def _rank_alike(a, b) -> bool:
+    """Do two measures order the same candidates the same way?"""
+    order = lambda d: sorted(d, key=lambda k: (d[k], k))  # noqa: E731
+    return order(a) == order(b)
+
+
+def tune_space(torch, name, space, cache, check, smi, max_steps=DSE_STEPS):
+    """Step 14 (b) for one space: every candidate the budget keeps held
+    against its plain version (``check(config)`` -> max error, asserted
+    inside), the tune, each measured candidate's cycles beside its
+    CUDA-event time, then a warm re-run. Returns (result, {config key:
+    (event ms, err)})."""
+    from repro_torch.core import DSEEngine
+    eng = DSEEngine(space, cache=cache, max_steps=max_steps)
+    t0 = time.perf_counter()
+    res = eng.tune()
+    tune_s = time.perf_counter() - t0
+    print(res.leaderboard())
+    rows = {}
+    for t in res.trials:
+        key = json.dumps(t.config, sort_keys=True)
+        if t.pruned is not None:
+            # a tile the card cannot hold is refused by the kernel too
+            try:
+                space.bind(t.config)(*space.args)
+            except ValueError as e:
+                print(f"  {name} {key}: pruned ({t.pruned}); the kernel "
+                      f"refuses it: {str(e)[:60]}...")
+                continue
+            raise AssertionError(f"{name} {key} was pruned but launched")
+        err = check(t.config)
+        fn = space.bind(t.config)
+        ms = time_ms(lambda: fn(*space.args), reps=20)
+        rows[key] = (ms, err)
+    meas = {json.dumps(t.config, sort_keys=True): t.cycles_per_step
+            for t in res.trials if t.measured and t.pruned is None}
+    for key, cyc in sorted(meas.items(), key=lambda kv: kv[1]):
+        print(f"  {name} {key}: measured {cyc:.0f} {eng.cycle_source} "
+              f"cycles a step ({'ns' if eng.cycle_source == 'wallclock' else 'model cycles'}), "
+              f"CUDA events {rows[key][0] * 1e3:.1f} us held; max |kernel "
+              f"- plain| {rows[key][1]:.3e}")
+    ev = {k: rows[k][0] for k in meas}
+    # the candidates each measure ran at the finalists' rung
+    top = [json.dumps(t.config, sort_keys=True) for t in res.trials
+           if t.measured and t.steps == res.best.steps]
+    print(f"  {name}: winner {res.best.config} ({res.speedup:.3f}x the "
+          f"default by the probe); the probe's cycles and CUDA events rank "
+          f"the {len(meas)} measured candidates alike: "
+          f"{_rank_alike(meas, ev)} (the finalists {len(top)}: "
+          f"{_rank_alike({k: meas[k] for k in top}, {k: ev[k] for k in top})})"
+          f"; {res.n_measurements} measurements, {res.measured_steps} steps, "
+          f"{tune_s:.1f} s ({smi})")
+    warm = DSEEngine(space, cache=cache, max_steps=max_steps).tune()
+    print(f"  {name}: warm re-run {warm.n_measurements} new measurements, "
+          f"{warm.n_cache_hits} cache hits, winner {warm.best.config}")
+    assert warm.n_measurements == 0 and warm.best.config == res.best.config
+    return res, rows
+
+
+def dse_phase(torch, fa, pa, ssd, kpe, dev, smi):
+    """Step 14 (see the module docstring): run_dse over the full-width
+    tinyllama prefill, DSEEngine.tune over the main path's kernels and the
+    chunked-prefill schedule, then serve --autotune from the cache."""
+    import shutil
+
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import EvalCache, ProbeConfig, run_dse
+    from repro_torch.core.incremental import device_kind
+    from repro_torch.kernels import search_spaces as ss
+    from repro_torch.kernels import tuning
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+    print(f"# design-space exploration ({smi})")
+    out = dict(tiles=[])
+
+    # (a) probe storage x offload over the full-width prefill
+    m = Model(get_config(ARCH))
+    p = m._compute_cast(m.init(0, dev))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    toks = torch.randint(0, m.cfg.vocab_size, (BATCH, PROMPT), device=dev,
+                         generator=gen, dtype=torch.int32)
+    fn = lambda p_, b: m.prefill(p_, b, PROMPT + MAX_NEW)  # noqa: E731
+    plain = _flat(fn(p, {"tokens": toks}))
+    seen = []
+
+    def check(pf, dec, outp):
+        oc = pf.oracle(p, {"tokens": toks})
+        same = all(torch.equal(a, b) for a, b in zip(_flat(outp), plain))
+        seen.append((_record_equals_oracle(dec, oc), same))
+        assert seen[-1] == (True, True), (pf.config, seen[-1])
+    t0 = time.perf_counter()
+    res = run_dse(fn, (p, {"tokens": toks}),
+                  ProbeConfig(inline="off_all", max_probes=64), check=check)
+    print(res.table())
+    print(f"run_dse [{ARCH} prefill {BATCH}x{PROMPT}]: {len(res.points)} "
+          f"points, {len(res.pareto)} on the Pareto front, best "
+          f"{res.best().storage} at {res.best().offload_ratio:.2f}; record == "
+          f"oracle and logits bitwise the unprobed at every point: "
+          f"{all(a and b for a, b in seen)} ({len(seen)} checked); "
+          f"{time.perf_counter() - t0:.1f} s")
+    assert len(res.points) == len(seen) == 12
+    del m, p, plain
+
+    # (b) the kernels' tiles at the main path's shapes
+    root = os.path.join(ROOT, "build", "dse_cache")
+    shutil.rmtree(root, ignore_errors=True)
+    cache = EvalCache(root)
+    tuning.clear_tuned()
+
+    def flash_check(space):
+        q, k, v = space.args
+
+        def check(cfg):
+            o = fa.flash_attention(q, k, v, **cfg)
+            r = fa.flash_attention_plain(q, k, v, **cfg)
+            torch.cuda.synchronize()
+            err = (o.float() - r.float()).abs().max().item()
+            assert err <= FLASH_ATOL, (cfg, err)
+            return err
+        return check
+
+    def smem_checks(kind, D, space):
+        for cfg in space.candidates():
+            if kind == "flash":
+                r = fa.flash_resources(D, cfg["block_q"], cfg["block_k"])
+                if r.smem_bytes > 232448:
+                    continue
+                a = fa.flash_attrs(D, cfg["block_q"], cfg["block_k"])
+                got, want = a["dynamic_smem"] + a["static_smem"], r.smem_bytes
+                need = fa.flash_min_blocks(D, cfg["block_q"], cfg["block_k"])
+                extra = (f"{a['registers']} registers, {a['local_bytes']} "
+                         f"local bytes a thread; the driver fits "
+                         f"{a['ctas_per_sm']} CTAs an SM, compiled for "
+                         f"{need}")
+                assert a["static_smem"] == 0 and a["ctas_per_sm"] >= need, \
+                    (cfg, a)
+            else:
+                a = pa.paged_attrs(D, 8, cfg["tile_slots"])
+                got = (a["stats_smem"], a["output_smem"])
+                want = pa.paged_smem_bytes(D, 8, cfg["tile_slots"])
+                extra = (f"{a['stats_registers']}/{a['output_registers']} "
+                         f"registers, {a['stats_local_bytes']}/"
+                         f"{a['output_local_bytes']} local bytes a thread")
+            print(f"  {kind} {cfg}: declared shared memory {want}, the "
+                  f"kernel's attributes {got} ({extra})")
+            assert got == want, (kind, cfg, got, want)
+
+    sdpa_ms = {}
+    winners = {}
+    for label, B, S in (("train", BATCH, TRAIN_S), ("serve", BATCH, PROMPT),
+                        ("engine", 1, PROMPT)):
+        sp = ss.flash_attention_space(B=B, H=32, Hkv=4, S=S, D=64,
+                                      device=dev)
+        if label == "serve":
+            smem_checks("flash", 64, sp)
+        r, rows = tune_space(torch, f"flash ({label} B {B} S {S})", sp,
+                             cache, flash_check(sp), smi)
+        winners[label] = (r.best.config["block_q"], r.best.config["block_k"])
+        q, k, v = sp.args
+        sdpa, how = sdpa_flash(torch, F, q, k, v, 0)
+        sdpa_ms[label] = time_ms(sdpa)
+        best = json.dumps(r.best.config, sort_keys=True)
+        dflt = json.dumps(r.default.config, sort_keys=True)
+        print(f"  flash ({label}): tuned {r.best.config} "
+              f"{rows[best][0] * 1e3:.1f} us beside the default "
+              f"{rows[dflt][0] * 1e3:.1f} us and SDPA ({how}) "
+              f"{sdpa_ms[label] * 1e3:.1f} us, CUDA events held")
+        if label != "train":
+            nbytes, flops = fa.flash_cost(q, k, v)[1], fa.flash_cost(q, k, v)[0]
+            bnd = bound(nbytes, flops)
+            for key, (ms, err) in rows.items():
+                cfg = json.loads(key)
+                # the plain version is host-bound: timed with the host in
+                # the loop, as a call costs a caller
+                plain_ms = time_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, **cfg), reps=3, hold=False)
+                out["tiles"].append(dict(
+                    kernel="flash", cfg=cfg, ms=ms, err=err, plain=plain_ms,
+                    bound=bnd, lib=sdpa_ms[label], shape=(label, B, S),
+                    source="src/repro_torch/csrc/"
+                           f"{fa.flash_library(cfg['block_q'], cfg['block_k'])}.cu",
+                    replaces="src/repro/kernels/flash_attention.py:121"))
+
+    # paged at the serving decode shape: 8 rows at pos 543
+    sp = ss.paged_attention_space(B=BATCH, KV=4, G=8, HD=64, page_size=16,
+                                  n_pages=34, pool_pages=274,
+                                  pos=(543,) * BATCH, q_dtype=torch.bfloat16,
+                                  device=dev)
+    smem_checks("paged", 64, sp)
+
+    def paged_check(cfg):
+        args = sp.args
+        o = pa.paged_attention(*args, tile_slots=cfg["tile_slots"])
+        r = pa.paged_attention_plain(*args)
+        o_c, got = pa._paged(*args, True, cfg["tile_slots"])
+        _, want = pa.paged_attention_plain(*args, with_counts=True,
+                                           tile_slots=cfg["tile_slots"])
+        torch.cuda.synchronize()
+        err = (o - r).abs().max().item()
+        assert err <= PAGED_ATOL and torch.equal(got, want) and \
+            torch.equal(o_c, o), (cfg, err)
+        return err
+    r, rows = tune_space(torch, "paged (decode B 8 pos 543)", sp, cache,
+                         paged_check, smi)
+    winners["paged"] = r.best.config["tile_slots"]
+    q, pk, pv, pages, pos = sp.args
+    pbound = bound(*reversed(pa.paged_cost(q, pk, pv, pages, pos)))
+    for key, (ms, err) in rows.items():
+        cfg = json.loads(key)
+        plain_ms = time_ms(lambda: pa.paged_attention_plain(*sp.args), reps=5,
+                           hold=False)
+        out["tiles"].append(dict(
+            kernel="paged", cfg=cfg, ms=ms, err=err, plain=plain_ms,
+            bound=pbound, lib=None,
+            source=f"src/repro_torch/csrc/{pa.paged_library(cfg['tile_slots'])}.cu",
+            replaces="src/repro/kernels/paged_attention.py:94"))
+
+    # SSD at one mamba2-370m prefill layer; each chunk held on realistic
+    # inputs (the mamba2 inits) of the same shape
+    B_, L_, H_, P_, G_, N_ = BATCH, SSM_PROMPT, 32, 64, 1, 128
+    sp = ss.ssd_scan_space(B=B_, H=H_, G=G_, L=L_, P=P_, N=N_,
+                           dtype=torch.bfloat16, device=dev)
+    real = ssd_inputs(torch, dev, B_, L_, H_, P_, G_, N_, seed=2)
+
+    def ssd_check(cfg):
+        y, st = ssd.ssd_scan(*real, chunk=cfg["chunk"], h_per_g=H_ // G_,
+                             return_final_state=True)
+        py, pst = ssd.ssd_scan_plain(*real, chunk=cfg["chunk"],
+                                     h_per_g=H_ // G_,
+                                     return_final_state=True)
+        torch.cuda.synchronize()
+        errs = dict(y=rel_err(y, py), state=rel_err(st, pst))
+        assert all(errs[k] <= SSD_RTOL[k] for k in errs), (cfg, errs)
+        return max(errs.values())
+    r, rows = tune_space(torch, f"ssd (mamba2 layer B {B_} L {L_})", sp,
+                         cache, ssd_check, smi)
+    sbound = bound(*reversed(ssd.ssd_cost(*real, 256, True)))
+    for key, (ms, err) in rows.items():
+        cfg = json.loads(key)
+        plain_ms = time_ms(lambda: ssd.ssd_scan_plain(
+            *real, chunk=cfg["chunk"], h_per_g=H_ // G_,
+            return_final_state=True), reps=3, hold=False)
+        out["tiles"].append(dict(
+            kernel="ssd", cfg=cfg, ms=ms, err=err, plain=plain_ms,
+            bound=sbound, lib=None, source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:83"))
+
+    # the engine's chunked-prefill quantum at 32 prompt pages (full width)
+    sp = ss.chunked_prefill_space(arch=ARCH, prompt_pages=PROMPT // 16,
+                                  full=True, device=dev)
+    V = get_config(ARCH).vocab_size
+    ref = sp.bind(sp.default)(*sp.args)[0][:, :V]
+    # the teeth: another first half of the prompt moves the last logits
+    params, pk, pv, toks = sp.args
+    other = toks.clone()
+    other[:, :toks.shape[1] // 2] = (other[:, :toks.shape[1] // 2] + 1) % V
+    moved = (sp.bind(sp.default)(params, pk, pv, other)[0][:, :V] - ref
+             ).abs().max().item()
+    print(f"  chunked_prefill: another first half of the prompt moves the "
+          f"last logits by {moved:.3e} (atol {CHUNK_LOGIT_ATOL})")
+    assert moved > CHUNK_LOGIT_ATOL, moved
+    del other
+
+    def chunk_check(cfg):
+        lg = sp.bind(cfg)(*sp.args)[0][:, :V]
+        torch.cuda.synchronize()
+        err = (lg - ref).abs().max().item()
+        assert err <= CHUNK_LOGIT_ATOL, (cfg, err)
+        return err
+    tune_space(torch, f"chunked_prefill ({ARCH}, {PROMPT // 16} pages)", sp,
+               cache, chunk_check, smi, max_steps=2)
+    del sp, ref, params, pk, pv, toks
+
+    # (c) serve --autotune from this cache, beside the untuned serve
+    kw = dict(smoke=False, batch=BATCH, prompt_len=PROMPT, max_new=MAX_NEW,
+              engine_kernel=True)
+    runs = {}
+    for name, extra in (("untuned", {}),
+                        ("autotune", dict(autotune=True, tune_cache=root))):
+        fa.flash_attention.launches = pa.paged_attention.launches = 0
+        fa.flash_attention.tile_launches.clear()
+        pa.paged_attention.tile_launches.clear()
+        res = serve(ARCH, **kw, **extra)
+        torch.cuda.synchronize()
+        ph = res.stats["phases"]
+        L = get_config(ARCH).num_layers
+        want = (L * (ph["prefill"]["steps"]
+                     + ph.get("chunkpf", {"steps": 0})["steps"]),
+                L * ph["decode"]["steps"])
+        got = (fa.flash_attention.launches, pa.paged_attention.launches)
+        print(f"serve [{name}]: {res.seconds * 1e3:.1f} ms; launches flash "
+              f"{got[0]}, paged {got[1]} (want {want}); by tile: flash "
+              f"{dict(fa.flash_attention.tile_launches)}, paged "
+              f"{dict(pa.paged_attention.tile_launches)}")
+        assert got == want and res.stats["retraces"] == 0
+        runs[name] = (res, dict(fa.flash_attention.tile_launches),
+                      dict(pa.paged_attention.tile_launches))
+    # each launch at the winner tuned at its own shape: the engine's
+    # one-prompt prefill and its decode (not the 8 x 512 or training
+    # shape's winners, also loaded)
+    flash_t, paged_t = runs["autotune"][1], runs["autotune"][2]
+    print(f"serve --autotune: flash at {flash_t} (the engine prefill's "
+          f"winner {winners['engine']}), paged at {paged_t} (the decode's "
+          f"winner {winners['paged']})")
+    assert set(flash_t) == {winners["engine"]} and \
+        set(paged_t) == {winners["paged"]}, (flash_t, paged_t, winners)
+    tuned = {k: len(cache.winners(k, device_kind(dev)))
+             for k in tuning.KERNEL_IDS}
+    tuning.clear_tuned()
+    a, b = runs["untuned"][0], runs["autotune"][0]
+    same = int((a.tokens == b.tokens).sum())
+    V = get_config(ARCH).vocab_size
+    dl = (a.first_logits[:, :V] - b.first_logits[:, :V]).abs().max().item()
+    print(f"serve --autotune loaded winners at {tuned} shapes; token ids "
+          f"shared with the "
+          f"untuned serve: {same}/{a.tokens.size} (reported: other tiles "
+          f"round differently); first-step max |logit diff| {dl:.3e}")
+    out["serve_tiles"] = (runs["autotune"][1], runs["autotune"][2])
+    return out
+
+
+def tile_lines(tiles, serve_tiles) -> list:
+    """The kernels-line entries of every (kernel, tile) step 14 checked;
+    ``launches`` are the autotuned serve's at that tile (the SSD chunks':
+    0, no SSD on that path)."""
+    flash_l, paged_l = serve_tiles
+    lines = []
+    for t in tiles:
+        cfg = t["cfg"]
+        if t["kernel"] == "flash":
+            label, B, S = t["shape"]
+            # the autotuned serve launches flash at the engine's shape only
+            n = flash_l.get((cfg["block_q"], cfg["block_k"]), 0) \
+                if label == "engine" else 0
+            name = (f"flash_attention tile block_q={cfg['block_q']} "
+                    f"block_k={cfg['block_k']} (B {B} S {S})")
+        elif t["kernel"] == "paged":
+            n = paged_l.get(cfg["tile_slots"], 0)
+            name = f"paged_attention tile tile_slots={cfg['tile_slots']}"
+        else:
+            n = 0
+            name = f"ssd_scan chunk={cfg['chunk']} (mamba2 layer)"
+        lines.append(dict(name=name, route="cuda", source=t["source"],
+                          replaces=t["replaces"], launches=n,
+                          max_abs_err=t["err"], ms=t["ms"],
+                          plain_ms=t["plain"], bound_ms=t["bound"][0],
+                          bound_by=t["bound"][1], library_ms=t["lib"]))
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1801,7 +2189,8 @@ def main() -> int:
     sass = {name: sass_counts(so) for name, so in libs.items()}
     for name, counts in sass.items():
         print(f"  {name}: SASS {counts}")
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "flash_attention_q64",
+                 "flash_attention_q128", "ssd_scan"):
         assert sass[name]["HMMA"] + sass[name]["HGMMA"] > 0, (
             f"the {name} kernels run no tensor-core instruction")
     pev = check_probe_events(torch, kpe, dev)
@@ -1818,6 +2207,9 @@ def main() -> int:
     profiled_ssm_phase(torch, fa, pa, ssd, serve, ssm_plain, dev)
     tr = train_phase(torch, fa, pa, ssd, dev, smi)
     kprobe = kernel_probe_phase(torch, fa, pa, ssd, kpe, dev, smi)
+    t_dse = time.perf_counter()
+    dse = dse_phase(torch, fa, pa, ssd, kpe, dev, smi)
+    print(f"step 14 took {time.perf_counter() - t_dse:.1f} s")
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -1911,7 +2303,7 @@ def main() -> int:
              bound_by=pev["bound"][1], library_ms=None),
         train_kernel(torch, fa, tr),
         fold,
-    ]
+    ] + tile_lines(dse["tiles"], dse["serve_tiles"])
     for kn in kernels:
         print(f"{kn['name']}: {kn['ms'] * 1e3:.1f} us (bound "
               f"{kn['bound_ms'] * 1e3:.2f} us by {kn['bound_by']}), plain "

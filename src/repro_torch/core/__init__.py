@@ -26,6 +26,9 @@ Stages (paper Fig 3):
                 KernelOracle, kernel_grid_table / kernel_grid_heat)
   streaming     ProbeSession: the probe kept running across steps, with
                 constant-memory aggregates (StreamingSink, StreamAggregator)
+  DSE           run_dse (probe storage x offload, Pareto), DSEEngine over
+                the CUDA kernels' tiles (SearchSpace, DeviceBudget,
+                EvalCache), run_sweep and tracesim, the overhead model
 """
 from repro_torch.core import scope
 from repro_torch.core.hierarchy import Hierarchy, capture
@@ -36,9 +39,24 @@ from repro_torch.core.report import (Report, bump_chart, kernel_grid_heat,
                                      kernel_grid_table)
 from repro_torch.core.streaming import (ProbeSession, StreamAggregator,
                                         StreamingSink, StreamSnapshot)
+from repro_torch.core.costmodel import DeviceBudget, KernelResources
+from repro_torch.core.dse import (DSEEngine, DSEPoint, DSEResult,
+                                  SearchSpace, Trial, TuneResult, run_dse,
+                                  run_sweep)
+from repro_torch.core.incremental import (EvalCache, FileLock,
+                                          capture_fingerprint, device_kind,
+                                          measure_incremental)
+from repro_torch.core.overhead import (OverheadModel, adapt_allocation,
+                                       measure_overhead)
+from repro_torch.core.tracesim import KernelTrace, TraceEntry, TraceStore
 
 __all__ = ["scope", "probe", "ProbeConfig", "ProbedFunction", "Hierarchy",
            "capture", "Oracle", "Report", "bump_chart", "decode_record",
            "init_state", "ProbeSession", "StreamingSink", "StreamAggregator",
            "StreamSnapshot", "KernelOracle", "kernel_grid_table",
-           "kernel_grid_heat"]
+           "kernel_grid_heat", "DeviceBudget", "KernelResources",
+           "DSEEngine", "DSEPoint", "DSEResult", "SearchSpace", "Trial",
+           "TuneResult", "run_dse", "run_sweep", "EvalCache", "FileLock",
+           "capture_fingerprint", "device_kind", "measure_incremental",
+           "OverheadModel", "adapt_allocation", "measure_overhead",
+           "KernelTrace", "TraceEntry", "TraceStore"]

@@ -66,6 +66,16 @@ class HostSink:
         self._batches: List[Tuple[List[int], List[int], Sequence]] = []
         self._pending: List[object] = []
         self.dumps = 0
+        self.bytes_received = 0        # the offloaded rows' bytes
+
+    def reset(self):
+        """Forget every offloaded row (a DSE point starts from an empty
+        sink)."""
+        self._wait()
+        with self._lock:
+            self._batches.clear()
+            self.dumps = 0
+            self.bytes_received = 0
 
     def dump(self, probe_ids: Sequence[int], base_counts: Sequence[int],
              rows: Sequence, ready=None):
@@ -73,8 +83,12 @@ class HostSink:
         order) is probe ``probe_ids[i]``'s calls ``base_counts[i]`` ..
         ``base_counts[i] + depth - 1``. ``ready`` is the CUDA event after
         the copies, or None for rows already on the host."""
+        nbytes = sum(int(r.numel()) * r.element_size() if
+                     isinstance(r, torch.Tensor) else int(np.asarray(r).nbytes)
+                     for r in rows)
         with self._lock:
             self.dumps += len(probe_ids)
+            self.bytes_received += nbytes
         self._store(list(probe_ids), list(base_counts), rows, ready)
 
     def _store(self, probe_ids: List[int], base_counts: List[int], rows,

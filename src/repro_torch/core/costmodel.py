@@ -39,12 +39,24 @@ grid node through ``transfer_cycles``, the one definition of that term.
 Host read-outs (``_local_scalar_dense``: ``.item()``, ``bool(t)``) are
 not device operations here: the markers read branch predicates with
 them, which a jaxpr does not.
+
+For design-space exploration (``core.dse``): ``KernelResources`` is what
+one candidate kernel configuration needs of the card, and
+``DeviceBudget`` the H100's ceilings in place of the TPU's VMEM: shared
+memory a block may have (232,448 bytes dynamic, opted in; 49,152
+static), threads a block (1024) and registers an SM (65,536). A CUDA kernel's footprint cannot
+be walked from a jaxpr, so each kernel wrapper states it by the formula
+of its source (``flash_resources``, ``paged_resources``). The kernel
+calibration (``set_kernel_calibration``) scales a kernel body's flat
+cycles by a measured ratio, as the JAX package scales its Pallas body
+term; a region is flat-priced as one operation here, so the whole flat
+term is scaled.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Iterable
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -151,6 +163,97 @@ def op_cost(func, args, kwargs, out) -> OpCost:
                   cycles=roofline_cycles(int(flops), int(total_bytes)))
 
 
+# Measured calibration of a kernel body's flat cycles (``DSEEngine.
+# calibrate``), keyed by body name ('flash_kernel'); process-wide, like the
+# tuned-config registry (``kernels.tuning``).
+_KERNEL_CALIB: Dict[str, float] = {}
+
+
+def set_kernel_calibration(kernel: str, scale: float) -> None:
+    """Scale the flat cycles of kernel body ``kernel`` by measured /
+    static."""
+    _KERNEL_CALIB[kernel] = float(scale)
+
+
+def clear_kernel_calibration(kernel: Optional[str] = None) -> None:
+    if kernel is None:
+        _KERNEL_CALIB.clear()
+    else:
+        _KERNEL_CALIB.pop(kernel, None)
+
+
+def kernel_calibration(kernel: str) -> float:
+    return _KERNEL_CALIB.get(kernel, 1.0)
+
+
+def kernel_calibration_state() -> Tuple[Tuple[str, float], ...]:
+    """The installed calibration, canonically ordered: DSE cache keys
+    include it, so calibrated and uncalibrated model-clock cycles never
+    share a key."""
+    return tuple(sorted(_KERNEL_CALIB.items()))
+
+
+def flat_kernel_cycles(kernel: Optional[str], cycles: int) -> int:
+    """A kernel region's flat cycles under the installed calibration of
+    its body (the one definition the capture, the oracle and
+    ``tracesim.price`` share)."""
+    scale = kernel_calibration(kernel) if kernel else 1.0
+    if scale != 1.0:
+        return max(1, int(round(cycles * scale)))
+    return int(cycles)
+
+
+# ------------------------------------------- kernel resource footprints
+SMEM_BYTES = 232448               # dynamic shared memory a block may opt in to
+STATIC_SMEM_BYTES = 49152         # static shared memory a block may have
+THREADS_PER_BLOCK = 1024
+REGISTERS_PER_SM = 65536
+
+
+@dataclass(frozen=True)
+class KernelResources:
+    """What one candidate kernel configuration needs of the card (the
+    analogue of the paper's post-synthesis LUT/FF/BRAM report): a CTA's
+    dynamic and static shared memory, threads and registers, and the
+    call's modeled traffic, FLOPs, grid steps and flat cycles."""
+    smem_bytes: int = 0
+    static_smem_bytes: int = 0
+    threads: int = 0
+    registers: int = 0
+    hbm_bytes: int = 0
+    flops: int = 0
+    grid_steps: int = 0
+    static_cycles: int = 0
+
+
+@dataclass(frozen=True)
+class DeviceBudget:
+    """Hard per-candidate ceilings (``None`` disables one): the H100's
+    dynamic and static shared memory a block, threads a block and
+    registers an SM, and optional traffic and FLOP ceilings."""
+    smem_bytes: Optional[int] = SMEM_BYTES
+    static_smem_bytes: Optional[int] = STATIC_SMEM_BYTES
+    threads: Optional[int] = THREADS_PER_BLOCK
+    registers: Optional[int] = REGISTERS_PER_SM
+    hbm_bytes: Optional[int] = None
+    flops: Optional[int] = None
+
+    def violations(self, r: KernelResources) -> Tuple[str, ...]:
+        out = []
+        for name, unit in (("smem_bytes", "B"), ("static_smem_bytes", "B"),
+                           ("threads", ""),
+                           ("registers", ""), ("hbm_bytes", "B"),
+                           ("flops", "")):
+            cap, got = getattr(self, name), getattr(r, name)
+            if cap is not None and got > cap:
+                label = name[:-6] if name.endswith("_bytes") else name
+                out.append(f"{label} {got}{unit} > {cap}{unit}")
+        return tuple(out)
+
+    def fits(self, r: KernelResources) -> bool:
+        return not self.violations(r)
+
+
 def transfer_cycles(block_bytes: int) -> int:
     """Cycles of one grid step's block transfer (the HBM term alone),
     the port's ``pallas_dma_cycles``: the grid-step plans price their
@@ -159,8 +262,10 @@ def transfer_cycles(block_bytes: int) -> int:
     return int(math.ceil(int(block_bytes) / HBM_BYTES_PER_CYCLE))
 
 
-def kernel_cost(flops: float, nbytes: float) -> OpCost:
-    """Cost of one hand-kernel region from its stated FLOPs and bytes."""
+def kernel_cost(flops: float, nbytes: float,
+                body: Optional[str] = None) -> OpCost:
+    """Cost of one hand-kernel region from its stated FLOPs and bytes,
+    under the calibration of its ``body`` (if named)."""
     f, b = int(flops), int(nbytes)
     return OpCost(flops=f, bytes=b, comm_bytes=0,
-                  cycles=roofline_cycles(f, b))
+                  cycles=flat_kernel_cycles(body, roofline_cycles(f, b)))

@@ -414,7 +414,7 @@ class Capture(OpTracker):
     # -- kernel regions with a plan: both views kept ---------------------
     def kernel_enter(self, ev):
         plan = ev.plan()
-        flat = cm.kernel_cost(*ev.cost()).cycles
+        flat = cm.kernel_cost(*ev.cost(), body=plan.body).cycles
         sig = plan.signature()
         old = self.kernels.get(ev.sid)
         if old is not None:

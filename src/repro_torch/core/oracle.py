@@ -136,7 +136,7 @@ class Oracle(OpTracker):
     def kernel_enter(self, ev):
         plan = ev.plan()
         if not kp.matches(self.kernel_probes, plan.body):
-            self.priced(ev.name, cm.kernel_cost(*ev.cost()))
+            self.priced(ev.name, cm.kernel_cost(*ev.cost(), body=plan.body))
             return
         f = ev.parent
         kpath = self._kpaths.get(ev.sid)

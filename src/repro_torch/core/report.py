@@ -389,3 +389,48 @@ def sentinel_table(sentinel) -> str:
                      f"{st.ref_count:>8}  {state:<10}{br or '-':<24}")
     lines.append(f"# {len(sentinel.events)} event(s) fired")
     return "\n".join(lines)
+
+
+def dse_leaderboard(result, top: int = 10) -> str:
+    """Ranked table for a ``dse.TuneResult`` (port of the JAX report's):
+    measured candidates by probed cycles/step (speedup vs the untuned
+    default), then the statically pruned ones with their rejection
+    reason. ``smem_B`` is a CTA's shared memory, dynamic and static, in
+    place of the TPU's VMEM bytes."""
+    def cfg_s(cfg):
+        return ",".join(f"{k}={v}" for k, v in sorted(cfg.items()))
+
+    def smem(t):
+        r = t.resources
+        return (r.smem_bytes + r.static_smem_bytes) if r else 0
+
+    measured = sorted((t for t in result.trials if t.measured),
+                      key=lambda t: t.cycles_per_step)
+    pruned = [t for t in result.trials if t.pruned is not None]
+    base = (result.default.cycles_per_step
+            if result.default is not None and result.default.measured
+            else None)
+    w = max([len(cfg_s(t.config)) for t in result.trials] + [6]) + 2
+    lines = [f"# DSE leaderboard: {result.kernel_id} on {result.device} — "
+             f"{result.n_candidates} candidates, {result.n_pruned} pruned, "
+             f"{result.n_measurements} measured "
+             f"({result.measured_steps} probed steps), "
+             f"{result.n_cache_hits} cache hits",
+             f"{'config':<{w}}{'cyc/step':>12}{'steps':>7}{'speedup':>9}"
+             f"{'smem_B':>9}  flags"]
+    for t in measured[:top]:
+        su = f"{base / t.cycles_per_step:8.2f}x" if base else f"{'-':>9}"
+        flags = []
+        if result.best is t:
+            flags.append("BEST")
+        if t.is_default:
+            flags.append("default")
+        if t.cache_hits:
+            flags.append("cached")
+        lines.append(
+            f"{cfg_s(t.config):<{w}}{t.cycles_per_step:>12.1f}"
+            f"{t.steps:>7}{su}{smem(t):>9}  {' '.join(flags)}")
+    for t in pruned[:top]:
+        lines.append(f"{cfg_s(t.config):<{w}}{'pruned':>12}{'':>7}{'':>9}"
+                     f"{smem(t):>9}  [{t.pruned}]")
+    return "\n".join(lines)

@@ -76,6 +76,9 @@ import torch
 
 _ACTIVE: "contextvars.ContextVar[Optional[Tracker]]" = contextvars.ContextVar(
     "repro_torch_probe_tracker", default=None)
+# what sees kernel regions when no probe runs (``kernel_listener``)
+_LISTENER: "contextvars.ContextVar[Optional[Any]]" = contextvars.ContextVar(
+    "repro_torch_kernel_listener", default=None)
 
 END = ("end",)                     # the event that closes a frame
 _SEQ = torch._C._autograd._get_sequence_nr   # next autograd node's number
@@ -184,8 +187,28 @@ def kernel_region(name: str, cost: Callable[[], Tuple[float, float]],
     """
     rec = _live()
     if rec is None:
-        return _NULL
+        lis = _LISTENER.get()
+        return _NULL if lis is None else lis.kernel(name, cost, plan)
     return rec.kernel(name, cost, plan)
+
+
+class kernel_listener:
+    """While no probe runs, hand every kernel region to ``listener``'s
+    ``kernel(name, cost, plan)``, which returns the region's context (its
+    ``probed`` False, its ``fold`` a no-op): the DSE's fingerprint of a
+    candidate (``core.incremental.capture_fingerprint``) sees each kernel
+    call as one event with its plan, as a jaxpr shows a ``pallas_call``."""
+
+    def __init__(self, listener):
+        self.listener = listener
+
+    def __enter__(self):
+        self._token = _LISTENER.set(self.listener)
+        return self.listener
+
+    def __exit__(self, *exc):
+        _LISTENER.reset(self._token)
+        return False
 
 
 def grad(outputs, inputs) -> Tuple[torch.Tensor, ...]:

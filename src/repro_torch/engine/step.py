@@ -41,8 +41,8 @@ from typing import Callable
 import torch
 
 from repro_torch.core import scope
-from repro_torch.kernels.paged_attention import (paged_attention,
-                                                 paged_attention_plain)
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.paged_attention import paged_attention_plain
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import _project_qkv, causal_attend, out_proj
 from repro_torch.models.layers import index_tree, rmsnorm
@@ -194,9 +194,9 @@ def _paged_attend(lp, x, kp, vp, pages, pos, cfg, page_size: int,
         kp[pidx, slot] = k_new[:, 0].to(kp.dtype)
         vp[pidx, slot] = v_new[:, 0].to(vp.dtype)
     if use_kernel:
-        return paged_attention(qg, kp, vp, pages, pos,
-                               pages_per_step=pages_per_step,
-                               pos_host=pos_host)
+        return kops.paged_attention(qg, kp, vp, pages, pos,
+                                    pages_per_step=pages_per_step,
+                                    pos_host=pos_host)
     with scope.named_scope("attend"):
         return paged_attention_plain(qg, kp, vp, pages, pos)
 

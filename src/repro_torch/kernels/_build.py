@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/repro_torch/<name>-<digest>.so`` at the repository root (a
-directory ``.gitignore`` lists), where ``<digest>`` hashes the source and
-the flags, so an edited source is rebuilt and an unchanged one is not.
+directory ``.gitignore`` lists), where ``<digest>`` hashes the source, the
+headers it includes from ``csrc/`` (``<kernel>.cuh``, shared by the
+translation units of one kernel's tiles) and the flags, so an edited
+source is rebuilt and an unchanged one is not.
 Nothing is built when a module is imported: ``load`` builds at the first
 launch, and ``build`` compiles every source at once, one ``nvcc`` process
 per file, all started together.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,11 +48,34 @@ def _nvcc() -> str:
     return path
 
 
+def _text(name: str) -> bytes:
+    """A translation unit's source followed by the ``csrc/`` headers it
+    includes, in the order it includes them."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    heads = re.findall(rb'#include "([^"]+)"', src)
+    return src + b"".join((CSRC / h.decode()).read_bytes() for h in heads)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        _text(name) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def source_digest(kernel: str) -> str:
+    """SHA-256 of every ``csrc/`` file of one kernel: its translation
+    units and header (``<kernel>.cu``, ``<kernel>_*.cu``, ``<kernel>.cuh``).
+    The DSE cache keys of a candidate that reaches the kernel include it,
+    so an edit of the kernel invalidates that kernel's entries only."""
+    files = sorted(p for p in CSRC.iterdir()
+                   if p.suffix in (".cu", ".cuh")
+                   and (p.stem == kernel or p.stem.startswith(kernel + "_")))
+    if not files:
+        raise KeyError(f"no CUDA source for kernel {kernel!r} in {CSRC}")
+    h = hashlib.sha256()
+    for p in files:
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return h.hexdigest()
 
 
 def build_log(name: str) -> str:

@@ -38,7 +38,16 @@ pages sit in the pool.
 
 ``pages_per_step`` is the TPU kernel's DMA-group depth (a DSE axis). It
 must divide the page-table width, as there; this kernel does not stage
-pages in groups, so it does not change the work.
+pages in groups, so it does not change the work. ``tile_slots`` (in
+``TILES``; default ``TILE_SLOTS`` = 64) is this kernel's own tile, the
+axis that does change it: slots a CTA, so the CTAs a row and the length
+of each CTA's chain of loads (each (head dim, g <= 8 or 16, tile) an
+instantiation of ``csrc/paged_attention.cuh``; 64 has its translation
+unit, the others ``paged_attention_tiles.cu``). The tile changes the
+order of the output's sum over tiles, so a tile's bits are its own; the
+plain version's global softmax does not depend on it.
+``paged_resources`` states a tile's shared memory by the source's
+layout.
 
 Counter block (grid-step probing, ``paged_plan``): asked for by a probed
 region, launch 2 writes the slots each CTA reads, int32 (B, kv, tiles)
@@ -47,6 +56,7 @@ ones.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional, Sequence
@@ -61,36 +71,112 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16                 # query rows per kv head the kernel serves
-TILE_SLOTS = 64                # slots per CTA (TS in the CUDA source)
+TILE_SLOTS = 64                # the default slots per CTA (TS in the source)
+TILES = (32, 64, 128)
+LIBRARIES = {64: "paged_attention", 32: "paged_attention_tiles",
+             128: "paged_attention_tiles"}
+WARPS = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"paged_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                                       _I, _P]}
+                                       _I, _I, _I, _I, _I, _I, _I,
+                                       ctypes.c_float, _I, _P],
+               "paged_attention_attrs": [_I, _I, _I, _I, _P]}
 
 
 def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def slot_counts(pos, n_pages: int, page_size: int, kv: int) -> np.ndarray:
+def slot_counts(pos, n_pages: int, page_size: int, kv: int,
+                tile_slots: int = TILE_SLOTS) -> np.ndarray:
     """The counter block the kernel writes for these positions (host
     ints or an array): slots read per (row, kv head, tile), the row's
-    slots 0 .. pos taken in tiles of ``TILE_SLOTS``."""
+    slots 0 .. pos taken in tiles of ``tile_slots``."""
     s_max = n_pages * page_size
-    nt = -(-s_max // TILE_SLOTS)
+    nt = -(-s_max // tile_slots)
     n = np.clip(np.asarray(pos, np.int64) + 1, 0, s_max)
-    c = np.clip(n[:, None] - TILE_SLOTS * np.arange(nt), 0, TILE_SLOTS)
+    c = np.clip(n[:, None] - tile_slots * np.arange(nt), 0, tile_slots)
     return np.broadcast_to(c[:, None, :], (len(n), kv, nt)).astype(np.int32)
 
 
+def _group(g: int) -> int:
+    """The instantiation's query rows per kv head: 8 or 16."""
+    return 8 if g <= 8 else MAX_GROUP
+
+
+def paged_resources(hd: int, g: int, tile_slots: int = TILE_SLOTS,
+                    shapes=None):
+    """What one CTA of this tile needs of the card
+    (``costmodel.KernelResources``): the larger of the two launches'
+    static shared memory (``paged_smem_bytes``; at head dim 128, 16 rows
+    a kv head and 128-slot tiles it is over the 48 KB a block may have
+    statically, and that instantiation is not built), 128 threads, and the
+    registers ``__launch_bounds__(128)`` lets it take. With ``shapes``
+    ((q shape, pool shape, page-table shape)) the call's bytes, FLOPs,
+    grid steps and flat cycles are filled in too."""
+    threads = WARPS * 32
+    hbm = flops = steps = cycles = 0
+    if shapes is not None:
+        qs, ps, pgs = shapes
+        B, kv, gq, _ = qs
+        slots = B * pgs[1] * ps[1]
+        flops = 4 * kv * gq * hd * slots
+        hbm = (2 * B * kv * gq * hd + 2 * 2 * slots * kv * hd
+               + 4 * B * pgs[1] + 4 * B + 4 * B * kv * gq * hd)
+        steps = B * kv * -(-pgs[1] * ps[1] // tile_slots)
+        cycles = cm.kernel_cost(flops, hbm).cycles
+    return cm.KernelResources(
+        static_smem_bytes=max(paged_smem_bytes(hd, g, tile_slots)),
+        threads=threads, registers=threads * 255, hbm_bytes=hbm,
+        flops=flops, grid_steps=steps, static_cycles=cycles)
+
+
+def paged_smem_bytes(hd: int, g: int, tile_slots: int = TILE_SLOTS):
+    """Static shared memory of the (statistics, output) launches: the
+    C layouts of ``StatsSmem`` (scores, pool rows) and ``OutputSmem``
+    (scores, the row's max and sum, the weights, each warp's partial
+    output, pool rows and a flag, aligned to 16 bytes) at the
+    instantiation's group of 8 or 16 rows."""
+    G, TS = _group(g), tile_slots
+    stats = 4 * G * TS + 4 * TS
+    out = 4 * G * TS + 2 * 4 * G + 4 * TS * G + 4 * WARPS * G * hd \
+        + 4 * TS + 1
+    return stats, -(-out // 16) * 16
+
+
+def paged_library(tile_slots: int) -> str:
+    """The ``csrc/`` translation unit that builds this tile."""
+    if tile_slots not in TILES:
+        raise ValueError(f"tile_slots {tile_slots} not in {TILES}")
+    return LIBRARIES[tile_slots]
+
+
+def paged_attrs(hd: int, g: int, tile_slots: int = TILE_SLOTS,
+                device=None) -> dict:
+    """The two launches' attributes as CUDA reports them
+    (``cudaFuncGetAttributes``): static shared bytes, registers and local
+    (spill) bytes a thread, of the statistics and the output kernel."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    out = (ctypes.c_int * 6)()
+    lib = _build.load(paged_library(tile_slots), _SIGNATURES)
+    code = lib.paged_attention_attrs(hd, g, tile_slots, dev.index,
+                                     ctypes.cast(out, ctypes.c_void_p))
+    _build.check(lib, code, "paged_attention_attrs")
+    return dict(stats_smem=out[0], stats_registers=out[1],
+                stats_local_bytes=out[2], output_smem=out[3],
+                output_registers=out[4], output_local_bytes=out[5])
+
+
 def paged_attention_plain(q, pool_k, pool_v, pages, pos,
-                          with_counts: bool = False):
+                          with_counts: bool = False,
+                          tile_slots: int = TILE_SLOTS):
     """The kernel's function in plain PyTorch: the dense-gather attend of
     ``repro.engine.step._paged_attn_xla`` (gather every page of the row,
     mask slots past ``pos``, one global softmax). Same arguments and
     result as ``paged_attention``; ``with_counts`` also returns the
-    counter block the kernel writes."""
+    counter block the kernel writes at ``tile_slots``."""
     B, kv, g, hd = q.shape
     s_max = pages.shape[1] * pool_k.shape[1]
     idx = pages.long()
@@ -107,10 +193,10 @@ def paged_attention_plain(q, pool_k, pool_v, pages, pos,
     out = torch.einsum("bkgs,bskh->bkgh", _bf16(p / l), _bf16(vd))
     if not with_counts:
         return out
-    nt = -(-s_max // TILE_SLOTS)
+    nt = -(-s_max // tile_slots)
     n = (pos.long() + 1).clamp(0, s_max)
-    c = (n[:, None] - TILE_SLOTS * torch.arange(nt, device=q.device)).clamp(
-        0, TILE_SLOTS)
+    c = (n[:, None] - tile_slots * torch.arange(nt, device=q.device)).clamp(
+        0, tile_slots)
     return out, c[:, None, :].expand(B, kv, nt).to(torch.int32).contiguous()
 
 
@@ -135,7 +221,8 @@ def _check(q, pool_k, pool_v, pages, pos, pages_per_step: int):
 
 def paged_attention(q, pool_k, pool_v, pages, pos, *,
                     pages_per_step: int = 1,
-                    pos_host: Optional[Sequence[int]] = None):
+                    pos_host: Optional[Sequence[int]] = None,
+                    tile_slots: int = TILE_SLOTS):
     """Paged single-token GQA decode attention.
 
     q:       (B, kv_heads, q_per_kv, head_dim), cast to bf16 inside
@@ -148,17 +235,22 @@ def paged_attention(q, pool_k, pool_v, pages, pos, *,
     ``paged_kernel``'s grid steps needs them (it prices the steps from
     them, never reading ``pos`` from the device) and raises without.
 
+    ``tile_slots``: the kernel's tile (see the module docstring;
+    ``kernels.ops.paged_attention`` resolves a tuned one).
+
     Returns (B, kv_heads, q_per_kv, head_dim) float32. CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise. The
     kernel clamps page ids into the pool.
     """
     _check(q, pool_k, pool_v, pages, pos, pages_per_step)
+    paged_library(tile_slots)
     with scope.kernel_region(
             "paged_attention",
             lambda: paged_cost(q, pool_k, pool_v, pages, pos),
             lambda: paged_plan(q, pool_k, pages, pos, pages_per_step,
-                               pos_host)) as region:
-        res = _paged(q, pool_k, pool_v, pages, pos, region.probed)
+                               pos_host, tile_slots)) as region:
+        res = _paged(q, pool_k, pool_v, pages, pos, region.probed,
+                     tile_slots)
         if not region.probed:
             return res
         region.fold(res[1])
@@ -166,7 +258,8 @@ def paged_attention(q, pool_k, pool_v, pages, pos, *,
 
 
 def paged_plan(q, pool_k, pages, pos, pages_per_step: int = 1,
-               pos_host: Optional[Sequence[int]] = None):
+               pos_host: Optional[Sequence[int]] = None,
+               tile_slots: int = TILE_SLOTS):
     """The TPU kernel's grid for grid-step probing (``core.kernelprobe``):
     (B, n_pages / pages_per_step), the page axis sequential, as
     ``_paged_kernel``. Per step: the q and output blocks move at the grid
@@ -178,7 +271,7 @@ def paged_plan(q, pool_k, pages, pos, pages_per_step: int = 1,
     page_size, n_pages = pool_k.shape[1], pages.shape[1]
     es = pool_k.element_size()
     s_max = n_pages * page_size
-    nt, sps = -(-s_max // TILE_SLOTS), pages_per_step * page_size
+    nt, sps = -(-s_max // tile_slots), pages_per_step * page_size
     skip = cm.roofline_cycles(1, 0)
     copy = tuple(cm.roofline_cycles(0, 2 * es * hd * v)
                  for v in range(kv * sps + 1))
@@ -187,7 +280,7 @@ def paged_plan(q, pool_k, pages, pos, pages_per_step: int = 1,
         2 * es * s_max * kv * hd + 2 * 4 * kv * g * hd)
 
     def expected():
-        return slot_counts(pos.tolist(), n_pages, page_size, kv)
+        return slot_counts(pos.tolist(), n_pages, page_size, kv, tile_slots)
 
     def mirror():
         if pos_host is None or len(pos_host) != B:
@@ -195,7 +288,7 @@ def paged_plan(q, pool_k, pages, pos, pages_per_step: int = 1,
                              f"the {B} positions as host ints: the run "
                              f"prices the grid steps without reading pos "
                              f"from the device")
-        return slot_counts(pos_host, n_pages, page_size, kv)
+        return slot_counts(pos_host, n_pages, page_size, kv, tile_slots)
 
     return kp.GridPlan(
         body="paged_kernel", grid=(B, n_pages // pages_per_step),
@@ -205,7 +298,7 @@ def paged_plan(q, pool_k, pages, pos, pages_per_step: int = 1,
                              ops=2 * pages_per_step),
                 kp.GridScope("attend", kp.LAST, (skip, attend), ops=6)),
         counter_shape=(B, kv, nt), expected=expected, mirror=mirror,
-        geom=(kv, nt, TILE_SLOTS, sps))
+        geom=(kv, nt, tile_slots, sps))
 
 
 def paged_cost(q, pool_k, pool_v, pages, pos):
@@ -221,10 +314,11 @@ def paged_cost(q, pool_k, pool_v, pages, pos):
     return 4.0 * kv * g * hd * slots, float(nbytes)
 
 
-def _paged(q, pool_k, pool_v, pages, pos, with_counts: bool = False):
+def _paged(q, pool_k, pool_v, pages, pos, with_counts: bool = False,
+           tile_slots: int = TILE_SLOTS):
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, pages, pos,
-                                     with_counts)
+                                     with_counts, tile_slots)
     if q.device.type != "cuda":
         raise ValueError(f"no paged-attention kernel for {q.device}")
     B, kv, g, hd = q.shape
@@ -245,27 +339,36 @@ def _paged(q, pool_k, pool_v, pages, pos, with_counts: bool = False):
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned (K rows are read "
                          "as 16-byte vectors)")
+    smem = max(paged_smem_bytes(hd, g, tile_slots))
+    if smem > cm.STATIC_SMEM_BYTES:
+        raise ValueError(f"tile_slots {tile_slots} at head dim {hd} and {g} "
+                         f"query rows a kv head needs {smem} bytes of static "
+                         f"shared memory, over the {cm.STATIC_SMEM_BYTES} a "
+                         f"block may have")
     qb = q.to(torch.bfloat16).contiguous()
     if qb.data_ptr() % 16:          # q rows are read as 16-byte vectors
         qb = qb.clone()
     s_max = n_pages * page_size
-    nt = -(-s_max // TILE_SLOTS)
+    nt = -(-s_max // tile_slots)
     # partial outputs, tile maxima and sums, arrival counters
     scratch = torch.empty(B * kv * (g * (nt * hd + 2 * nt) + 1),
                           dtype=torch.float32, device=q.device)
     out = torch.empty((B, kv, g, hd), dtype=torch.float32, device=q.device)
     counts = (torch.empty((B, kv, nt), dtype=torch.int32, device=q.device)
               if with_counts else None)
-    lib = _build.load("paged_attention", _SIGNATURES)
+    lib = _build.load(paged_library(tile_slots), _SIGNATURES)
     code = lib.paged_attention_fwd(
         qb.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pages.data_ptr(),
         pos.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         counts.data_ptr() if with_counts else None,
-        B, kv, g, hd, page_size, n_pages, P, 1.0 / math.sqrt(hd),
+        B, kv, g, hd, page_size, n_pages, P, tile_slots, 1.0 / math.sqrt(hd),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_attention_fwd")
     paged_attention.launches += 1
+    paged_attention.tile_launches[tile_slots] += 1
     return (out, counts) if with_counts else out
 
 
 paged_attention.launches = 0
+# the same launches by tile_slots
+paged_attention.tile_launches = collections.Counter()

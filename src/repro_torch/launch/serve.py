@@ -155,12 +155,22 @@ def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
           prefill_chunk: int = 0, profile: bool = False,
           profile_targets: Tuple[str, ...] = ("",), profile_every: int = 8,
           profile_max_probes: int = 16, status_port: Optional[int] = None,
+          autotune: bool = False, tune_cache: Optional[str] = None,
           device=None) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens, ``max_new``
     tokens each, with random weights from seed 0 (prompts from seed 1).
     ``profile`` probes the serve; ``status_port`` (0 = any free port)
-    serves its live telemetry while it runs."""
+    serves its live telemetry while it runs. ``autotune`` loads the
+    DSE-tuned kernel configs of this device from the eval cache
+    (``tune_cache``, default ``.repro_cache/dse``) into
+    ``kernels.tuning`` first, as ``python -m repro_torch.tune`` left
+    them."""
     device = resolve_device(device)
+    if autotune:
+        from repro_torch.core.incremental import device_kind
+        from repro_torch.kernels import tuning
+        tuning.load_cache(cache_dir=tune_cache, device=device_kind(device),
+                          verbose=True)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     model = Model(cfg)
     params = model.init(0, device)
@@ -220,6 +230,10 @@ def main():
     ap.add_argument("--status-port", type=int, default=None,
                     help="expose live telemetry over HTTP on this port "
                          "(0 = OS-assigned; prints the bound URL)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="load DSE-tuned kernel configs from the eval cache")
+    ap.add_argument("--tune-cache", default=None,
+                    help="eval cache dir (default .repro_cache/dse)")
     args = ap.parse_args()
     res = serve(args.arch, smoke=not args.full, batch=args.batch,
                 prompt_len=args.prompt_len, max_new=args.max_new,
@@ -228,7 +242,8 @@ def main():
                 prefill_chunk=args.prefill_chunk, profile=args.profile,
                 profile_targets=tuple(args.profile_targets.split(",")),
                 profile_every=args.profile_every,
-                status_port=args.status_port, device=args.device)
+                status_port=args.status_port, autotune=args.autotune,
+                tune_cache=args.tune_cache, device=args.device)
     print("sampled token ids (first sequence):", res.tokens[0].tolist())
 
 

@@ -11,9 +11,11 @@ it raises.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --batch 2 --seq 32
 
-Not ported yet (ROADMAP Queue 1): ``--mesh`` (mesh-aware probing of a
-data-parallel step), ``--autotune`` / ``--tune-cache`` (DSE-tuned kernel
-configs); both raise.
+``--autotune`` loads the DSE-tuned kernel configs of the device from the
+eval cache (``--tune-cache``, default ``.repro_cache/dse``; written by
+``python -m repro_torch.tune``) before the model is built, as the JAX
+trainer does. Not ported yet (ROADMAP Queue 1): ``--mesh`` (mesh-aware
+probing of a data-parallel step); it raises.
 """
 from __future__ import annotations
 
@@ -51,11 +53,12 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
         raise NotImplementedError(
             "--mesh (mesh-aware probing of a sharded step) needs the "
             "multi-device port (ROADMAP Queue 1)")
-    if autotune or tune_cache:
-        raise NotImplementedError(
-            "--autotune / --tune-cache (DSE-tuned kernel configs) are not "
-            "ported yet (ROADMAP Queue 1)")
     dev = resolve_device(device)
+    if autotune:
+        from repro_torch.core.incremental import device_kind
+        from repro_torch.kernels import tuning
+        tuning.load_cache(cache_dir=tune_cache, device=device_kind(dev),
+                          verbose=True)
     cfg = smoke_config(arch) if smoke else get_config(arch)
     model = Model(cfg)
     tcfg = tcfg or TrainConfig(
@@ -161,9 +164,9 @@ def main():
     ap.add_argument("--probe-every", type=int, default=0,
                     help="snapshot period in steps (default: log-every)")
     ap.add_argument("--autotune", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1): raises")
+                    help="load DSE-tuned kernel configs from the eval cache")
     ap.add_argument("--tune-cache", default=None,
-                    help="not ported yet (ROADMAP Queue 1): raises")
+                    help="eval cache dir (default .repro_cache/dse)")
     ap.add_argument("--status-port", type=int, default=None,
                     help="expose live telemetry over HTTP on this port "
                          "(0 = OS-assigned; prints the bound URL)")

@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
-from repro_torch.kernels.flash_attention import _bf16, flash_attention
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import _bf16
 from repro_torch.models.layers import Param, apply_rope
 
 
@@ -80,10 +81,10 @@ def causal_attend(q, k, v, cfg: ModelConfig, q_offset: int = 0):
     q: (B,Sq,Hp,hd); k, v: (B,Skv,kv,hd), not repeated. Returns
     (B,Sq,Hp,hd) in q.dtype, pad heads zero."""
     H, Hp = cfg.num_heads, q.shape[2]
-    o = flash_attention(q[:, :, :H].transpose(1, 2).contiguous(),
-                        k.transpose(1, 2).contiguous(),
-                        v.transpose(1, 2).contiguous(),
-                        causal=True, q_offset=q_offset).transpose(1, 2)
+    o = kops.flash_attention(q[:, :, :H].transpose(1, 2).contiguous(),
+                             k.transpose(1, 2).contiguous(),
+                             v.transpose(1, 2).contiguous(),
+                             causal=True, q_offset=q_offset).transpose(1, 2)
     if Hp != H:
         o = F.pad(o, (0, 0, 0, Hp - H))
     return o
@@ -198,10 +199,10 @@ class _CausalFlash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_block: int, kv_chunk: int):
-        out, m, l = flash_attention(q.transpose(1, 2).contiguous(),
-                                    k.transpose(1, 2).contiguous(),
-                                    v.transpose(1, 2).contiguous(),
-                                    causal=True, with_stats=True)
+        out, m, l = kops.flash_attention(q.transpose(1, 2).contiguous(),
+                                         k.transpose(1, 2).contiguous(),
+                                         v.transpose(1, 2).contiguous(),
+                                         causal=True, with_stats=True)
         out = out.transpose(1, 2)
         ctx.save_for_backward(q, k, v, out, m, l)
         ctx.plan = (q_block, kv_chunk)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
-from repro_torch.kernels import ssd_scan as kssd
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import Param, rmsnorm
 
 
@@ -90,7 +90,8 @@ def ssm_apply(params, x, cfg: ModelConfig, *, return_state: bool = False):
         a_disc = (dt * a).float()                               # (B,S,h)
         x_disc = xs * dt[..., None].to(xs.dtype)
     with scope.named_scope("ssd"):
-        chunk = min(d["chunk"], S)       # the port has no tuning registry
+        chunk = kops.resolve_ssd_chunk(S, d["chunk"],
+                                       args=(x_disc, a_disc, b, c))
         pad = (-S) % chunk
         if pad:
             # zero-pad: a=0 (decay 1) with x=0 leaves state/output intact
@@ -98,7 +99,7 @@ def ssm_apply(params, x, cfg: ModelConfig, *, return_state: bool = False):
             a_disc = F.pad(a_disc, (0, 0, 0, pad))
             b = F.pad(b, (0, 0, 0, 0, 0, pad))
             c = F.pad(c, (0, 0, 0, 0, 0, pad))
-        y, final_state = kssd.ssd_scan(x_disc, a_disc, b, c, chunk=chunk,
+        y, final_state = kops.ssd_scan(x_disc, a_disc, b, c, chunk=chunk,
                                        h_per_g=h // g,
                                        return_final_state=True)
         if pad:

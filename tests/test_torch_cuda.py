@@ -18,8 +18,11 @@ kernel's counter block for grid-step probing against its plain
 version's, with outputs bitwise the launch's without it, the
 ``probe_grid`` fold against its plain version, and kernel-probed
 programs of the three kernels (record == oracle, outputs bitwise,
-offload). Every test needs an NVIDIA GPU
-and nvcc and skips without them. On the card, with no JAX installed:
+offload); every flash (block_q, block_k) and paged tile_slots of the DSE
+against its plain version at that tile (with its counter block, rows at
+a q offset, batching), its declared shared memory against
+``cudaFuncGetAttributes``', and the tiles the card cannot hold refused.
+Every test needs an NVIDIA GPU and nvcc and skips without them. On the card, with no JAX installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
@@ -709,3 +712,75 @@ def test_kernel_probe_on_the_card_equals_oracle(dev, name):
         for i, row in enumerate(rows):
             if pf.assignment.spill[i]:
                 assert row.iters == oc.history[i], row.path
+
+
+# ---------------------------------------------------------------- tiles
+# every (block_q, block_k) of the flash kernel and every tile_slots of the
+# paged kernel, against its plain version at that tile, with the declared
+# shared memory against ``cudaFuncGetAttributes``'
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("block_q,block_k",
+                         [(bq, bk) for bq in fa.BLOCKS_Q for bk in fa.BLOCKS_K])
+def test_flash_kernel_tiles_match_plain(dev, block_q, block_k, D):
+    tiles = dict(block_q=block_q, block_k=block_k)
+    gen = torch.Generator(device=dev).manual_seed(block_q + block_k + D)
+    q = _bf16((2, 8, 300, D), gen, dev)
+    k, v = _bf16((2, 2, 300, D), gen, dev), _bf16((2, 2, 300, D), gen, dev)
+    smem = fa.flash_smem_bytes(D, block_q, block_k)
+    if smem > 232448:
+        with pytest.raises(ValueError, match="shared memory"):
+            fa.flash_attention(q, k, v, **tiles)
+        return
+    attrs = fa.flash_attrs(D, block_q, block_k)
+    assert attrs["dynamic_smem"] == smem and attrs["static_smem"] == 0
+    assert attrs["max_threads"] >= 2 * block_q * 2
+    # the driver fits the CTAs an SM the tile was compiled for
+    assert attrs["ctas_per_sm"] >= fa.flash_min_blocks(D, block_q, block_k)
+    outs = {}
+    for causal in (True, False):
+        out, probe, m, l = fa.flash_attention(
+            q, k, v, causal=causal, with_probe=True, with_stats=True, **tiles)
+        ref, probe_ref, m_ref, l_ref = fa.flash_attention_plain(
+            q, k, v, causal=causal, with_probe=True, with_stats=True, **tiles)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= FLASH_ATOL
+        assert torch.equal(probe, probe_ref)
+        assert torch.allclose(m, m_ref, atol=1e-4, rtol=0)
+        assert torch.allclose(l, l_ref, atol=0, rtol=1e-4)
+        outs[causal] = out
+    # the output without statistics or counts is the same launch's, and
+    # rows at a q offset equal the whole call's
+    whole = fa.flash_attention(q, k, v, **tiles)
+    assert torch.equal(whole, outs[True])
+    for off, n in ((200, 100), (37, 90)):
+        part = fa.flash_attention(q[:, :, off:off + n].contiguous(), k, v,
+                                  q_offset=off, **tiles)
+        assert torch.equal(part, whole[:, :, off:off + n]), (off, n)
+
+
+@pytest.mark.parametrize("tile_slots", pa.TILES)
+@pytest.mark.parametrize("hd,g", [(64, 8), (128, 16), (64, 1)])
+def test_paged_kernel_tiles_match_plain(dev, tile_slots, hd, g):
+    T, ps, n_pages = tile_slots, 16, 34
+    pos = [0, T - 1, T, T + 1, 2 * T - 1, 2 * T, ps * n_pages - 1, 300]
+    args = _paged_case(dev, len(pos), 4, g, hd, ps, n_pages, pos, seed=T + g)
+    if max(pa.paged_smem_bytes(hd, g, T)) > 48 * 1024:
+        with pytest.raises(ValueError, match="static shared memory"):
+            pa.paged_attention(*args, tile_slots=T)
+        return
+    out, counts = pa._paged(*args, with_counts=True, tile_slots=T)
+    ref, counts_ref = pa.paged_attention_plain(*args, with_counts=True,
+                                               tile_slots=T)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= PAGED_ATOL
+    assert torch.equal(counts, counts_ref)
+    assert torch.equal(pa.paged_attention(*args, tile_slots=T), out)
+    q, pool_k, pool_v, pages, posd = args
+    for b in (0, 3, 7):
+        one = pa.paged_attention(q[b:b + 1], pool_k, pool_v, pages[b:b + 1],
+                                 posd[b:b + 1], tile_slots=T)
+        assert torch.equal(one, out[b:b + 1]), b
+    attrs = pa.paged_attrs(hd, g, T)
+    assert (attrs["stats_smem"], attrs["output_smem"]) == \
+        pa.paged_smem_bytes(hd, g, T)

@@ -38,6 +38,11 @@ PORT_MODULES = (
     "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointer",
     "repro_torch.distributed", "repro_torch.distributed.steps",
     "repro_torch.launch.train",
+    "repro_torch.core.incremental", "repro_torch.core.overhead",
+    "repro_torch.core.dse", "repro_torch.core.tracesim",
+    "repro_torch.kernels.tuning", "repro_torch.kernels.ops",
+    "repro_torch.kernels.search_spaces", "repro_torch.launch.tune",
+    "repro_torch.tune",
 )
 
 
@@ -82,6 +87,27 @@ def test_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
         init_state(2, 4)
 
 
+def test_dse_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
+    """With no GPU and no device="cpu", the tune CLI, the search spaces,
+    run_dse, run_sweep and serve(autotune=True) raise."""
+    from repro_torch.core import run_dse, run_sweep
+    from repro_torch.kernels import search_spaces as ss
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.tune import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--kernel", "flash_attention"])
+    for make in ss.SPACES.values():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_dse(lambda x: x * 2, (torch.ones(2),), repeats=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sweep("flash_attention")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(batch=1, prompt_len=4, max_new=1, autotune=True)
+
+
 def test_serve_engine_and_legacy_loop_agree_on_cpu():
     """serve() on the CPU: engine (whole and chunked prefill, kernel and
     dense decode) and the legacy lock-step loop give one set of ids."""
@@ -97,9 +123,10 @@ def test_serve_engine_and_legacy_loop_agree_on_cpu():
         assert torch.isfinite(res.first_logits[:, :257]).all()
 
 
-def test_trainer_cli_on_the_cpu_and_its_unported_flags():
+def test_trainer_cli_on_the_cpu_and_its_unported_flags(tmp_path, capsys):
     """``python -m repro_torch.launch.train --device cpu`` trains (and
-    probes); ``--mesh`` and ``--autotune`` raise, naming the roadmap."""
+    probes); ``--mesh`` raises, naming the roadmap; ``--autotune`` (ported
+    with the DSE) loads the tuned configs, none from an empty cache."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
             "cpu", "--steps", "4", "--batch", "2", "--seq", "32"]
@@ -109,6 +136,9 @@ def test_trainer_cli_on_the_cpu_and_its_unported_flags():
     assert "step     3 loss" in out and out.count("[probe] ") == 2
     assert "# final streaming probe telemetry" in out
     from repro_torch.launch.train import train
-    for kw in (dict(probe_mesh=(2,)), dict(autotune=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train(steps=1, batch=1, seq=8, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train(steps=1, batch=1, seq=8, device="cpu", probe_mesh=(2,))
+    _, _, losses = train(steps=1, batch=1, seq=8, device="cpu",
+                         autotune=True, tune_cache=str(tmp_path / "dse"))
+    assert "[autotune] no cached configs" in capsys.readouterr().out
+    assert len(losses) == 1

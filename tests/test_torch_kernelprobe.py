@@ -369,6 +369,65 @@ def test_kernel_oracle_grid_totals_equal_the_record(name):
         for p, cyc in gt.items())
 
 
+@pytest.mark.parametrize("block_q,block_k",
+                         [(64, 32), (128, 64), (64, 128), (128, 128)])
+def test_flash_tiles_grid_matches_jax_and_record_equals_oracle(block_q,
+                                                               block_k):
+    """The DSE's flash tiles: the port's grid at (block_q, block_k) has
+    the Pallas kernel's paths and calls at the same blocks, and the
+    record equals the oracle's replay of the plan at those tiles."""
+    args = _flash_np()
+
+    def fn(q, k, v):
+        with scope.named_scope("attn"):
+            return fa.flash_attention(q, k, v, block_q=block_q,
+                                      block_k=block_k)
+
+    def jfn(q, k, v):
+        with jax.named_scope("attn"):
+            return jfa.flash_attention(q, k, v, causal=True, block_q=block_q,
+                                       block_k=block_k, pipeline=1,
+                                       interpret=True)
+    make = lambda: tuple(torch.from_numpy(a) for a in args)  # noqa: E731
+    pf = probe(fn, KCFG, device="cpu")
+    out, rec = pf(*make())
+    assert torch.equal(out, fn(*make()))
+    assert _paths_calls(pf, rec) == _jax_paths_calls(
+        jfn, tuple(jnp.asarray(a) for a in args), JKCFG, "flash_kernel")
+    assert pf.hierarchy.node("attn/kernel/flash_kernel#0/grid").grid == \
+        (1, 2, 128 // block_q, 128 // block_k)
+    _assert_exact(pf, rec, pf.oracle(*make()))
+    _assert_grid_invariants(pf, rec)
+
+
+@pytest.mark.parametrize("tile_slots", pa.TILES)
+def test_paged_tiles_record_equals_oracle(tile_slots):
+    """The paged tile changes the counter block's tiles, not the TPU
+    grid: paths and calls stay JAX's, the record equals the oracle's."""
+    args = _paged_np()
+    host = tuple(int(p) for p in args[4])
+
+    def fn(q, pk, pv, pages, pos):
+        with scope.named_scope("attn"):
+            return pa.paged_attention(q, pk, pv, pages, pos, pos_host=host,
+                                      tile_slots=tile_slots)
+    pf = probe(fn, KCFG, device="cpu")
+    out, rec = pf(*_paged_torch_args(*args))
+    assert torch.equal(out, fn(*_paged_torch_args(*args)))
+    jargs = tuple(jnp.asarray(a) for a in args[:1]) + (
+        jnp.asarray(args[1], jnp.bfloat16), jnp.asarray(args[2], jnp.bfloat16),
+        jnp.asarray(args[3]), jnp.asarray(args[4]))
+    assert _paths_calls(pf, rec) == _jax_paths_calls(
+        _j_paged(), jargs, JKCFG, "paged_kernel")
+    _assert_exact(pf, rec, pf.oracle(*_paged_torch_args(*args)))
+    q, pk, _, pages, pos = _paged_torch_args(*args)
+    plan = pa.paged_plan(q, pk, pages, pos, pos_host=host,
+                         tile_slots=tile_slots)
+    assert plan.geom[2] == tile_slots
+    assert plan.counter_shape[2] == -(-pages.shape[1] * pk.shape[1]
+                                      // tile_slots)
+
+
 def test_causal_skew_shows_in_the_grid_steps():
     """Computed and skipped kv blocks cost two values of ``kv_block``;
     the computed ones are the kernel's computed counts; the grid's steps

@@ -170,3 +170,83 @@ def test_kernel_modules_import_without_nvcc_or_triton():
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=REPO)
 
+
+
+# ------------------------------------------------------------- tiles
+# the DSE's tile axes: the plain version at each (block_q, block_k) walks
+# the kernel's kv blocks of that size, held against the Pallas kernel in
+# interpret mode at the same blocks; the paged plain version at each
+# tile_slots (its global softmax does not depend on the tile) against
+# JAX's paged kernel, its counter block against ``slot_counts``
+
+@pytest.mark.parametrize("block_q,block_k",
+                         [(bq, bk) for bq in fa.BLOCKS_Q for bk in fa.BLOCKS_K])
+def test_flash_plain_at_each_tile_matches_pallas_at_the_same_blocks(
+        block_q, block_k):
+    """bf16 inputs, outputs within a few bf16 ulps (as at the default
+    tiles), the probe counts of kv blocks visited / computed per q tile
+    equal as integers, and rows at a q offset equal the whole call's."""
+    S = 256
+    q, k, v = _qkv(1, 2, 1, S, S, 32, seed=block_q + block_k)
+    jb = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    o_j, probe_j = jax_flash(jb(q), jb(k), jb(v), causal=True,
+                             block_q=block_q, block_k=block_k,
+                             with_probe=True, interpret=True)
+    tq, tk, tv = (_t(x, torch.bfloat16) for x in (q, k, v))
+    o_t, probe_t = fa.flash_attention(tq, tk, tv, with_probe=True,
+                                      block_q=block_q, block_k=block_k)
+    np.testing.assert_array_equal(probe_t.numpy(), np.asarray(probe_j))
+    np.testing.assert_allclose(o_t.float().numpy(),
+                               np.asarray(o_j, np.float32), atol=BF16_ATOL)
+    part = fa.flash_attention(tq[:, :, 100:180].contiguous(), tk, tv,
+                              q_offset=100, block_q=block_q, block_k=block_k)
+    assert torch.equal(part, o_t[:, :, 100:180])
+
+
+def test_flash_tiles_are_checked():
+    q, k, v = (_t(x) for x in _qkv(1, 2, 1, 8, 8, 16, seed=0))
+    with pytest.raises(ValueError, match="tiles"):
+        fa.flash_attention(q, k, v, block_q=32)
+    with pytest.raises(ValueError, match="tiles"):
+        fa.flash_attention(q, k, v, block_k=256)
+
+
+@pytest.mark.parametrize("tile_slots", pa.TILES)
+def test_paged_plain_at_each_tile_matches_pallas_kernel(tile_slots):
+    q, pk, pv, pages, pos = _paged_inputs()
+    ref = jax_paged(jnp.asarray(q), jnp.asarray(pk, jnp.bfloat16),
+                    jnp.asarray(pv, jnp.bfloat16), jnp.asarray(pages),
+                    jnp.asarray(pos), interpret=True)
+    args = (_t(q), _t(pk, torch.bfloat16), _t(pv, torch.bfloat16),
+            torch.from_numpy(pages), torch.from_numpy(pos))
+    out = pa.paged_attention(*args, tile_slots=tile_slots)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    _, counts = pa.paged_attention_plain(*args, with_counts=True,
+                                         tile_slots=tile_slots)
+    want = pa.slot_counts(pos, pages.shape[1], pk.shape[1], q.shape[1],
+                          tile_slots)
+    np.testing.assert_array_equal(counts.numpy(), want)
+    assert counts.shape[2] == -(-pages.shape[1] * pk.shape[1] // tile_slots)
+    with pytest.raises(ValueError, match="tile_slots"):
+        pa.paged_attention(*args, tile_slots=48)
+
+
+def test_declared_shared_memory_follows_the_sources_formulas():
+    """The budget's view of each tile: flash at head dim 128 with kv
+    blocks of 128 keys needs more dynamic shared memory than a block may
+    have (both q tiles), all six fit at head dim 64; paged at head dim
+    128, 16 rows and 128-slot tiles is over the static 48 KB."""
+    from repro_torch.core.costmodel import DeviceBudget
+    budget = DeviceBudget()
+    over = [(D, bq, bk) for D in fa.HEAD_DIMS for bq in fa.BLOCKS_Q
+            for bk in fa.BLOCKS_K
+            if budget.violations(fa.flash_resources(D, bq, bk))]
+    assert over == [(128, 64, 128), (128, 128, 128)]
+    assert fa.flash_smem_bytes(128, 64, 128) == 295936
+    assert fa.flash_smem_bytes(128, 128, 128) == 313344
+    assert fa.flash_smem_bytes(64, 64, 64) == 82944
+    assert fa.flash_smem_bytes(64, 128, 128) == 165888
+    over = [(hd, g, ts) for hd in pa.HEAD_DIMS for g in (8, 16)
+            for ts in pa.TILES
+            if budget.violations(pa.paged_resources(hd, g, ts))]
+    assert over == [(128, 16, 128)]

@@ -3,7 +3,9 @@
 
     python3 tools/ablate_torch_kernels.py [--only flash_attention,paged_attention,ssd_scan]
 
-Each variant is a copy of ``src/repro_torch/csrc/<kernel>.cu`` with edits:
+Each variant is a copy of ``src/repro_torch/csrc/<kernel>.cu`` (the
+default tiles' translation unit, with the ``csrc/`` header it includes
+inlined) with edits:
 an anchor line of the source after which an early return is inserted,
 so that the kernel skips everything after that point, or an (old, new)
 pair of source text replaced once (a product removed, a loop cut). The
@@ -30,6 +32,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -55,7 +58,7 @@ VARIANTS = {
         "stats stops after its page walk": [
             "  if (tl.nv <= 0) return;\n  __syncthreads();\n"],
         "stats stops after its scores": [
-            "  tile_scores<HD, G>(sS, qraw, kraw, g, tl.nv, scale);\n"
+            "  tile_scores<HD, G, TS>(sS, qraw, kraw, g, tl.nv, scale);\n"
             "  __syncthreads();\n"],
         "output launch empty": [
             "  const Scratch sc = carve(scratch, B, kv, g, HD, nt);\n"
@@ -102,8 +105,11 @@ VARIANTS = {
 
 
 def _variant_source(kernel: str, edits) -> str:
-    src = open(os.path.join(ROOT, "src", "repro_torch", "csrc",
-                            f"{kernel}.cu")).read()
+    csrc = os.path.join(ROOT, "src", "repro_torch", "csrc")
+    src = open(os.path.join(csrc, f"{kernel}.cu")).read()
+    for head in re.findall(r'#include "([^"]+)"', src):
+        src = src.replace(f'#include "{head}"',
+                          open(os.path.join(csrc, head)).read())
     for edit in edits:
         old, new = (edit, edit + RETURN) if isinstance(edit, str) else edit
         if src.count(old) != 1:

@@ -21,6 +21,16 @@ the median device time of one call with the stream held (the host's cost
 per call stays out, ``chip_smoke.time_ms``) and the host time of one
 wrapper call (``chip_smoke.host_us``). Prints the card, then one JSON
 line. Needs a CUDA device.
+
+``--save FILE`` also writes every call's outputs (and those of the
+flash kernel with its probe counts, and with its row statistics at the
+training shape, B 8 x S 2048, and of the paged kernel with its counter
+block), and ``--compare FILE`` holds them against a file another tree
+saved, so that a change that must not move a bit of the default launches
+can show it (the JSON line gains ``bitwise``: call -> equal)::
+
+    python3 tools/bench_torch_kernels.py --src build/parent/src --save build/parent.pt
+    python3 tools/bench_torch_kernels.py --compare build/parent.pt
 """
 from __future__ import annotations
 
@@ -38,6 +48,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--save", default=None,
+                    help="write each call's outputs here (torch.save)")
+    ap.add_argument("--compare", default=None,
+                    help="a file --save wrote: are the outputs bitwise "
+                         "equal to its?")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -85,8 +100,32 @@ def main() -> int:
                          host_us=chip_smoke.host_us(fn))
     smi = chip_smoke.nvidia_smi()
     print(f"card: {smi}")
-    print(json.dumps({"label": args.label or args.src, "card": smi,
-                      "kernels": res}))
+    line = {"label": args.label or args.src, "card": smi, "kernels": res}
+    if args.save or args.compare:
+        qt, kt, vt = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((8, 32, 2048, 64), (8, 4, 2048, 64),
+                                          (8, 4, 2048, 64)))
+        outs = dict(calls)
+        outs["flash_prefill_probe"] = lambda: fa.flash_attention(
+            q, k, v, with_probe=True)
+        outs["flash_train_stats"] = lambda: fa.flash_attention(
+            qt, kt, vt, with_stats=True)
+        outs["paged_random_pos_counts"] = lambda: pa._paged(
+            qd, pool_k, pool_v, pages, rand, True)
+        got = {}
+        for name, fn in outs.items():
+            o = fn()
+            got[name] = [t.cpu() for t in (o if isinstance(o, tuple)
+                                           else (o,))]
+        if args.save:
+            torch.save(got, args.save)
+        if args.compare:
+            want = torch.load(args.compare)
+            line["bitwise"] = {
+                name: name in want and len(want[name]) == len(ts) and all(
+                    torch.equal(a, b) for a, b in zip(ts, want[name]))
+                for name, ts in got.items()}
+    print(json.dumps(line))
     return 0
 
 
