@@ -75,7 +75,7 @@
    shape, its output and row statistics (m, l) against the plain version
    and the output with statistics bitwise the serving launch's, and the
    backward (``_flash_bwd``) from the kernel's forward against the same
-   backward from the plain forward; then 2 warm-up and 4 timed steps
+   backward from the plain forward; then 2 warm-up and 2 timed steps
    (finite losses, flash launches == 2 x 22 x steps: forward and remat
    recompute; no paged or SSD launch), step wall, tokens/s, peak memory
    and model FLOP/s against the bf16 peak, a profiled step, the
@@ -92,7 +92,7 @@
    MiB, which equal the reference rule's (7: five stacked leaves by
    layer, the embedding and unembedding by row); probed against unprobed walls, transitions and launches
    a step, the ``~bwd`` share of the model clock; then the trainer
-   (``launch.train.train``, its ``--probe``: a ``ProbeSession``) for 4
+   (``launch.train.train``, its ``--probe``: a ``ProbeSession``) for 2
    steps, its ``[probe]`` lines and tables printed;
 12. times each kernel (CUDA events, median) beside its plain version, a
    library call where one computes the same function (attention: SDPA
@@ -142,6 +142,34 @@
    paged launches 22 x steps, every one at the winner tuned at its own
    shape (the engine's prefill and decode), the ids shared (reported).
    The kernels line lists every (kernel, tile) pair checked.
+15. the remaining model families (random weights from seed 0 in each
+   config's ``param_dtype``): the flash kernel at head dim 80 at
+   zamba2-2.7b's prefill (B 4, 32 q over 32 kv heads, S 512) against its
+   plain version, rows at q offsets bitwise the whole call's, timed
+   beside SDPA's flash backend with its bound, and its attributes; the
+   SSD scan at one zamba2 layer (B 4, L 512, 80 heads of 64, N 64)
+   against its plain version, timed with its bound; zamba2-2.7b at full
+   width and depth served by the legacy loop (4 x 512 prompt tokens, 16
+   new: flash 9 and SSD 54 wrapper calls a prefill, no paged launch),
+   then a probed decode step (record == oracle, logits and caches bitwise
+   the unprobed step's); granite-moe-1b-a400m at full width and depth
+   through the engine (8 x 512, 32 new, the decode kernel: flash and
+   paged launches 24 x steps; the capacity path's dropped assignments per
+   layer; the legacy loop's ids beside the engine's, reported);
+   musicgen-large at full width and depth and qwen2-vl-72b at full width
+   with 2 of 80 layers (M-RoPE) through the legacy loop on synthetic
+   frontend embeddings (flash 48 and 2 a prefill); arctic-480b at full
+   width with 1 of 35 layers through the engine (4 x 512, 8 new,
+   ``max_memory_allocated``); each of those kernel shapes held against
+   its plain version and timed; then mamba2-370m trained at full width
+   (B 8 x S 2048, 1 warm-up and 2 timed steps: wall, tokens/s, peak
+   memory, the optimizer's row scans, no kernel launch: training takes
+   the plain SSD path), the last step probed (outputs bitwise the
+   unprobed step's, record == oracle, paths and calls the CPU's at smoke
+   width with 48 layers and the card's chunk plan, apart from the
+   optimizer's scans over the leaves over 128 MiB, which equal the
+   reference rule's). The kernels line gains one entry a (kernel, shape)
+   of this step.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -223,7 +251,9 @@ STEP_LOSS_ATOL, STEP_GNORM_RTOL, STEP_GRAD_RTOL = 1e-4, 5e-3, 2e-2
 # schedule that lost the context would see) moves the last logits by
 # more, asserted on the card
 CHUNK_LOGIT_ATOL = 5e-2
-TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, SESSION_STEPS = 8, 2048, 2, 4, 4
+# two timed and two session steps: the whole script stays well inside its
+# time limit
+TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, SESSION_STEPS = 8, 2048, 2, 2, 2
 
 ARCH, BATCH, PROMPT, MAX_NEW, CHUNK = "tinyllama-1.1b", 8, 512, 32, 8
 WALL_TURNS = 5
@@ -2126,6 +2156,505 @@ def dse_phase(torch, fa, pa, ssd, kpe, dev, smi):
     return out
 
 
+# -------------------------------------------------------------- step 15
+# the remaining model families at full width, through the entry points
+
+HYBRID, MOE_ARCH, AUDIO, VLM, BIG_MOE = (
+    "zamba2-2.7b", "granite-moe-1b-a400m", "musicgen-large", "qwen2-vl-72b",
+    "arctic-480b")
+FAM_PROMPT = 512
+SSM_TRAIN_B, SSM_TRAIN_S = 8, 2048
+SMI = [""]                     # the card, for step 15's lines
+
+
+def _zero(counters):
+    for c in counters:
+        c.launches = 0
+
+
+def _launches(counters):
+    return tuple(c.launches for c in counters)
+
+
+def _kernel_line(name, source, replaces, launches, err, ms, plain_ms, bnd,
+                 lib_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=lib_ms)
+
+
+FLASH_SRC = ("src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:121")
+PAGED_SRC = ("src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:94")
+SSD_SRC = ("src/repro_torch/csrc/ssd_scan.cu",
+           "src/repro/kernels/ssd_scan.py:83")
+
+
+def flash_at(torch, F, fa, dev, B, H, Hkv, S, D, seed, label, smi,
+             offsets=False):
+    """The flash kernel at one prefill shape of a family's path: against
+    its plain version (and, with ``offsets``, rows at a q offset bitwise
+    the whole call's), its time held beside the plain version's and
+    SDPA's flash backend, and its bound."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, S, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    out = fa.flash_attention(q, k, v)
+    plain = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    assert torch.isfinite(out.float()).all() and err <= FLASH_ATOL, err
+    if offsets:
+        offs = ((3 * S // 4, S // 4), (S // 5, 37), (S - 1, 1))
+        rows = all(torch.equal(
+            fa.flash_attention(q[:, :, o:o + n].contiguous(), k, v,
+                               q_offset=o), out[:, :, o:o + n])
+            for o, n in offs)
+        print(f"flash {label}: rows at q offsets {offs} (offset, rows) == "
+              f"the whole call's bitwise: {rows}")
+        assert rows
+    flops, nbytes = fa.flash_cost(q, k, v)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=3)
+    sdpa, how = sdpa_flash(torch, F, q, k, v, 0)
+    lib_ms = time_ms(sdpa)
+    d_lib = (sdpa().float() - out.float()).abs().max().item()
+    bnd = bound(nbytes, flops)
+    print(f"flash {label} (B {B}, {H}/{Hkv} heads, S {S}, D {D}): max "
+          f"|kernel - plain| {err:.3e} (atol {FLASH_ATOL}); {ms * 1e3:.1f} us "
+          f"held (bound {bnd[0] * 1e3:.2f} us by {bnd[1]}: {flops:.3e} FLOP, "
+          f"{nbytes:.3e} B), plain {plain_ms * 1e3:.1f} us, SDPA ({how}) "
+          f"{lib_ms * 1e3:.1f} us, |SDPA - kernel| {d_lib:.3e} ({smi})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd, lib_ms=lib_ms)
+
+
+def paged_at(torch, pa, dev, B, kv, g, hd, n_pages, seed, label, smi):
+    """The paged kernel at a family's engine decode shape (every row at
+    its last position of ``n_pages`` pages of 16) against its plain
+    version, held time and bound."""
+    ps, P = 16, B * n_pages + 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cpu = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, kv, g, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pool_k, pool_v = (torch.randn((P, ps, kv, hd), generator=gen, device=dev
+                                  ).to(torch.bfloat16) for _ in range(2))
+    pages = (torch.randperm(P - 1, generator=cpu)[:B * n_pages] + 1).reshape(
+        B, n_pages).to(torch.int32).to(dev)
+    pos = torch.full((B,), ps * n_pages - 1, dtype=torch.int32, device=dev)
+    args = (q, pool_k, pool_v, pages, pos)
+    out = pa.paged_attention(*args)
+    err = (out - pa.paged_attention_plain(*args)).abs().max().item()
+    assert torch.isfinite(out).all() and err <= PAGED_ATOL, err
+    flops, nbytes = pa.paged_cost(*args)
+    ms = time_ms(lambda: pa.paged_attention(*args))
+    plain_ms = time_ms(lambda: pa.paged_attention_plain(*args), reps=3)
+    bnd = bound(nbytes, flops)
+    print(f"paged {label} (B {B}, {kv} kv heads x {g} rows, hd {hd}, "
+          f"{n_pages} pages): max |kernel - plain| {err:.3e} (atol "
+          f"{PAGED_ATOL}); {ms * 1e3:.1f} us held (bound "
+          f"{bnd[0] * 1e3:.2f} us by {bnd[1]}), plain {plain_ms * 1e3:.1f} us "
+          f"({smi})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd, lib_ms=None)
+
+
+def ssd_zamba2(torch, ssd, dev, smi):
+    """The SSD scan at one zamba2-2.7b layer: B 4, L 512, 80 heads of 64,
+    one group, N 64, chunk 256, bf16."""
+    B, L, H, P, G, N, chunk = 4, 512, 80, 64, 1, 64, 256
+    x, a, b, c = ssd_inputs(torch, dev, B, L, H, P, G, N, seed=5)
+    kw = dict(chunk=chunk, h_per_g=H // G, return_final_state=True)
+    y, st = ssd.ssd_scan(x, a, b, c, **kw)
+    py, pst = ssd.ssd_scan_plain(x, a, b, c, **kw)
+    fy, fst = ssd.ssd_scan_plain(x.float(), a, b.float(), c.float(), **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    errs = dict(y=rel_err(y, py), state=rel_err(st, pst))
+    f32 = dict(y=rel_err(y, fy), state=rel_err(st, fst))
+    flops, nbytes = ssd.ssd_cost(x, a, b, c, chunk, True)
+    ms = time_ms(lambda: ssd.ssd_scan(x, a, b, c, **kw))
+    plain_ms = time_ms(lambda: ssd.ssd_scan_plain(x, a, b, c, **kw), reps=3)
+    bnd = bound(nbytes, flops)
+    print(f"ssd zamba2 layer (B {B}, L {L}, H {H}, P {P}, G {G}, N {N}): "
+          f"max |kernel - plain| / max |plain|: y {errs['y']:.3e}, state "
+          f"{errs['state']:.3e} (rtol {SSD_RTOL}); vs plain on f32 copies: "
+          f"y {f32['y']:.3e}, state {f32['state']:.3e} (rtol "
+          f"{SSD_F32_RTOL}); {ms * 1e3:.1f} us held (bound "
+          f"{bnd[0] * 1e3:.2f} us by {bnd[1]}: {flops:.3e} FLOP, "
+          f"{nbytes:.3e} B), plain {plain_ms * 1e3:.1f} us ({smi})")
+    assert all(errs[k] <= SSD_RTOL[k] and f32[k] <= SSD_F32_RTOL[k]
+               for k in errs)
+    return dict(err=(y.float() - py.float()).abs().max().item(), ms=ms,
+                plain_ms=plain_ms, bound=bnd, lib_ms=None)
+
+
+def _serve_line(name, res, got, want, extra=""):
+    n = res.tokens.size
+    print(f"serve [{name}]: {res.seconds * 1e3:.1f} ms, "
+          f"{n / res.seconds:.1f} tokens/s; launches flash, paged, ssd "
+          f"{got} (want {want}){extra} ({SMI[0]})")
+    assert got == want, (name, got, want)
+
+
+def _check_tokens(torch, res, V, shape):
+    assert res.tokens.shape == shape
+    assert ((res.tokens >= 0) & (res.tokens < V)).all()
+    assert torch.isfinite(res.first_logits[:, :V]).all()
+
+
+def hybrid_serve(torch, counters, serve, dev):
+    """zamba2-2.7b at full width and depth (54 SSM layers in 9 groups, a
+    shared attention block after each) through the legacy loop, then a
+    probed decode step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import ProbeConfig, decode_record, probe
+    from repro_torch.models import Model
+    cfg = get_config(HYBRID)
+    L, G = cfg.num_layers, cfg.num_layers // cfg.shared_attn_every
+    serve(HYBRID, smoke=False, batch=2, prompt_len=64, max_new=2)
+    _zero(counters)
+    res = serve(HYBRID, smoke=False, batch=4, prompt_len=FAM_PROMPT,
+                max_new=16)
+    torch.cuda.synchronize()
+    got = _launches(counters)
+    _check_tokens(torch, res, cfg.vocab_size, (4, 16))
+    _serve_line(HYBRID, res, got, (G, 0, L),
+                f"; 1 prefill of 4 x {FAM_PROMPT}: {G} flash calls at head "
+                f"dim 80, {L} SSD wrapper calls")
+
+    m = Model(cfg)
+    p = m._compute_cast(m.init(0, dev))
+    toks = torch.randint(0, cfg.vocab_size, (4, FAM_PROMPT + 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+    _, cache = m.prefill(p, {"tokens": toks[:, :-1]}, FAM_PROMPT + 8)
+    batch = {"tokens": toks[:, -1:], "pos": FAM_PROMPT}
+
+    def make():
+        return p, {k: v.clone() for k, v in cache.items()}, batch
+    pf = probe(m.decode_step, ProbeConfig(inline="off_all", max_probes=500),
+               device=dev)
+    t0 = time.perf_counter()
+    pf.ensure_built(*make())
+    cap = time.perf_counter() - t0
+    want = _flat(m.decode_step(*make()))
+    _zero(counters)
+    out, rec = pf(*make())
+    torch.cuda.synchronize()
+    d_launch = _launches(counters)
+    same = all(torch.equal(a, b) for a, b in zip(_flat(out), want))
+    exact = _record_equals_oracle(decode_record(rec), pf.oracle(*make()))
+    paths = pf.probe_paths()
+    print(f"probe [{HYBRID} decode step, {SMI[0]}]: {len(paths)} probes ("
+          f"{sum('shared_attn' in q for q in paths)} under shared_attn, "
+          f"{sum('ssm_layer' in q for q in paths)} under ssm_layer), capture "
+          f"{cap:.1f} s; record == oracle: {exact}; logits and caches == "
+          f"unprobed bitwise: {same}; launches {d_launch} (want (0, 0, 0))")
+    assert exact and same and d_launch == (0, 0, 0)
+    del p, cache, m
+    torch.cuda.empty_cache()
+    return got
+
+
+def moe_serve(torch, counters, serve, dev):
+    """granite-moe-1b-a400m at full width and depth through the engine
+    (whole-prompt prefill, the paged decode kernel), the capacity path's
+    drops per layer counted on the way, then the legacy loop's ids."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    L, B, new = cfg.num_layers, 8, 32
+    serve(MOE_ARCH, smoke=False, batch=2, prompt_len=32, max_new=2,
+          engine_kernel=True)
+    orig = moe._moe_local
+    drops, assigned = [], []
+
+    def counted(x, router_w, wi, wg, wo, cfg_):
+        _, kept, _ = moe.routing({"router": router_w}, x, cfg_)
+        drops.append((~kept).sum())
+        assigned.append(kept.numel())
+        return orig(x, router_w, wi, wg, wo, cfg_)
+    _zero(counters)
+    moe._moe_local = counted
+    try:
+        res = serve(MOE_ARCH, smoke=False, batch=B, prompt_len=FAM_PROMPT,
+                    max_new=new, engine_kernel=True)
+    finally:
+        moe._moe_local = orig
+    torch.cuda.synchronize()
+    got = _launches(counters)
+    _check_tokens(torch, res, cfg.vocab_size, (B, new))
+    ph = res.stats["phases"]
+    pre, dec = ph["prefill"]["steps"], ph["decode"]["steps"]
+    assert res.stats["retraces"] == 0
+    _serve_line(f"{MOE_ARCH}, engine", res, got, (L * pre, L * dec, 0),
+                f"; {pre} prefill steps, {dec} decode rounds (the wall "
+                f"includes the drop count's second routing pass)")
+    per = torch.stack(drops).view(-1, L).sum(0).tolist()
+    tot = torch.tensor(assigned).view(-1, L).sum(0).tolist()
+    print(f"{MOE_ARCH} capacity path ({SMI[0]}): (token, expert) "
+          f"assignments dropped "
+          f"per layer over the serve {per} of {tot[0]} each "
+          f"({100 * sum(per) / sum(tot):.2f} % overall; capacity factor "
+          f"{cfg.moe.capacity_factor}, {cfg.moe.num_experts} experts, "
+          f"top-{cfg.moe.top_k})")
+    _zero(counters)
+    leg = serve(MOE_ARCH, smoke=False, batch=B, prompt_len=FAM_PROMPT,
+                max_new=new, engine=False)
+    torch.cuda.synchronize()
+    same = int((leg.tokens == res.tokens).sum())
+    print(f"{MOE_ARCH} legacy loop: {leg.seconds * 1e3:.1f} ms, launches "
+          f"{_launches(counters)}; token ids shared with the engine "
+          f"{same}/{res.tokens.size} (reported: the legacy prefill routes "
+          f"all {B} prompts as one batch, so its capacities and drops "
+          f"differ)")
+    assert _launches(counters) == (L, 0, 0)
+    torch.cuda.empty_cache()
+    return got, pre, dec
+
+
+def frontend_serves(torch, counters, serve):
+    """musicgen-large at full width and depth, and qwen2-vl-72b at full
+    width with 2 of its 80 layers, through the legacy loop on synthetic
+    frontend embeddings (M-RoPE for qwen2-vl)."""
+    from repro_torch.configs.registry import get_config
+    out = {}
+    for arch, layers, B, new in ((AUDIO, None, 4, 16), (VLM, 2, 2, 8)):
+        cfg = get_config(arch)
+        L = layers or cfg.num_layers
+        _zero(counters)
+        res = serve(arch, smoke=False, batch=B, prompt_len=FAM_PROMPT,
+                    max_new=new, layers=layers)
+        torch.cuda.synchronize()
+        got = _launches(counters)
+        _check_tokens(torch, res, cfg.vocab_size, (B, new))
+        _serve_line(f"{arch}, {L} of {cfg.num_layers} layers", res, got,
+                    (L, 0, 0), f"; 1 prefill of {B} x {FAM_PROMPT} "
+                    f"embeddings ({cfg.frontend} frontend, {cfg.pos_emb})")
+        out[arch] = got
+        torch.cuda.empty_cache()
+    return out
+
+
+def big_moe_serve(torch, counters, serve, dev):
+    """arctic-480b at full width, 1 of its 35 layers (128 experts of
+    7168 x 4864, ~27 GB at bf16), through the engine."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(BIG_MOE)
+    B, new = 4, 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    res = serve(BIG_MOE, smoke=False, batch=B, prompt_len=FAM_PROMPT,
+                max_new=new, engine_kernel=True, layers=1)
+    torch.cuda.synchronize()
+    got = _launches(counters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_tokens(torch, res, cfg.vocab_size, (B, new))
+    ph = res.stats["phases"]
+    pre, dec = ph["prefill"]["steps"], ph["decode"]["steps"]
+    _serve_line(f"{BIG_MOE}, 1 of {cfg.num_layers} layers, engine", res, got,
+                (pre, dec, 0), f"; {pre} prefill steps, {dec} decode "
+                f"rounds; max_memory_allocated {peak / 2**30:.2f} GiB "
+                f"(weight init included)")
+    torch.cuda.empty_cache()
+    return got, pre, dec, peak
+
+
+def ssm_train_phase(torch, counters, dev, smi):
+    """mamba2-370m trains at full width (48 layers, f32 master params,
+    bf16 compute, remat full, the plain SSD path), B 8 x S 2048 from the
+    port's TokenPipeline: 1 warm-up and 2 timed steps, the optimizer's
+    row scans, then the last step probed: outputs bitwise the unprobed
+    step's, record == oracle, and paths and calls those of the same step
+    probed on the CPU at smoke width with 48 layers and the card's chunk
+    plan (8 SSD chunks, one loss chunk), apart from the optimizer's scans
+    over the leaves over 128 MiB."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.core import ProbeConfig, decode_record, probe
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import make_schedule
+    cfg = get_config(SSM_ARCH)
+    B, S = SSM_TRAIN_B, SSM_TRAIN_S
+    model = Model(cfg)
+    tcfg = TrainConfig(total_steps=100, warmup_steps=10)
+    step = build_train_step(model, tcfg)
+    params = model.init(0, device=dev)
+    opt = adamw.init(params, cfg.moment_dtype)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                pipe.batch_at(i).items()} for i in range(3)]
+    params, opt, met = step(params, opt, batches[0])
+    warm = float(met["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(counters)
+    walls, losses = [], []
+    for i in (1, 2):
+        prev = (params, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batches[i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    got = _launches(counters)
+    want = (params, opt, met)
+    ms = statistics.median(walls) * 1e3
+    print(f"train {SSM_ARCH} full width, B={B} S={S}: losses "
+          f"{[round(x, 4) for x in [warm] + losses]}; step wall {ms:.1f} ms "
+          f"(median of 2 after 1 warm-up, host clock, synced; runs "
+          f"{[round(w * 1e3, 1) for w in walls]}), {B * S / ms * 1e3:.0f} "
+          f"tokens/s, peak memory {peak / 2**30:.2f} GiB ({smi}); launches "
+          f"flash, paged, ssd {got} (want (0, 0, 0): training takes the "
+          f"plain SSD path, as JAX's)")
+    assert all(math.isfinite(x) for x in [warm] + losses)
+    assert got == (0, 0, 0)
+    sched = make_schedule(cfg.schedule, tcfg)
+    rows = {str(i): q for i, q in enumerate(adamw.tree_leaves(params))
+            if q.dim() == 2 and
+            q.numel() * q.element_size() > adamw.SCAN_THRESHOLD_BYTES}
+    n_rows = sum(q.shape[0] for q in rows.values())
+    r_ms = 0.0
+    if rows:
+        rows_opt = adamw.init(rows, cfg.moment_dtype)
+        r_ms = walls_ms(torch, {"rows": lambda: adamw.update(
+            rows, rows, rows_opt, tcfg, sched)}, reps=1)["rows"]
+        del rows_opt
+    del rows
+    print(f"{SSM_ARCH} optimizer: the row scans of the 2-D leaves over "
+          f"128 MiB ({n_rows} rows: the embedding and the unembedding) "
+          f"take {r_ms:.1f} ms of the {ms:.1f} ms step "
+          f"({100 * r_ms / ms:.1f} %; one run after a warm-up, host clock, "
+          f"synced)")
+
+    want_scans = adamw_scans(params)
+    # the last timed step again, probed
+    pp, po = prev
+    batch = batches[2]
+    pf = probe(step, ProbeConfig(inline="off_all", max_probes=500),
+               device=dev)
+    t0 = time.perf_counter()
+    pf.ensure_built(pp, po, batch)
+    cap = time.perf_counter() - t0
+    out, rec = pf(pp, po, batch)
+    torch.cuda.synchronize()
+    eq = (_tree_equal(torch, out[0], want[0])
+          and _tree_equal(torch, tuple(out[1]), tuple(want[1]))
+          and all(torch.equal(out[2][k], want[2][k]) for k in want[2]))
+    del out
+    dec = decode_record(rec)
+    oc = pf.oracle(pp, po, batch)
+    exact = (dec["cycle"] == oc.cycle and list(dec["calls"]) == oc.calls
+             and list(dec["totals"]) == oc.totals)
+    paths = pf.probe_paths()
+    print(f"probed {SSM_ARCH} train step ({smi}): outputs (params, "
+          f"moments, loss, "
+          f"grad norm) == unprobed bitwise: {eq}; record == oracle: "
+          f"{exact}; {len(paths)} probes, capture {cap:.1f} s, "
+          f"{pf.last_run['transitions']} transitions")
+    assert eq and exact
+    del pp, po, prev, want, params, opt, batches
+    torch.cuda.empty_cache()
+
+    ccfg = smoke_config(SSM_ARCH).replace(num_layers=cfg.num_layers,
+                                          loss_chunk=128)
+    assert 128 // ccfg.ssm.chunk_size == S // cfg.ssm.chunk_size
+    cm_ = Model(ccfg)
+    cp = cm_.init(0, device="cpu")
+    cb = {k: v[:2, :128].cpu() % ccfg.vocab_size for k, v in batch.items()}
+    cpf = probe(build_train_step(cm_, tcfg),
+                ProbeConfig(inline="off_all", max_probes=500), device="cpu")
+    _, crec = cpf(cp, adamw.init(cp), cb)
+    cpu = list(zip(cpf.probe_paths(), decode_record(crec)["calls"].tolist()))
+    card = list(zip(paths, dec["calls"].tolist()))
+    scans = [(q, c) for q, c in card if q.startswith("optimizer/adamw/scan#")]
+    same = [pc for pc in card if pc not in scans] == cpu
+    print(f"{SSM_ARCH} probe paths and calls on the card == the CPU's at "
+          f"smoke width: {same} ({sum('~bwd' in q for q in paths)} ~bwd "
+          f"paths, {sum('state_pass' in q for q in paths)} under "
+          f"state_pass); the card's optimizer scans: {scans}")
+    print(f"the card's optimizer scans == the reference rule's "
+          f"{sorted(want_scans.items())}: {dict(scans) == want_scans}")
+    assert same and dict(scans) == want_scans
+    return dict(step_ms=ms, peak=peak, rows_ms=r_ms)
+
+
+def families_phase(torch, fa, pa, ssd, dev, smi):
+    """Step 15: the kernel checks at the new shapes, then zamba2-2.7b,
+    granite-moe-1b-a400m, musicgen-large, qwen2-vl-72b (2 layers),
+    arctic-480b (1 layer) served, and mamba2-370m trained."""
+    import torch.nn.functional as F
+    from repro_torch.launch.serve import serve
+    counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+    SMI[0] = smi
+    print(f"step 15, the remaining families, on {smi}")
+    t0 = time.perf_counter()
+    k80 = flash_at(torch, F, fa, dev, 4, 32, 32, FAM_PROMPT, 80, 80,
+                   f"D 80 at {HYBRID}'s prefill", smi, offsets=True)
+    attrs = fa.flash_attrs(80)
+    print(f"flash D 80 at 64/64: {attrs} (compiled for "
+          f"{fa.flash_min_blocks(80, 64, 64)} CTA an SM)")
+    s64 = ssd_zamba2(torch, ssd, dev, smi)
+    hy = hybrid_serve(torch, counters, serve, dev)
+    print(f"step 15 zamba2 done at {time.perf_counter() - t0:.1f} s")
+    (mo, m_pre, m_dec) = moe_serve(torch, counters, serve, dev)
+    fr = frontend_serves(torch, counters, serve)
+    (ar, a_pre, a_dec, a_peak) = big_moe_serve(torch, counters, serve, dev)
+    print(f"step 15 serves done at {time.perf_counter() - t0:.1f} s")
+    from repro_torch.configs.registry import get_config
+    gm, ac = get_config(MOE_ARCH), get_config(BIG_MOE)
+    shapes = [
+        ("flash_attention D64 (granite-moe-1b-a400m engine prefill, B 1, "
+         "16/8 heads, S 512)", FLASH_SRC, mo[0],
+         flash_at(torch, F, fa, dev, 1, 16, 8, FAM_PROMPT, 64, 81,
+                  f"{MOE_ARCH} engine prefill", smi)),
+        ("paged_attention (granite-moe-1b-a400m decode, B 8, 8 kv heads x 2 "
+         "rows, hd 64, 34 pages)", PAGED_SRC, mo[1],
+         paged_at(torch, pa, dev, 8, gm.num_kv_heads, gm.q_per_kv, 64,
+                  34, 82, f"{MOE_ARCH} decode", smi)),
+        ("flash_attention D64 (musicgen-large prefill, B 4, 32/32 heads, "
+         "S 512)", FLASH_SRC, fr[AUDIO][0],
+         flash_at(torch, F, fa, dev, 4, 32, 32, FAM_PROMPT, 64, 83,
+                  f"{AUDIO} prefill", smi)),
+        ("flash_attention D128 (qwen2-vl-72b prefill, B 2, 64/8 heads, "
+         "S 512)", FLASH_SRC, fr[VLM][0],
+         flash_at(torch, F, fa, dev, 2, 64, 8, FAM_PROMPT, 128, 84,
+                  f"{VLM} prefill", smi)),
+        ("flash_attention D128 (arctic-480b engine prefill, B 1, 56/8 heads, "
+         "S 512)", FLASH_SRC, ar[0],
+         flash_at(torch, F, fa, dev, 1, ac.num_heads, ac.num_kv_heads,
+                  FAM_PROMPT, 128, 85, f"{BIG_MOE} engine prefill", smi)),
+        ("paged_attention (arctic-480b decode, B 4, 8 kv heads x 7 rows, "
+         "hd 128, 33 pages)", PAGED_SRC, ar[1],
+         paged_at(torch, pa, dev, 4, ac.num_kv_heads, ac.q_per_kv, 128, 33,
+                  86, f"{BIG_MOE} decode", smi)),
+    ]
+    tr = ssm_train_phase(torch, counters, dev, smi)
+    print(f"step 15 took {time.perf_counter() - t0:.1f} s")
+    lines = [
+        _kernel_line("flash_attention D80 (zamba2-2.7b prefill, B 4, 32/32 "
+                     "heads, S 512)", *FLASH_SRC, hy[0], k80["err"],
+                     k80["ms"], k80["plain_ms"], k80["bound"],
+                     k80["lib_ms"]),
+        _kernel_line("ssd_scan N64 (zamba2-2.7b layer, B 4, L 512, H 80, "
+                     "P 64)", *SSD_SRC, hy[2], s64["err"], s64["ms"],
+                     s64["plain_ms"], s64["bound"], None)]
+    for name, src, n, r in shapes:
+        lines.append(_kernel_line(name, *src, n, r["err"], r["ms"],
+                                  r["plain_ms"], r["bound"], r["lib_ms"]))
+    return dict(lines=lines, train=tr, arctic_peak=a_peak)
+
+
 def tile_lines(tiles, serve_tiles) -> list:
     """The kernels-line entries of every (kernel, tile) step 14 checked;
     ``launches`` are the autotuned serve's at that tile (the SSD chunks':
@@ -2210,6 +2739,7 @@ def main() -> int:
     t_dse = time.perf_counter()
     dse = dse_phase(torch, fa, pa, ssd, kpe, dev, smi)
     print(f"step 14 took {time.perf_counter() - t_dse:.1f} s")
+    fam = families_phase(torch, fa, pa, ssd, dev, smi)
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -2303,7 +2833,7 @@ def main() -> int:
              bound_by=pev["bound"][1], library_ms=None),
         train_kernel(torch, fa, tr),
         fold,
-    ] + tile_lines(dse["tiles"], dse["serve_tiles"])
+    ] + tile_lines(dse["tiles"], dse["serve_tiles"]) + fam["lines"]
     for kn in kernels:
         print(f"{kn['name']}: {kn['ms'] * 1e3:.1f} us (bound "
               f"{kn['bound_ms'] * 1e3:.2f} us by {kn['bound_by']}), plain "

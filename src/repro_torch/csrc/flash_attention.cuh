@@ -88,16 +88,22 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // rows [0, valid) of a (ROWS, D) bf16 tile from global memory into a
 // padded shared tile by 16-byte cp.async, spread over `NTHREADS` threads
-// (thread `tid` of them); rows past `valid` are zero-filled
+// (thread `tid` of them); rows past `valid` are zero-filled. Where the
+// tile's vectors are no whole number a thread (D = 80: 10 a row, 640 a
+// 64-row tile over 256 threads), the last pass is guarded; elsewhere the
+// guard is a constant and compiles away.
 template <int D, int NTHREADS, int ROWS>
 __device__ __forceinline__ void cp_tile(__nv_bfloat16* dst,
                                         const __nv_bfloat16* src, int valid,
                                         int tid) {
   constexpr int VPR = D / 8;  // 16-byte vectors per row
-  static_assert(ROWS * VPR % NTHREADS == 0, "whole vectors a thread");
+  constexpr int VECS = ROWS * VPR;
+  constexpr bool WHOLE = VECS % NTHREADS == 0;
+  static_assert(D % 16 == 0, "whole k steps of 16 and 16-byte rows");
 #pragma unroll
-  for (int it = 0; it < ROWS * VPR / NTHREADS; ++it) {
+  for (int it = 0; it < (VECS + NTHREADS - 1) / NTHREADS; ++it) {
     const int i = tid + it * NTHREADS;
+    if (!WHOLE && i >= VECS) break;
     const int r = i / VPR, c = i % VPR;
     const bool in = r < valid;
     const __nv_bfloat16* g = src + (size_t)(in ? r : 0) * D + c * 8;
@@ -184,7 +190,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int GROUP_THREADS = THREADS / GROUPS;
   constexpr int LD = row_stride<D>();
   constexpr int KD = D / 16;  // k steps of the QK^T product
-  constexpr int ND = D / 8;   // n tiles of the PV product
+  constexpr int ND = D / 8;   // n tiles of the PV product (taken in pairs)
+  static_assert(ND % 2 == 0, "PV n tiles in pairs: D a multiple of 16");
   constexpr int NS = BK / 8;  // n tiles of the QK^T product
   constexpr int TILE = BK * LD;
   extern __shared__ __align__(16) unsigned char smem[];

@@ -60,11 +60,20 @@ def build_train_step(model: Model, tcfg: TrainConfig) -> Callable:
 
     def value_and_grad(params, batch):
         leaves = _leaves_requiring_grad(params)
+        flat = adamw.tree_leaves(leaves)
+        extra = []
+        if "embeds" in batch:
+            # a frontend's embeddings: their gradient is taken and
+            # dropped, so the first layer's backward computes what every
+            # later layer's does (JAX's transposed layer scan carries the
+            # cotangent through every iteration alike)
+            batch = dict(batch, embeds=batch["embeds"].detach()
+                         .requires_grad_(True))
+            extra = [batch["embeds"]]
         with torch.enable_grad():
             with scope.named_scope("loss"):
                 loss, metrics = model.loss_fn(leaves, batch)
-            flat = adamw.tree_leaves(leaves)
-            grads = scope.grad(loss, flat)
+            grads = scope.grad(loss, flat + extra)[:len(flat)]
         return (loss.detach(), {n: m.detach() for n, m in metrics.items()},
                 adamw.tree_unflatten(params, list(grads)))
 

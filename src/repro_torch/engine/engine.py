@@ -131,9 +131,8 @@ class InferenceEngine:
         self.bus = bus
         if not engine_compatible(cfg):
             raise ValueError(
-                f"engine requires a dense attention-family token model; got "
-                f"family={cfg.family!r} frontend={cfg.frontend!r} "
-                f"moe={cfg.moe is not None}")
+                f"engine requires an attention-family token model; got "
+                f"family={cfg.family!r} frontend={cfg.frontend!r}")
         if tuple(sorted(config.buckets)) != tuple(config.buckets) \
                 or not config.buckets:
             raise ValueError(f"buckets must be sorted non-empty, "
@@ -147,6 +146,12 @@ class InferenceEngine:
         if config.prefill_chunk_pages < 0:
             raise ValueError(f"prefill_chunk_pages must be >= 0, "
                              f"got {config.prefill_chunk_pages}")
+        if config.prefill_chunk_pages and cfg.moe is not None \
+                and cfg.moe.impl != "ragged":
+            raise ValueError(
+                "chunked prefill requires dropless (ragged) MoE routing; "
+                f"impl={cfg.moe.impl!r} drops tokens by total count, which "
+                "breaks chunk/whole-prompt bit-identity")
         if config.evict_policy not in ("lru", "clear"):
             raise ValueError(f"evict_policy must be 'lru' or 'clear', "
                              f"got {config.evict_policy!r}")

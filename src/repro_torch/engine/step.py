@@ -30,7 +30,9 @@ layer loop (``scope.scan``): ``embed``, ``layers/scan#0/layer`` with
 ``attn`` (prefill: ``qkv``, ``flash``, ``out_proj``; chunkpf:
 ``ctx_gather``, ``flash``, ``out_proj``; decode: ``cache_update``, then
 ``attend`` on the plain path, the kernel at ``attn`` on the kernel
-path, then ``out_proj``) and ``mlp``, ``final_norm``, ``last_logits``;
+path, then ``out_proj``) and ``mlp`` (MoE layers: ``moe``, and in the
+chunk and decode steps one more ``moe`` around it, as the JAX steps
+have it), ``final_norm``, ``last_logits``;
 the scatter step's ``page_scatter``. A probed engine bills each step's
 cycles to these scopes as the JAX engine does.
 """
@@ -50,10 +52,11 @@ from repro_torch.models.model import unsupported
 
 
 def engine_compatible(cfg) -> bool:
-    """Token-in/token-out dense attention stacks only: the paged KV layout
-    has no analogue for SSM/hybrid recurrent state or frontend embeds,
-    and MoE layers are not ported yet."""
-    return cfg.family != "ssm" and not unsupported(cfg)
+    """Token-in/token-out attention stacks only (dense and MoE): the paged
+    KV layout has no analogue for SSM/hybrid recurrent state or frontend
+    embeds."""
+    return (cfg.family not in ("ssm", "hybrid") and cfg.frontend == "none"
+            and not unsupported(cfg))
 
 
 def _gather_last(model, p, x, last_idx):
@@ -78,7 +81,7 @@ def build_engine_prefill(model, n_pages: int, page_size: int) -> Callable:
         B, S, _ = x.shape
         if S != seq:
             raise ValueError(f"prefill step for {seq} tokens got {S}")
-        positions = model._positions(S, B, x.device)
+        positions = model._positions(batch, S, B, x.device)
         x, cache = tfm.stack_prefill(p["stack"], x, positions, cfg, seq)
         with scope.named_scope("last_logits"):
             logits = _gather_last(model, p, x, batch["last_idx"])
@@ -164,7 +167,7 @@ def build_chunk_prefill(model, ctx_pages: int, chunk_pages: int,
                                               q_offset=ctx_len).to(cd)
                         with scope.named_scope("out_proj"):
                             a = out_proj(o, lp["attn"]["wo"])
-                    x = tfm.mlp_residual(lp, x + a, cfg)
+                    x = tfm.mlp_residual(lp, x + a, cfg, moe_scope=True)
                     ks.append(k_new[0])
                     vs.append(v_new[0])
         with scope.named_scope("final_norm"):
@@ -242,7 +245,7 @@ def build_paged_decode(model, batch_size: int, n_pages: int,
                                 ow = torch.nn.functional.pad(
                                     ow, (0, 0, 0, Hp - H))
                             a = out_proj(ow, lp["attn"]["wo"])
-                    x = tfm.mlp_residual(lp, x + a, cfg)
+                    x = tfm.mlp_residual(lp, x + a, cfg, moe_scope=True)
         with scope.named_scope("final_norm"):
             x = rmsnorm(x, stack["ln_f"], cfg.norm_eps)
         with scope.named_scope("last_logits"):

@@ -42,9 +42,12 @@ Differences from the TPU kernel, all deliberate:
 Tiles (the TPU kernel's ``block_q`` / ``block_k``, a DSE axis): q tiles
 of ``block_q`` in ``BLOCKS_Q`` rows and kv blocks of ``block_k`` in
 ``BLOCKS_K`` keys, each (head dim, block_q, block_k) an instantiation of
-``csrc/flash_attention.cuh``. 64 / 64 (``BLOCK_Q`` / ``BLOCK_K``) is the
-default and the launch of every untuned call; the others are built by
-their own translation units (``LIBRARIES``). A 128-row q tile runs 512
+``csrc/flash_attention.cuh``, at head dims 64, 80 (zamba2's shared
+attention: 10 16-byte vectors a row, so a tile's copy has a guarded last
+pass; rows of 176 bytes keep ``ldmatrix`` free of bank conflicts) and
+128. 64 / 64 (``BLOCK_Q`` / ``BLOCK_K``) is the default and the launch
+of every untuned call; the others are built by their own translation
+units (``LIBRARIES``). A 128-row q tile runs 512
 threads, one CTA an SM. ``flash_resources`` states what a tile needs of
 the card (the source's shared-memory formula); at head dim 128, kv blocks
 of 128 keys need more shared memory than a block may have and are not
@@ -86,7 +89,7 @@ BLOCK_Q = 64                   # the default tiles
 BLOCK_K = 64
 BLOCKS_Q = (64, 128)
 BLOCKS_K = (32, 64, 128)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 # the translation unit (csrc/<name>.cu) that builds each 64-row or 128-row
 # q tile's instantiations; the default tiles have one of their own
 LIBRARIES = {(64, 64): "flash_attention", 64: "flash_attention_q64",
@@ -300,7 +303,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     ``kernels.ops.flash_attention`` resolves tuned ones).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16, D in (64, 128), contiguous) or raise.
+    (bf16, D in ``HEAD_DIMS``, contiguous) or raise.
     """
     _check(q, k, v, q_offset, causal)
     flash_library(block_q, block_k)

@@ -2,10 +2,13 @@
 
 Port of ``repro.launch.serve`` (engine path and the legacy unbatched
 loop). Each batch row becomes one request of the engine; decode runs at
-a batch bucket over the paged KV pool. ``--no-engine`` runs the legacy
-lock-step loop (``Model.prefill`` + ``Model.decode_step`` over a dense
-cache), which the ssm family always takes. The model runs on the GPU
-unless ``device="cpu"`` is passed.
+a batch bucket over the paged KV pool (the dense and MoE families).
+``--no-engine`` runs the legacy lock-step loop (``Model.prefill`` +
+``Model.decode_step`` over a dense cache), which the ssm and hybrid
+families and the archs with a modality frontend always take; a frontend
+arch's prompt and each decode step's input are synthetic embeddings
+(``models.frontends.synth_frontend_batch``, seed 1), as the JAX serve's.
+The model runs on the GPU unless ``device="cpu"`` is passed.
 
 ``--profile`` probes the serve: on the engine path every (phase, shape)
 step runs in a ``ProbeSession`` and the phase, chunk and request cycle
@@ -34,6 +37,7 @@ from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.core import ProbeConfig, ProbeSession
 from repro_torch.core.streaming import StreamSnapshot
 from repro_torch.engine import EngineConfig, InferenceEngine, engine_compatible
+from repro_torch.models.frontends import synth_frontend_batch
 from repro_torch.models.model import Model
 
 
@@ -101,10 +105,21 @@ def _legacy_serve(model, params, prompts, *, max_new: int, device,
                   bus=None) -> ServeResult:
     """The unbatched lock-step loop: one prefill over the whole batch,
     then one decode step per token against a dense cache (under a live
-    ``ProbeSession`` when profiled)."""
+    ``ProbeSession`` when profiled). A frontend arch takes synthetic
+    embeddings (bf16, from a generator seeded 1 on ``device``) for the
+    prompt and for each step, as the JAX loop does; its sampled ids feed
+    nothing back."""
     batch, prompt_len = prompts.shape
+    cfg = model.cfg
     cparams = model._compute_cast(params)   # one compute-dtype copy
     tokens = torch.as_tensor(prompts, device=device)
+    gen = None
+    if cfg.frontend != "none":
+        gen = torch.Generator(device=device).manual_seed(1)
+        pbatch = synth_frontend_batch(cfg, batch, prompt_len,
+                                      torch.bfloat16, gen)
+    else:
+        pbatch = {"tokens": tokens}
     profile_every = max(profile_every, 1)
     session = None
     decode = model.decode_step
@@ -118,15 +133,18 @@ def _legacy_serve(model, params, prompts, *, max_new: int, device,
         decode = session.step
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(cparams, {"tokens": tokens},
-                                  prompt_len + max_new - 1)
+    logits, cache = model.prefill(cparams, pbatch, prompt_len + max_new - 1)
     first = logits
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [next_tok]
     for i in range(max_new - 1):
-        logits, cache, next_tok = decode(
-            cparams, cache, {"tokens": next_tok[:, None],
-                             "pos": prompt_len + i})
+        if gen is not None:
+            dbatch = {"embeds": synth_frontend_batch(
+                cfg, batch, 1, torch.bfloat16, gen)["embeds"]}
+        else:
+            dbatch = {"tokens": next_tok[:, None]}
+        dbatch["pos"] = prompt_len + i
+        logits, cache, next_tok = decode(cparams, cache, dbatch)
         out.append(next_tok)
         if session is not None and session.steps % profile_every == 0:
             snap = session.snapshot()
@@ -156,9 +174,11 @@ def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
           profile_targets: Tuple[str, ...] = ("",), profile_every: int = 8,
           profile_max_probes: int = 16, status_port: Optional[int] = None,
           autotune: bool = False, tune_cache: Optional[str] = None,
-          device=None) -> ServeResult:
+          layers: Optional[int] = None, device=None) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens, ``max_new``
     tokens each, with random weights from seed 0 (prompts from seed 1).
+    ``layers`` cuts the config's depth (its widths stay), for a model
+    whose full depth does not fit the card.
     ``profile`` probes the serve; ``status_port`` (0 = any free port)
     serves its live telemetry while it runs. ``autotune`` loads the
     DSE-tuned kernel configs of this device from the eval cache
@@ -172,6 +192,8 @@ def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
         tuning.load_cache(cache_dir=tune_cache, device=device_kind(device),
                           verbose=True)
     cfg = smoke_config(arch) if smoke else get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     model = Model(cfg)
     params = model.init(0, device)
     gen = torch.Generator().manual_seed(1)
@@ -208,6 +230,9 @@ def main():
     ap.add_argument("--full", action="store_true",
                     help="full-width config (default: the smoke config, "
                          "whose head dim 16 the CUDA kernels do not take)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers "
+                         "(widths kept)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' to run "
                          "the plain versions of the kernels)")
@@ -243,7 +268,8 @@ def main():
                 profile_targets=tuple(args.profile_targets.split(",")),
                 profile_every=args.profile_every,
                 status_port=args.status_port, autotune=args.autotune,
-                tune_cache=args.tune_cache, device=args.device)
+                tune_cache=args.tune_cache, layers=args.layers,
+                device=args.device)
     print("sampled token ids (first sequence):", res.tokens[0].tolist())
 
 

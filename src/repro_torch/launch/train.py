@@ -11,6 +11,13 @@ it raises.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 --batch 2 --seq 32
 
+Every arch of the registry trains (``--arch``): the dense, MoE (the
+aux loss in the loss), ssm and hybrid families (the plain SSD path in
+PyTorch ops, as the JAX package's training). An arch with a modality
+frontend trains on synthetic embeddings (``models.frontends``, from a
+generator seeded ``tcfg.seed``) in place of the pipeline's tokens, with
+the pipeline's labels.
+
 ``--autotune`` loads the DSE-tuned kernel configs of the device from the
 eval cache (``--tune-cache``, default ``.repro_cache/dse``; written by
 ``python -m repro_torch.tune``) before the model is built, as the JAX
@@ -33,6 +40,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.distributed.steps import build_train_step
+from repro_torch.models.frontends import synth_frontend_batch
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
@@ -102,11 +110,17 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
         run = step_fn
 
     history = []
+    gen = (torch.Generator(device=dev).manual_seed(tcfg.seed)
+           if cfg.frontend != "none" else None)
     t0 = time.time()
     for step in range(start_step, steps):
         batch_np = pipe.batch_at(step)
         pipe.state.step = step + 1
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        if gen is not None:
+            del b["tokens"]
+            b.update(synth_frontend_batch(cfg, batch, seq, torch.bfloat16,
+                                          gen))
         params, opt_state, metrics = run(params, opt_state, b)
         loss = float(metrics["loss"])
         history.append(loss)

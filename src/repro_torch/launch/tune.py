@@ -97,6 +97,9 @@ def arch_shapes(kernel: str, arch: str) -> Optional[Dict[str, Any]]:
     hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
     if kernel == "flash_attention":
         return dict(H=cfg.num_heads, Hkv=kv, D=hd, dtype=dtype)
+    from repro_torch.engine.step import engine_compatible
+    if not engine_compatible(cfg):      # no paged decode: the legacy loop
+        return None
     return dict(KV=kv, G=cfg.q_per_kv, HD=hd, q_dtype=dtype,
                 kv_dtype=getattr(torch, cfg.kv_cache_dtype))
 

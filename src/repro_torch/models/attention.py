@@ -35,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import _bf16
-from repro_torch.models.layers import Param, apply_rope
+from repro_torch.models.layers import Param, apply_mrope, apply_rope
 
 
 def attention_schema(cfg: ModelConfig) -> Dict[str, Param]:
@@ -61,7 +61,8 @@ def _proj(x, w):
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
-    """x: (B,S,d) -> q (B,S,Hp,hd), k,v (B,S,kv,hd) with RoPE applied."""
+    """x: (B,S,d) -> q (B,S,Hp,hd), k,v (B,S,kv,hd) with RoPE applied
+    (M-RoPE: positions (3, B, S), one stream a rotary section)."""
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
@@ -72,6 +73,9 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.pos_emb == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -264,6 +268,8 @@ def attn_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
     Returns (out (B,1,d), cache_k, cache_v)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    if cfg.pos_emb == "mrope":
+        positions = positions.expand((3,) + positions.shape)
     with scope.named_scope("qkv"):
         q, k_new, v_new = _project_qkv(params, x, cfg, positions)
         Hp, HD = q.shape[2], q.shape[3]

@@ -1,4 +1,4 @@
-"""Parameter schema machinery + core layers (RMSNorm, RoPE, SwiGLU MLP).
+"""Parameter schema machinery + core layers (RMSNorm, RoPE/M-RoPE, SwiGLU MLP).
 
 Port of ``repro.models.layers``. Parameters are described by a nested-dict
 *schema* of ``Param`` records (shape, logical axes, initializer);
@@ -106,6 +106,31 @@ def apply_rope(x, positions, theta: float):
     freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
     angles = positions[..., None].float() * freqs           # (..., seq, hd/2)
     sin = torch.sin(angles)[..., None, :]                   # (..., seq, 1, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
+    """Qwen2-VL M-RoPE. x: (..., seq, n, hd); positions3: (3, ..., seq).
+
+    The rotary half-dim is partitioned into (temporal, h, w) sections;
+    each section rotates by its own position stream. JAX selects each
+    frequency's stream by a one-hot product, which adds exact zeros: the
+    same values as the selection here."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    freqs = rope_freqs(hd, theta, x.device)                 # (half,)
+    section_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))            # (half,)
+    angles = positions3[..., None].float() * freqs          # (3, ..., seq, half)
+    angles = torch.where(section_id == 0, angles[0],
+                         torch.where(section_id == 1, angles[1], angles[2]))
+    sin = torch.sin(angles)[..., None, :]
     cos = torch.cos(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

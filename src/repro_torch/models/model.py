@@ -1,7 +1,10 @@
 """Model facade: schema/init, train loss, prefill, decode.
 
-Port of ``repro.models.model`` (the train loss for the dense family).
-Parameters are nested
+Port of ``repro.models.model``, every family of the registry. Models
+with a modality frontend (``frontend != "none"``) take precomputed
+embeddings (``batch["embeds"]``, see ``frontends``) instead of token
+ids and have no ``embed`` table; M-RoPE models take their 3-stream
+positions (``batch["positions"]``, (3, B, S)). Parameters are nested
 dicts of tensors with the JAX package's layouts (``layers.materialize``
 or ``convert.params_from_numpy``).
 
@@ -22,6 +25,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
 from repro_torch.models import transformer as tfm
+from repro_torch.models.frontends import frontend_input_specs
 from repro_torch.models.layers import Param, materialize
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
@@ -47,17 +51,24 @@ def _grad_dtype_barrier(x, dtype_str: str):
     return _GradDtypeBarrier.apply(x, getattr(torch, dtype_str))
 
 
+_FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
+
+
 def unsupported(cfg: ModelConfig) -> str:
-    """Why this slice of the port cannot run ``cfg`` ('' if it can)."""
-    if cfg.family == "hybrid":
+    """Why the port cannot run ``cfg`` ('' if it can). Every registry
+    config runs; what is left out is the JAX package's sharded MoE
+    (``shard_map``), which needs a mesh (``moe.moe_apply`` raises; ROADMAP
+    Queue 1, multi-device), and values no JAX module takes either."""
+    if cfg.family not in _FAMILIES:
         return f"family {cfg.family!r}"
-    if cfg.moe is not None:
-        return "MoE layers"
-    if cfg.frontend != "none":
-        return f"frontend {cfg.frontend!r}"
-    want = "none" if cfg.family == "ssm" else "rope"
-    if cfg.pos_emb != want:
+    if cfg.pos_emb not in ("rope", "mrope", "none"):
         return f"pos_emb {cfg.pos_emb!r}"
+    if cfg.frontend not in ("none", "audio", "vision"):
+        return f"frontend {cfg.frontend!r}"
+    if cfg.moe is not None and cfg.moe.impl not in ("capacity", "ragged"):
+        return f"MoE impl {cfg.moe.impl!r}"
+    if cfg.family == "hybrid" and not cfg.shared_attn_every:
+        return "a hybrid stack without shared_attn_every"
     return ""
 
 
@@ -72,11 +83,11 @@ class Model:
     def schema(self) -> Dict[str, Any]:
         cfg = self.cfg
         V = cfg.padded_vocab_size
-        s: Dict[str, Any] = {
-            "stack": tfm.stack_schemas(cfg),
-            "embed": Param((V, cfg.d_model), ("vocab", "embed"), init="embed"),
-        }
-        if not cfg.tie_embeddings:
+        s: Dict[str, Any] = {"stack": tfm.stack_schemas(cfg)}
+        if cfg.frontend == "none":
+            s["embed"] = Param((V, cfg.d_model), ("vocab", "embed"),
+                               init="embed")
+        if cfg.frontend != "none" or not cfg.tie_embeddings:
             s["unembed"] = Param((cfg.d_model, V), ("embed", "vocab"))
         return s
 
@@ -100,10 +111,14 @@ class Model:
 
     def _embed_in(self, params, batch):
         cd = getattr(torch, self.cfg.compute_dtype)
+        if self.cfg.frontend != "none":
+            return batch["embeds"].to(cd)
         with scope.named_scope("embed"):
             return params["embed"][batch["tokens"].long()].to(cd)
 
-    def _positions(self, seq: int, batch_size: int, device):
+    def _positions(self, batch, seq: int, batch_size: int, device):
+        if self.cfg.pos_emb == "mrope":
+            return batch["positions"]
         return torch.arange(seq, device=device)[None].expand(batch_size, seq)
 
     def _mask_pad(self, logits):
@@ -133,13 +148,20 @@ class Model:
         chunk = min(cfg.loss_chunk, S)
         if S % chunk:
             chunk = S            # fall back: no chunking on odd lengths
+        nc = S // chunk
         w = self._unembed_weight(params)
         V = cfg.padded_vocab_size
         pad_mask = torch.arange(V, device=x.device) >= cfg.vocab_size
+        # each chunk its own slice of x and its own view of w, taken before
+        # the loop: the chunks' gradients then land in separate slots and
+        # are gathered once after the loop, not summed inside it (which a
+        # probe's capture refuses: the iterations would differ)
+        xs, ls = x.split(chunk, dim=1), labels.split(chunk, dim=1)
+        ws = w.expand((nc,) + tuple(w.shape)).unbind(0)
 
-        def body(x_, l_):
+        def body(x_, l_, w_):
             with scope.named_scope("logits"):
-                logits = x_.float() @ w.to(x_.dtype).float()
+                logits = x_.float() @ w_.to(x_.dtype).float()
                 logits = logits.masked_fill(pad_mask, float("-inf"))
             with scope.named_scope("xent"):
                 m = logits.amax(dim=-1, keepdim=True).detach()
@@ -150,9 +172,8 @@ class Model:
 
         nll = zl = torch.zeros((), dtype=torch.float32, device=x.device)
         with scope.named_scope("loss"):
-            for c in scope.scan(S // chunk):
-                sl = slice(c * chunk, (c + 1) * chunk)
-                c_nll, c_zl = scope.remat(body, x[:, sl], labels[:, sl])
+            for c in scope.scan(nc):
+                c_nll, c_zl = scope.remat(body, xs[c], ls[c], ws[c])
                 nll, zl = nll + c_nll, zl + c_zl
             n_tok = B * S
             return nll / n_tok, zl / n_tok
@@ -166,7 +187,7 @@ class Model:
         p = self._compute_cast(params)
         x = self._embed_in(p, batch)
         B, S, _ = x.shape
-        positions = self._positions(S, B, x.device)
+        positions = self._positions(batch, S, B, x.device)
         x, aux = tfm.stack_apply(p["stack"], x, positions, cfg)
         x = _grad_dtype_barrier(x, cfg.compute_dtype)
         nll, zl = self._chunked_xent(p, x, batch["labels"])
@@ -175,13 +196,15 @@ class Model:
 
     # ----------------------------------------------------------- serving
     def prefill(self, params, batch, cache_len: int):
-        """batch: {"tokens": (B, S)} -> (logits (B, V) at the last token,
+        """batch: {"tokens": (B, S)} (a frontend: {"embeds": (B, S, d)}
+        [, "positions": (3, B, S)]) -> (logits (B, V) at the last token,
         cache): {"k", "v"} of (L, B, cache_len, kv, hd), or for the ssm
-        family {"conv", "ssd"} (see ``transformer.stack_prefill``)."""
+        and hybrid families {"conv", "ssd"[, "k", "v"]} (see
+        ``transformer.stack_prefill``)."""
         p = self._compute_cast(params)
         x = self._embed_in(p, batch)
         B, S, _ = x.shape
-        positions = self._positions(S, B, x.device)
+        positions = self._positions(batch, S, B, x.device)
         x, cache = tfm.stack_prefill(p["stack"], x, positions, self.cfg,
                                      cache_len)
         with scope.named_scope("last_logits"):
@@ -189,8 +212,10 @@ class Model:
         return logits, cache
 
     def decode_step(self, params, cache, batch):
-        """One token for every sequence. batch: {"tokens": (B, 1), "pos":
-        int}. The cache is updated in place and returned."""
+        """One token for every sequence. batch: {"tokens": (B, 1) (a
+        frontend: "embeds": (B, 1, d)), "pos": int}; M-RoPE positions
+        derive from ``pos``. The cache is updated in place and
+        returned."""
         p = self._compute_cast(params)
         x = self._embed_in(p, batch)
         x, cache = tfm.stack_decode(p["stack"], cache, x, int(batch["pos"]),
@@ -198,3 +223,24 @@ class Model:
         with scope.named_scope("last_logits"):
             logits = self._logits(p, x[:, -1])
         return logits, cache, torch.argmax(logits, dim=-1).to(torch.int32)
+
+    # ------------------------------------------------------------ inputs
+    def input_shapes(self, kind: str, batch: int, seq: int
+                     ) -> Dict[str, Tuple[tuple, torch.dtype]]:
+        """name -> (shape, dtype) of every model input of a ``train``,
+        ``prefill`` or ``decode`` call (JAX's ``input_specs``; decode: one
+        new token against a cache of ``seq``)."""
+        cfg = self.cfg
+        cd = getattr(torch, cfg.compute_dtype)
+        S = 1 if kind == "decode" else seq
+        if cfg.frontend == "none":
+            specs = {"tokens": ((batch, S), torch.int32)}
+        else:
+            specs = dict(frontend_input_specs(cfg, batch, S, cd))
+        if kind == "train":
+            specs["labels"] = ((batch, S), torch.int32)
+        elif kind == "decode":
+            # decode positions derive from the scalar pos
+            specs.pop("positions", None)
+            specs["pos"] = ((), torch.int32)
+        return specs

@@ -1,12 +1,17 @@
 """Mamba-2 (SSD — state-space duality) block. [arXiv:2405.21060]
 
-Port of ``repro.models.ssm`` (the serving half: ``ssm_apply`` with its
-decode caches, and ``ssm_decode``). The SSD step of ``ssm_apply`` goes
+Port of ``repro.models.ssm``: ``ssm_apply`` with its decode caches,
+``ssm_decode``, and the chunked SSD scan in PyTorch ops
+(``ssd_chunked``, the port of ``ssd_chunked_xla``). With ``use_kernel``
+(the default, every serving prefill) the SSD step of ``ssm_apply`` goes
 through ``kernels.ssd_scan``: the CUDA kernel on the card, which also
 returns the final state; its plain version, ``ssd_chunked_xla`` op for
 op, on the CPU. The JAX package reaches its Pallas kernel only with
 ``use_kernel=True``, which no entry point passes and which cannot return
-the state; here prefill always takes the kernel.
+the state. Training passes ``use_kernel=False``, as the JAX package's
+training does: ``ssd_chunked`` is differentiable, with JAX's scopes
+(``intra``, ``chunk_states``, ``state_pass``, ``inter``); no Pallas
+kernel of the reference has a backward.
 
 Layout:
     x (b, l, h, p)   h = heads, p = head_dim
@@ -65,11 +70,113 @@ def _causal_conv(x, w, b):
     return out + b
 
 
-def ssm_apply(params, x, cfg: ModelConfig, *, return_state: bool = False):
+def _segsum_exp(a_cs):
+    """a_cs: (..., q) inclusive cumsum -> exp lower-tri decay (..., q, q).
+    The exponent is masked before ``exp``, not after: the values are
+    JAX's, and the gradient stays finite where the upper triangle's
+    exponent (a sum of -a > 0) overflows, where 0 x inf would give NaN."""
+    q = a_cs.shape[-1]
+    seg = a_cs[..., :, None] - a_cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=a_cs.device).tril()
+    return torch.exp(seg.masked_fill(~mask, float("-inf")))
+
+
+def _dot(eq: str, *ops, dtype):
+    """An einsum accumulated in f32 and rounded once to ``dtype``, as an
+    XLA dot_general of these operands gives it."""
+    return torch.einsum(eq, *(o.float() for o in ops)).to(dtype)
+
+
+class _StatePass(torch.autograd.Function):
+    """The inter-chunk recurrence, ``prev[c] = state; state = state *
+    decay[c] + states[c]`` from a zero f32 state, and its transpose: one
+    autograd node whose forward and backward each walk the chunks under
+    ``scope.scan``, as JAX's scan and its transposed scan do. (Left to
+    autograd, each chunk's state feeds both the next chunk and the
+    stacked ``prev``, so its gradient would be summed inside the next
+    iteration's backward, in every iteration but the last: iterations a
+    probe could not price alike.)
+
+    states: (B, C, G, E, P, N) f32; decay: (B, G, E, C) f32. Returns
+    (prev (B, C, G, E, P, N), final state (B, G, E, P, N))."""
+
+    @staticmethod
+    def forward(ctx, states, decay):
+        carry = torch.zeros_like(states[:, 0])
+        prev = []
+        for ci in scope.scan(states.shape[1]):
+            prev.append(carry)
+            carry = carry * decay[..., ci, None, None] + states[:, ci]
+        prev = torch.stack(prev, dim=1)
+        ctx.save_for_backward(prev, decay)
+        return prev, carry
+
+    @staticmethod
+    def backward(ctx, g_prev, g_final):
+        prev, decay = ctx.saved_tensors
+        C = prev.shape[1]
+        g_states = torch.empty_like(prev)
+        g_decay = torch.empty_like(decay)
+        g = g_final
+        for i in scope.scan(C):
+            ci = C - 1 - i
+            g_states[:, ci] = g
+            g_decay[..., ci] = (g * prev[:, ci]).sum(dim=(-2, -1))
+            g = g * decay[..., ci, None, None] + g_prev[:, ci]
+        return g_states, g_decay
+
+
+def ssd_chunked(x, a, b, c, chunk: int, h_per_g: int):
+    """Chunked SSD scan in PyTorch ops (port of ``ssd_chunked_xla``,
+    differentiable; the training path).
+
+    x: (B, L, h, p), already discretized (x * dt); a: (B, L, h) f32, <= 0;
+    b, c: (B, L, g, n) with h = g * h_per_g. Returns (y (B, L, h, p) in
+    x's dtype, final state (B, g, e, p, n) f32)."""
+    B, L, H, Pd = x.shape
+    G, N = b.shape[2], b.shape[3]
+    E, dt = h_per_g, x.dtype
+    if L % chunk:
+        raise ValueError(f"L {L} % chunk {chunk}")
+    C_ = L // chunk
+    xe = x.reshape(B, C_, chunk, G, E, Pd)
+    ae = a.reshape(B, C_, chunk, G, E).permute(0, 3, 4, 1, 2)   # (B,G,E,C,Q)
+    be = b.reshape(B, C_, chunk, G, N)
+    ce = c.reshape(B, C_, chunk, G, N)
+    a_cs = torch.cumsum(ae.float(), dim=-1)                      # (B,G,E,C,Q)
+
+    with scope.named_scope("intra"):
+        cb = _dot("bcqgn,bckgn->bcgqk", ce, be, dtype=torch.float32)
+        decay = _segsum_exp(a_cs)                                # (B,G,E,C,Q,Q)
+        cbl = cb[:, :, :, None] * decay.permute(0, 3, 1, 2, 4, 5)
+        y_diag = _dot("bcgeqk,bckgep->bcqgep", cbl.to(dt), xe, dtype=dt)
+
+    with scope.named_scope("chunk_states"):
+        decay_states = torch.exp(a_cs[..., -1:] - a_cs)          # (B,G,E,C,Q)
+        states = _dot("bckgn,bgeck,bckgep->bcgepn", be,
+                      decay_states.to(dt), xe, dtype=dt)
+
+    with scope.named_scope("state_pass"):
+        chunk_decay = torch.exp(a_cs[..., -1])                   # (B,G,E,C)
+        prev_states, final = _StatePass.apply(states.float(), chunk_decay)
+
+    with scope.named_scope("inter"):
+        state_decay_out = torch.exp(a_cs)                        # (B,G,E,C,Q)
+        y_off = _dot("bcqgn,bcgepn,bgecq->bcqgep", ce, prev_states.to(dt),
+                     state_decay_out.to(dt), dtype=dt)
+
+    return (y_diag + y_off).reshape(B, L, H, Pd), final
+
+
+def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
+              return_state: bool = False):
     """Full-sequence Mamba2 block forward. x: (B, S, d_model).
 
-    With ``return_state`` also returns (conv_state (B,K-1,conv_dim),
-    ssd_state (B,h,p,n)) — the decode caches after consuming the prefix.
+    ``use_kernel``: the SSD step through ``kernels.ssd_scan`` (serving);
+    else through ``ssd_chunked`` at chunk ``min(chunk_size, S)``, as the
+    JAX package's training path (differentiable). With ``return_state``
+    also returns (conv_state (B,K-1,conv_dim), ssd_state (B,h,p,n)) —
+    the decode caches after consuming the prefix.
     """
     d = ssm_dims(cfg)
     B, S, _ = x.shape
@@ -90,8 +197,9 @@ def ssm_apply(params, x, cfg: ModelConfig, *, return_state: bool = False):
         a_disc = (dt * a).float()                               # (B,S,h)
         x_disc = xs * dt[..., None].to(xs.dtype)
     with scope.named_scope("ssd"):
-        chunk = kops.resolve_ssd_chunk(S, d["chunk"],
-                                       args=(x_disc, a_disc, b, c))
+        chunk = (kops.resolve_ssd_chunk(S, d["chunk"],
+                                        args=(x_disc, a_disc, b, c))
+                 if use_kernel else min(d["chunk"], S))
         pad = (-S) % chunk
         if pad:
             # zero-pad: a=0 (decay 1) with x=0 leaves state/output intact
@@ -99,9 +207,14 @@ def ssm_apply(params, x, cfg: ModelConfig, *, return_state: bool = False):
             a_disc = F.pad(a_disc, (0, 0, 0, pad))
             b = F.pad(b, (0, 0, 0, 0, 0, pad))
             c = F.pad(c, (0, 0, 0, 0, 0, pad))
-        y, final_state = kops.ssd_scan(x_disc, a_disc, b, c, chunk=chunk,
-                                       h_per_g=h // g,
-                                       return_final_state=True)
+        if use_kernel:
+            y, final_state = kops.ssd_scan(x_disc, a_disc, b, c,
+                                           chunk=chunk, h_per_g=h // g,
+                                           return_final_state=True)
+        else:
+            y, final_state = ssd_chunked(x_disc, a_disc, b, c, chunk,
+                                         h // g)
+            final_state = final_state.reshape(B, h, d["head_dim"], n)
         if pad:
             y = y[:, :S]
     with scope.named_scope("out"):

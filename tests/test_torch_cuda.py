@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Edge shapes the serving path does not reach (ragged tiles, q offsets off
-the block grid, head dim 128, non-causal, many double-buffered kv
+the block grid, head dims 80 (zamba2's shared attention: a tile's copy
+with a guarded last pass) and 128, non-causal, many double-buffered kv
 blocks, one q row, H == Hkv; for the paged kernel: positions at
 slot-tile boundaries, page sizes 8 and 32, groups of 1 and 16, long
 rows, bitwise invariance to batching and page placement; for the SSD
@@ -67,6 +68,10 @@ def _bf16(shape, gen, dev):
     (2, 4, 4, 200, 200, 128, 0, True),       # H == Hkv
     (1, 8, 2, 37, 300, 64, 263, True),       # Sq not a multiple of 16
     (1, 2, 1, 150, 150, 64, 0, False),
+    (2, 8, 8, 512, 512, 80, 0, True),        # zamba2: D 80, MHA
+    (1, 4, 2, 70, 333, 80, 263, True),       # D 80, ragged, at an offset
+    (1, 4, 1, 1, 97, 80, 96, True),          # D 80, one q row
+    (1, 2, 2, 130, 130, 80, 0, False),
 ])
 def test_flash_kernel_matches_plain(dev, B, H, Hkv, Sq, Skv, D, q_offset,
                                     causal):
@@ -83,10 +88,11 @@ def test_flash_kernel_matches_plain(dev, B, H, Hkv, Sq, Skv, D, q_offset,
     assert torch.equal(probe, probe_ref)
 
 
-def test_flash_kernel_offset_rows_bitwise_off_grid(dev):
+@pytest.mark.parametrize("D", [64, 80])
+def test_flash_kernel_offset_rows_bitwise_off_grid(dev, D):
     gen = torch.Generator(device=dev).manual_seed(7)
-    q = _bf16((1, 4, 200, 64), gen, dev)
-    k, v = _bf16((1, 1, 200, 64), gen, dev), _bf16((1, 1, 200, 64), gen, dev)
+    q = _bf16((1, 4, 200, D), gen, dev)
+    k, v = _bf16((1, 1, 200, D), gen, dev), _bf16((1, 1, 200, D), gen, dev)
     whole = fa.flash_attention(q, k, v)
     for off, n in ((80, 50), (16, 16), (199, 1)):
         part = fa.flash_attention(q[:, :, off:off + n].contiguous(), k, v,
@@ -485,7 +491,8 @@ STATS_M_ATOL, STATS_L_RTOL = 1e-4, 1e-4
 
 
 @pytest.mark.parametrize("B,H,Hkv,S,D", [
-    (2, 8, 2, 1024, 64), (1, 4, 4, 300, 128), (2, 4, 1, 65, 64)])
+    (2, 8, 2, 1024, 64), (1, 4, 4, 300, 128), (2, 4, 1, 65, 64),
+    (1, 4, 4, 200, 80)])
 def test_flash_kernel_row_statistics_match_plain(dev, B, H, Hkv, S, D):
     gen = torch.Generator(device=dev).manual_seed(B * S + D)
     q, k, v = (_bf16(shape, gen, dev) for shape in
@@ -719,7 +726,7 @@ def test_kernel_probe_on_the_card_equals_oracle(dev, name):
 # paged kernel, against its plain version at that tile, with the declared
 # shared memory against ``cudaFuncGetAttributes``'
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("block_q,block_k",
                          [(bq, bk) for bq in fa.BLOCKS_Q for bk in fa.BLOCKS_K])
 def test_flash_kernel_tiles_match_plain(dev, block_q, block_k, D):

@@ -68,6 +68,19 @@ def test_prefill_and_decode_match_jax(over, atol, cache_atol):
 
 
 def test_unsupported_families_refused():
-    for arch in ("zamba2-2.7b", "granite-moe-1b-a400m", "musicgen-large"):
+    """Every registry arch builds; what is refused is a config no JAX
+    module takes either, and the sharded MoE path, which names its
+    ROADMAP item."""
+    from repro_torch.configs.registry import get_config, list_archs
+    from repro_torch.models import moe
+    from repro_torch.models.model import unsupported
+    for arch in list_archs():
+        assert unsupported(get_config(arch)) == ""
+        Model(smoke_config(arch))
+    for over in (dict(family="rnn"), dict(pos_emb="alibi"),
+                 dict(frontend="video")):
         with pytest.raises(NotImplementedError, match="not ported"):
-            Model(smoke_config(arch))
+            Model(smoke_config("tinyllama-1.1b").replace(**over))
+    cfg = smoke_config("granite-moe-1b-a400m")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        moe.moe_apply({}, torch.zeros(1, 1, cfg.d_model), cfg, mesh=object())

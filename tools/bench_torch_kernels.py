@@ -16,7 +16,13 @@ D=64) and for a chunked step (Sq=128 at q offset 384, Skv=512); paged
 decode with all 8 rows at pos 543 and with random positions (34 pages of
 16, a pool of 274 pages, 4 kv heads x 8 q rows, head dim 64); the SSD
 scan of one mamba2-370m prefill layer (B=8, L=1024, 32 heads of 64, one
-group, N=128, chunk 256, bf16, with the final state). For each:
+group, N=128, chunk 256, bf16, with the final state); and zamba2-2.7b's
+two (``flash_d80``: the shared-attention prefill, B=4, 32 q heads over
+32 kv heads, S=512, D=80; ``ssd_zamba2``: one SSM layer's scan, B=4,
+L=512, 80 heads of 64, one group, N=64, chunk 256); ``flash_d128``, the
+default launch at head dim 128 (qwen2-vl-72b's prefill shape: B=2, 64 q
+heads over 8 kv heads, S=512). A call a tree's
+kernels do not take (head dim 80 before it was built) reads null. For each:
 the median device time of one call with the stream held (the host's cost
 per call stays out, ``chip_smoke.time_ms``) and the host time of one
 wrapper call (``chip_smoke.host_us``). Prints the card, then one JSON
@@ -83,6 +89,13 @@ def main() -> int:
                          dtype=torch.int32).to(dev)
     sx, sa, sb, sc = chip_smoke.ssd_inputs(torch, dev, 8, 1024, 32, 64, 1,
                                            128, seed=2)
+    qz, kz, vz = (torch.randn((4, 32, 512, 80), generator=gen, device=dev
+                              ).to(torch.bfloat16) for _ in range(3))
+    zx, za, zb, zc = chip_smoke.ssd_inputs(torch, dev, 4, 512, 80, 64, 1, 64,
+                                           seed=3)
+    qh, kh, vh = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((2, 64, 512, 128), (2, 8, 512, 128),
+                                      (2, 8, 512, 128)))
     calls = {
         "flash_prefill": lambda: fa.flash_attention(q, k, v),
         "flash_chunk": lambda: fa.flash_attention(qc, k, v, q_offset=384),
@@ -93,9 +106,21 @@ def main() -> int:
         "ssd_prefill": lambda: ssd.ssd_scan(sx, sa, sb, sc, chunk=256,
                                             h_per_g=32,
                                             return_final_state=True),
+        "flash_d80": lambda: fa.flash_attention(qz, kz, vz),
+        "ssd_zamba2": lambda: ssd.ssd_scan(zx, za, zb, zc, chunk=256,
+                                           h_per_g=80,
+                                           return_final_state=True),
+        "flash_d128": lambda: fa.flash_attention(qh, kh, vh),
     }
     res = {}
-    for name, fn in calls.items():
+    for name, fn in list(calls.items()):
+        try:
+            fn()
+        except ValueError as e:         # a shape this tree does not take
+            print(f"{name}: {e}")
+            res[name] = None
+            del calls[name]
+            continue
         res[name] = dict(us=chip_smoke.time_ms(fn, reps=50) * 1e3,
                          host_us=chip_smoke.host_us(fn))
     smi = chip_smoke.nvidia_smi()
