@@ -170,6 +170,24 @@
    optimizer's scans over the leaves over 128 MiB, which equal the
    reference rule's). The kernels line gains one entry a (kernel, shape)
    of this step.
+16. the conformance harness (``repro_torch.testing``) and the engine soak
+   (``repro_torch.engine.soak``): ``run_conformance`` with all five
+   invariants on the card for the fast corpus's kernel graphs, seeds 0,
+   3, 4, 6 and 7 (kernel grid probing on), with the harness's flash and
+   SSD launches counted; each graph's unprobed call launches its flash
+   (seeds 0, 7) or SSD (3, 4, 6) block's kernel once and agrees with its
+   plain twin (``build(plain=True)``) within ``GRAPH_RTOL``; then the
+   soak at full width and depth tinyllama-1.1b (random weights from
+   seed 0), decode kernel on, 3 waves x 8 requests, plain and then under
+   pressure with chunks of 2 pages and every step probed: every soak
+   assertion (zero retraces, all served, balanced pages, flat host
+   memory, live tensors and device memory), flash launches == 22 x the
+   prefill and chunk steps and paged == 22 x the decode rounds after
+   warm-up, per wave pages, hit rate, evictions, memory and wall, and
+   tokens/s; then the flash kernel at seed 0's padded shape, the SSD
+   kernels at seed 6's and paged at the soak's decode shape against their
+   plain versions, timed with their bounds. The kernels line gains those
+   three entries.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -192,9 +210,11 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s and dense bf16 tensor-core FLOP/s
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core FLOP/s
+# and f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 # spin of the timing hold, ~20 ms at the H100's ~1.98 GHz boost clock
 HOLD_CYCLES = 40_000_000
 
@@ -350,8 +370,8 @@ def sdpa_flash(torch, F, q, k, v, q_offset: int):
                 "flash backend, K/V expanded to the q heads")
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -2683,6 +2703,247 @@ def tile_lines(tiles, serve_tiles) -> list:
                           bound_by=t["bound"][1], library_ms=t["lib"]))
     return lines
 
+# -------------------------------------------------------------- step 16
+# the conformance harness and the engine soak
+
+CONF_SEEDS = (0, 3, 4, 6, 7)    # the fast corpus's kernel graphs
+# a graph's output sum(x * x) against its plain twin (``build(plain=
+# True)``), relative: only the kernel block differs. Flash: the kernel and
+# its plain version round p to bf16 after maxima and sums taken in other
+# orders, a few bf16 ulps (2^-8) of some outputs, damped by the block's
+# 0.5 residual and averaged over the sum; SSD in f32: summation order
+# (1e-5 of max |y| against plain, tests/test_torch_cuda.py)
+GRAPH_RTOL = 1e-3
+# the SSD kernels in f32 against their plain version at the graph's
+# shape, relative to max |y|
+SSD_GRAPH_RTOL = 1e-5
+# the flash kernel against its plain version at a graph's padded shape,
+# relative to max |plain|: the graph's values are small (v ~ 0.1, near
+# uniform weights), so an absolute bf16 limit set for randn inputs would
+# be the size of the outputs. A few bf16 ulps (2^-8) of the largest
+# output pass; a kernel that drops the causal mask reads ~1 (checked)
+FLASH_GRAPH_RTOL = 1e-2
+SOAK_WAVES, SOAK_RPW = 3, 8
+
+
+@contextlib.contextmanager
+def _spy(mod, names, seen):
+    """Record the first call's arguments of ``mod.<name>`` for each name."""
+    real = {n: getattr(mod, n) for n in names}
+
+    def wrap(n):
+        def call(*a, **k):
+            seen.setdefault(n, (a, k))
+            return real[n](*a, **k)
+        return call
+    for n in names:
+        setattr(mod, n, wrap(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(mod, n, real[n])
+
+
+def conformance_seeds(torch, counters, dev):
+    """Step 16 (a): every invariant of ``run_conformance`` on the card for
+    the kernel graphs among the fast seeds; each graph's unprobed call
+    launches its kernel blocks' kernels once each and agrees with its
+    plain twin; returns the launches of the whole harness run and each
+    seed's kernel inputs."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.testing import (INVARIANTS, build, random_spec,
+                                     run_conformance)
+    _zero(counters)
+    stats = {}
+    for seed in CONF_SEEDS:
+        t0 = time.perf_counter()
+        stats[seed] = run_conformance(random_spec(seed), device=dev)
+        stats[seed]["seconds"] = time.perf_counter() - t0
+        assert stats[seed]["invariants"] == INVARIANTS
+    torch.cuda.synchronize()
+    harness = _launches(counters)
+    print(f"conformance harness over seeds {CONF_SEEDS}: launches flash, "
+          f"paged, ssd {harness}")
+    assert harness[0] > 0 and harness[2] > 0 and harness[1] == 0, harness
+    inputs = {}
+    for seed in CONF_SEEDS:
+        spec = random_spec(seed)
+        fn, args = build(spec, device=dev)
+        want = (sum(b.kind == "flash_kernel" for b in spec.blocks), 0,
+                sum(b.kind == "ssd_kernel" for b in spec.blocks))
+        _zero(counters)
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = _launches(counters)
+        with _spy(kops, ("flash_attention", "ssd_scan"), {}) as seen:
+            again = fn(*args)
+        inputs[seed] = seen
+        plain = build(spec, device=dev, plain=True)[0](*args)
+        torch.cuda.synchronize()
+        rel = abs(out.item() - plain.item()) / abs(plain.item())
+        st = stats[seed]
+        blocks = ", ".join(f"{b.kind}/{b.wrapper}" for b in spec.blocks)
+        print(f"conformance seed {seed} ({blocks}): "
+              f"{st['n_probes']} probes, {st['cycle']} cycles, "
+              f"{st['seconds']:.2f} s, all {len(INVARIANTS)} invariants; "
+              f"one unprobed call launches flash, paged, ssd {got} (want "
+              f"{want}); output {out.item():.6f}, |graph - plain twin| / "
+              f"|plain| {rel:.3e} (rtol {GRAPH_RTOL})")
+        assert got == want, (seed, got, want)
+        assert torch.equal(out, again) and torch.isfinite(out)
+        assert rel <= GRAPH_RTOL, (seed, rel)
+    return harness, inputs
+
+
+def harness_flash_line(torch, F, fa, inputs, launches, smi):
+    """The flash kernel at a graph's padded shape (seed 0: B 2, 2 heads,
+    S 32, head dim 16 padded to 64, bf16) against its plain version."""
+    (q, k, v), _ = inputs[0]["flash_attention"]
+    out = fa.flash_attention(q, k, v)
+    plain = fa.flash_attention_plain(q, k, v)
+    # teeth: a kernel that ignored the causal mask
+    unmasked = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    err = (out.float() - plain.float()).abs().max().item()
+    top = plain.float().abs().max().item()
+    rel, wrong = rel_err(out, plain), rel_err(unmasked, plain)
+    assert torch.isfinite(out.float()).all() and rel <= FLASH_GRAPH_RTOL, rel
+    assert wrong > FLASH_GRAPH_RTOL, wrong
+    flops, nbytes = fa.flash_cost(q, k, v)
+    ms = time_ms(lambda: fa.flash_attention(q, k, v))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), reps=3)
+    sdpa, how = sdpa_flash(torch, F, q, k, v, 0)
+    lib_ms = time_ms(sdpa)
+    bnd = bound(nbytes, flops)
+    B, H, S, D = q.shape
+    print(f"flash at graphgen seed 0 (B {B}, {H} heads, S {S}, D {D} "
+          f"padded from 16): max |kernel - plain| {err:.3e}, max |plain| "
+          f"{top:.3e}, ratio {rel:.3e} (rtol {FLASH_GRAPH_RTOL}; without "
+          f"the causal mask {wrong:.3e}); {ms * 1e3:.1f} us held (bound "
+          f"{bnd[0] * 1e3:.4f} us by {bnd[1]}), plain {plain_ms * 1e3:.1f} "
+          f"us, SDPA ({how}) {lib_ms * 1e3:.1f} us ({smi})")
+    return _kernel_line(
+        f"flash_attention D64 padded (graphgen seed 0, B {B}, {H}/{H} heads, "
+        f"S {S}, head dim 16 zero-padded)", *FLASH_SRC, launches[0], err, ms,
+        plain_ms, bnd, lib_ms)
+
+
+def harness_ssd_line(torch, ssd, inputs, launches, smi):
+    """The SSD kernels at a graph's padded shape (seed 6: B 1, L 32, 2
+    heads, P 16 padded to 64, N 8 padded to 64, chunk 16, f32) against
+    their plain version."""
+    (x, a, b, c), kw = inputs[6]["ssd_scan"]
+    kw = dict(chunk=kw["chunk"], h_per_g=kw["h_per_g"])
+    y = ssd.ssd_scan(x, a, b, c, **kw)
+    py = ssd.ssd_scan_plain(x, a, b, c, **kw)
+    torch.cuda.synchronize()
+    rel = rel_err(y, py)
+    err = (y - py).abs().max().item()
+    assert torch.isfinite(y).all() and rel <= SSD_GRAPH_RTOL, rel
+    flops, nbytes = ssd.ssd_cost(x, a, b, c, kw["chunk"], False)
+    ms = time_ms(lambda: ssd.ssd_scan(x, a, b, c, **kw))
+    plain_ms = time_ms(lambda: ssd.ssd_scan_plain(x, a, b, c, **kw), reps=3)
+    bnd = bound(nbytes, flops, F32_FLOPS)
+    B, L, H, P = x.shape
+    print(f"ssd at graphgen seed 6 (B {B}, L {L}, H {H}, P {P}, N "
+          f"{b.shape[3]}, chunk {kw['chunk']}, f32): max |kernel - plain| / "
+          f"max |plain| {rel:.3e} (rtol {SSD_GRAPH_RTOL}); {ms * 1e3:.1f} us "
+          f"held (bound {bnd[0] * 1e3:.5f} us by {bnd[1]}), plain "
+          f"{plain_ms * 1e3:.1f} us ({smi})")
+    return _kernel_line(
+        f"ssd_scan f32 (graphgen seed 6, B {B}, L {L}, H {H}, P 16 and N 8 "
+        f"zero-padded to 64, chunk {kw['chunk']})", *SSD_SRC, launches[2],
+        err, ms, plain_ms, bnd, None)
+
+
+@contextlib.contextmanager
+def _zero_after_warmup(torch, counters):
+    """Counts from the soak's first wave on: the engine's warm-up (every
+    step built and, probed, captured) is set-up."""
+    from repro_torch.engine.engine import InferenceEngine
+    real = InferenceEngine.warmup
+
+    def warmup(self):
+        real(self)
+        torch.cuda.synchronize()
+        _zero(counters)
+    InferenceEngine.warmup = warmup
+    try:
+        yield
+    finally:
+        InferenceEngine.warmup = real
+
+
+def soak_runs(torch, counters, dev, smi):
+    """Step 16 (b): the soak at full width and depth tinyllama-1.1b
+    (random weights from seed 0), decode kernel on: plain, then under
+    pressure with chunked prefill and every step probed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.engine.soak import soak
+    cfg = get_config(ARCH)
+    runs = {}
+    for name, kw in (("kernel", dict()),
+                     ("pressure chunk 2 probed",
+                      dict(pressure=True, chunk=2, probe=True))):
+        t0 = time.perf_counter()
+        with _zero_after_warmup(torch, counters):
+            print(f"soak [{name}] ({ARCH} full, {SOAK_WAVES} waves x "
+                  f"{SOAK_RPW} requests, {smi}):")
+            out = soak(waves=SOAK_WAVES, requests_per_wave=SOAK_RPW, seed=0,
+                       use_kernel=True, device=dev, cfg=cfg, **kw)
+        torch.cuda.synchronize()
+        got = _launches(counters)
+        ph = out["phases"]
+        pre = ph["prefill"]["steps"] + ph.get("chunkpf", {}).get("steps", 0)
+        dec = ph["decode"]["steps"]
+        want = (cfg.num_layers * pre, cfg.num_layers * dec, 0)
+        wall = sum(out["wave_seconds"])
+        print(f"soak [{name}]: {out['served']} served, {out['tokens']} "
+              f"tokens in {wall * 1e3:.1f} ms of waves, "
+              f"{out['tokens'] / wall:.1f} tokens/s ({smi}); prefill and "
+              f"chunk steps {pre}, decode rounds {dec}, buckets "
+              f"{out['buckets']}, pages peak {out['pages_peak']}, hit rate "
+              f"{out['prefix_hit_rate']:.3f}, evictions {out['evictions']}; "
+              f"host mem {out['mem_first']} -> {out['mem_last']} B, live "
+              f"tensors {out['buffers_first']} -> {out['buffers_last']}, "
+              f"device mem {out['device_mem_first']} -> "
+              f"{out['device_mem_last']} B; launches flash, paged, ssd {got} "
+              f"(want {want}); {time.perf_counter() - t0:.1f} s with "
+              f"warm-up")
+        assert got == want, (name, got, want)
+        assert out["retraces"] == 0 and out["served"] == SOAK_WAVES * SOAK_RPW
+        runs[name] = dict(out=out, launches=got)
+    return runs
+
+
+def harness_phase(torch, fa, pa, ssd, dev, smi):
+    """Step 16: the conformance harness on the card over the kernel
+    graphs, the soak at full width, and the kernels at their shapes."""
+    import torch.nn.functional as F
+    counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+    print(f"step 16, the conformance harness and the soak, on {smi}")
+    t0 = time.perf_counter()
+    harness, inputs = conformance_seeds(torch, counters, dev)
+    print(f"step 16 conformance done at {time.perf_counter() - t0:.1f} s")
+    runs = soak_runs(torch, counters, dev, smi)
+    print(f"step 16 soaks done at {time.perf_counter() - t0:.1f} s")
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(ARCH)
+    paged_l = sum(r["launches"][1] for r in runs.values())
+    pg = paged_at(torch, pa, dev, 4, cfg.num_kv_heads, cfg.q_per_kv,
+                  cfg.resolved_head_dim, 8, 87, f"{ARCH} soak decode", smi)
+    lines = [
+        harness_flash_line(torch, F, fa, inputs, harness, smi),
+        harness_ssd_line(torch, ssd, inputs, harness, smi),
+        _kernel_line(f"paged_attention (the soak's decode, {ARCH}, B 4, "
+                     f"{cfg.num_kv_heads} kv heads x {cfg.q_per_kv} rows, hd "
+                     f"{cfg.resolved_head_dim}, 8 pages)", *PAGED_SRC,
+                     paged_l, pg["err"], pg["ms"], pg["plain_ms"],
+                     pg["bound"], None)]
+    print(f"step 16 took {time.perf_counter() - t0:.1f} s")
+    return lines
+
 
 def main() -> int:
     import torch
@@ -2740,6 +3001,7 @@ def main() -> int:
     dse = dse_phase(torch, fa, pa, ssd, kpe, dev, smi)
     print(f"step 14 took {time.perf_counter() - t_dse:.1f} s")
     fam = families_phase(torch, fa, pa, ssd, dev, smi)
+    harness = harness_phase(torch, fa, pa, ssd, dev, smi)
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -2833,7 +3095,7 @@ def main() -> int:
              bound_by=pev["bound"][1], library_ms=None),
         train_kernel(torch, fa, tr),
         fold,
-    ] + tile_lines(dse["tiles"], dse["serve_tiles"]) + fam["lines"]
+    ] + tile_lines(dse["tiles"], dse["serve_tiles"]) + fam["lines"] + harness
     for kn in kernels:
         print(f"{kn['name']}: {kn['ms'] * 1e3:.1f} us (bound "
               f"{kn['bound_ms'] * 1e3:.2f} us by {kn['bound_by']}), plain "

@@ -179,7 +179,8 @@ class Runner(sc.Tracker):
         self.launches = 0
         self.folds = 0                 # probe_grid launches
         self.transitions = 0
-        self.dumps = 0
+        self.dumps = 0                 # spilled rows copied to the host
+        self.copies = 0                # their copies (a fold's: one)
         self.cycles = 0                # model cycles added to the clock
         self.rows_hint = rows_hint
         self._blocks: List[torch.Tensor] = []     # spilled rows, in order
@@ -228,6 +229,7 @@ class Runner(sc.Tracker):
         self._spilled[0].append(pid)
         self._spilled[1].append(base)
         self.dumps += 1
+        self.copies += 1
 
     def _ship(self) -> None:
         """Hand the run's spilled rows to the sink, with one event after
@@ -275,11 +277,16 @@ class Runner(sc.Tracker):
             host = torch.empty(dump.shape, dtype=dump.dtype,
                                pin_memory=dump.device.type == "cuda")
             host.copy_(dump, non_blocking=True)
+            if self._blocks:
+                # the rows spilled so far end where they were filled: an
+                # unfilled tail would ship as rows of later probes
+                self._blocks[-1] = self._blocks[-1][:self._fill]
             self._blocks.append(host)
             self._fill = len(host)
             self._spilled[0].extend(pid for pid, _ in rows)
             self._spilled[1].extend(base for _, base in rows)
             self.dumps += len(rows)
+            self.copies += 1
 
     def kernel(self, name, cost, plan=None):
         if self.in_kernel or plan is None:
@@ -343,7 +350,8 @@ class Runner(sc.Tracker):
 
     def stats(self) -> Dict[str, int]:
         return dict(transitions=self.transitions, launches=self.launches,
-                    folds=self.folds, dumps=self.dumps, cycles=self.cycles)
+                    folds=self.folds, dumps=self.dumps, copies=self.copies,
+                    cycles=self.cycles)
 
 
 class _RunKernel:

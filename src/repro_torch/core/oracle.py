@@ -21,6 +21,12 @@ step's cycles from the plan and the counts its *inputs* imply
 (``GridPlan.expected``), never from the kernel's counter block, so
 device record == oracle also checks that the kernel skipped what the
 plan says. ``KernelOracle`` adds the grid-totals helper.
+
+``copies`` counts the device-to-host copies of spilled ring rows that
+the run's rule implies: one a filled ring of a spilled probe, and one a
+kernel call in whose grid a spilled probe fills a ring (its rows go out
+in one block). ``core.overhead`` holds the instrumented run's copies to
+it.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ class OracleCounters:
     calls: List[int] = field(default_factory=list)
     ring: List[List[Tuple[int, int]]] = field(default_factory=list)
     history: List[List[Tuple[int, int]]] = field(default_factory=list)
+    copies: int = 0
 
     def __post_init__(self):
         z = [0] * self.n
@@ -63,6 +70,7 @@ class Oracle(OpTracker):
         self.st = OracleCounters(n=assignment.n, depth=assignment.depth)
         self._kpaths: Dict[int, str] = {}      # kernel site -> its path
         self._kindex: Dict[str, int] = {}      # parent path -> kernels
+        self._in_grid = False                  # replaying a kernel's grid
 
     def run(self, fn, *args, **kwargs) -> OracleCounters:
         with self:
@@ -93,6 +101,8 @@ class Oracle(OpTracker):
             st.ring[pid][slot] = (st.ring[pid][slot][0], t)
         st.history[pid][-1] = (st.history[pid][-1][0], t)
         st.calls[pid] += 1
+        if spill and not self._in_grid and st.calls[pid] % depth == 0:
+            st.copies += 1                     # a filled ring
 
     def _transition(self, old: str, new: str):
         a, b = self.asg.chain(old), self.asg.chain(new)
@@ -156,7 +166,11 @@ class Oracle(OpTracker):
         paths = kp.grid_paths(kpath, plan)
         gpath, inner = paths[0], paths[1:]
         cycles = plan.step_cycles(plan.expected()).tolist()
-        st = self.st
+        st, depth = self.st, self.asg.depth
+        spilled = [i for i in map(self.asg.id_of, paths)
+                   if i is not None and self.asg.spill[i]]
+        rings = [st.calls[i] // depth for i in spilled]
+        self._in_grid = True
         for step in cycles:
             self._transition(kpath, gpath)
             st.cycle += plan.transfer
@@ -167,6 +181,9 @@ class Oracle(OpTracker):
                 st.cycle += c
             self._transition(cur, gpath)
             self._transition(gpath, kpath)
+        self._in_grid = False
+        if [st.calls[i] // depth for i in spilled] != rings:
+            st.copies += 1                     # the grid's filled rings
 
 
 class KernelOracle(Oracle):

@@ -8,7 +8,8 @@ The JAX package spends "resource" as extra HLO equations and on-device
 state bytes; an eager PyTorch program has no HLO, and what the probe
 adds to it is launches: the instrumented run's ``probe_events`` launches
 (one a scope transition), ``probe_grid`` folds (one a kernel-probed
-call) and the copies of spilled ring rows. So here
+call) and the copies of spilled ring rows (one a filled ring; one for a
+kernel call's spilled grid rows). So here
 
     extra_eqns(N, D, E, ...)  =  those launches a call, against
     base_eqns                 =  the program's own operations a call
@@ -18,8 +19,16 @@ call) and the copies of spilled ring rows. So here
     state_bytes(N, D)         =  8 + N*(32 + 16*D)   (``buffer.state_bytes``)
 
 where N = probes, D = ring depth, E = static event sites. The linear
-``OverheadModel`` is fitted to measured samples exactly as the JAX
-package fits its own (the same features, the same least squares), and
+``OverheadModel`` is fitted to measured samples as the JAX package fits
+its own (the same features, the same least squares) over the launches;
+the copies are not fitted. The JAX package's spill is a static ``cond``
+at each exit site of a spilled probe, whatever the depth; here each
+ring that fills is a copy at run time, so halving the depth doubles
+them, which no static feature sees. The oracle counts them from its
+own run (``OracleCounters.copies``, not the instrumented run's
+counter): ``spill_copies``, which the model adds as it stands, and
+which ``testing.conformance`` holds the measured ``copies`` to exactly.
+Samples without spill fit JAX's coefficients bit for bit. And
 ``adapt_allocation`` shrinks depth, then probes, to fit a state budget
 (the paper's "adjusts the number of profiling modules and queue
 depths").
@@ -102,8 +111,9 @@ def measure_overhead(fn, args, cfg: ProbeConfig, device=None,
                      pf: ProbedFunction = None) -> Dict[str, Any]:
     """Measured instrumentation cost of ``fn(*args)`` under ``cfg``: the
     extra launches of one instrumented call (``probe_events``,
-    ``probe_grid``, dump copies) beside the program's own operations,
-    and the state bytes. ``pf`` (a ``ProbedFunction`` of ``fn`` already
+    ``probe_grid``, spill ``copies``) beside the program's own
+    operations, the oracle's count of the copies (``spill_copies``) and
+    the state bytes. ``pf`` (a ``ProbedFunction`` of ``fn`` already
     captured for ``args``) is retargeted to ``cfg`` and reused."""
     from repro_torch.core.incremental import capture_ops
     base_eqns = len(capture_ops(fn, args))
@@ -113,7 +123,7 @@ def measure_overhead(fn, args, cfg: ProbeConfig, device=None,
         pf.retarget(cfg)
     pf(*args)
     run = pf.last_run
-    extra = run["launches"] + run["folds"] + run["dumps"]
+    extra = run["launches"] + run["folds"] + run["copies"]
     n = pf.assignment.n
     sites = count_sites(pf, args)
     return dict(
@@ -125,6 +135,9 @@ def measure_overhead(fn, args, cfg: ProbeConfig, device=None,
         event_sites=sites["event_sites"],
         transitions=sites["transitions"],
         cf_sites=sites["cf_sites"],
+        copies=run["copies"],
+        spill_copies=(pf.oracle(*args).copies if any(pf.assignment.spill)
+                      else 0),
         state_bytes=state_bytes(n, cfg.buffer_depth),
     )
 
@@ -132,7 +145,8 @@ def measure_overhead(fn, args, cfg: ProbeConfig, device=None,
 @dataclass
 class OverheadModel:
     """extra_eqns ~ c0 + c1*n_probes + c2*event_sites + c3*transitions
-    + c4*cf_sites (the JAX package's model and fit, unchanged).
+    + c4*cf_sites + spill_copies (the JAX package's model and fit, with
+    the oracle's spill copies added as they stand, not fitted).
 
     ``cf_sites`` prices control-flow-heavy configs; ``n_probes`` is the
     paper's per-probe term (Σ_i C_1 + C_2·D_i).
@@ -150,12 +164,14 @@ class OverheadModel:
     @classmethod
     def fit(cls, samples: Sequence[Dict[str, Any]]) -> "OverheadModel":
         X = np.array([cls.features(s) for s in samples])
-        y = np.array([s["extra_eqns"] for s in samples], dtype=float)
+        y = np.array([s["extra_eqns"] - s.get("spill_copies", 0)
+                      for s in samples], dtype=float)
         coefs, *_ = np.linalg.lstsq(X, y, rcond=None)
         return cls(coefs=tuple(float(c) for c in coefs))
 
     def predict_eqns(self, sample: Dict[str, Any]) -> float:
-        return float(np.dot(self.coefs, self.features(sample)))
+        return float(np.dot(self.coefs, self.features(sample))) \
+            + sample.get("spill_copies", 0)
 
     @staticmethod
     def predict_state_bytes(n_probes: int, depth: int) -> int:

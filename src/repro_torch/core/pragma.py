@@ -109,6 +109,17 @@ def _leaf_key(x) -> tuple:
     return ("static", repr(x))
 
 
+def _sorted_dicts(tree):
+    """``tree`` with every dict's keys in sorted order, as the JAX
+    package's pytrees order them: a capture is keyed on the arguments'
+    structure, not on the order a caller built a dict in."""
+    if type(tree) is dict:
+        return {k: _sorted_dicts(tree[k]) for k in sorted(tree)}
+    if type(tree) in (list, tuple):
+        return type(tree)(_sorted_dicts(x) for x in tree)
+    return tree
+
+
 class ProbedFunction:
     """Instrumented wrapper around an eager PyTorch function."""
 
@@ -131,7 +142,7 @@ class ProbedFunction:
         """The hierarchy for these arguments' shapes (captured by one run
         of the function the first time) and the config's kernel probes
         (a view of the capture: flipping them captures nothing)."""
-        leaves, spec = pytree.tree_flatten((args, kwargs))
+        leaves, spec = pytree.tree_flatten(_sorted_dicts((args, kwargs)))
         key = (spec, tuple(_leaf_key(x) for x in leaves))
         kkey = tuple(self.config.kernel_probes)
         if self._hierarchy is None or key != self._key:

@@ -29,6 +29,8 @@ PORT_MODULES = (
     "repro_torch.telemetry", "repro_torch.telemetry.bus",
     "repro_torch.telemetry.sentinel", "repro_torch.telemetry.server",
     "repro_torch.testing", "repro_torch.testing.faults",
+    "repro_torch.testing.graphgen", "repro_torch.testing.conformance",
+    "repro_torch.testing.sweep", "repro_torch.engine.soak",
     "repro_torch.engine",
     "repro_torch.engine.pagetable", "repro_torch.engine.step",
     "repro_torch.engine.engine", "repro_torch.launch.serve",
@@ -106,6 +108,23 @@ def test_dse_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
         run_sweep("flash_attention")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve(batch=1, prompt_len=4, max_new=1, autotune=True)
+
+
+def test_harness_entry_points_refuse_to_run_without_a_gpu(monkeypatch):
+    """With no GPU and no device="cpu", graphgen's build, run_conformance,
+    the sweep's CLI and the soak raise."""
+    from repro_torch.engine.soak import soak
+    from repro_torch.testing import build, random_spec, run_conformance
+    from repro_torch.testing.sweep import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(random_spec(7))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_conformance(random_spec(7))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--count", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        soak(waves=1, requests_per_wave=1, verbose=False)
 
 
 def test_serve_engine_and_legacy_loop_agree_on_cpu():

@@ -533,6 +533,20 @@ def test_scalars_are_run_time_values():
     _assert_exact(pf, rec, pf.oracle(p, cache, batch))
 
 
+def test_dict_key_order_is_not_a_new_capture():
+    """Dicts key the capture in sorted key order, as JAX's pytrees do."""
+    _, _, fn, make = _model("tinyllama_decode")
+    pf = probe(fn, ProbeConfig(inline="off_all", max_probes=500),
+               device="cpu")
+    p, cache, batch = make()
+    pf(p, cache, batch)
+    flipped = dict(reversed(list(batch.items())))
+    assert list(flipped) != list(batch)
+    _, rec = pf(p, cache, flipped)
+    assert pf.captures == 1
+    _assert_exact(pf, rec, pf.oracle(p, cache, flipped))
+
+
 def test_wallclock_on_the_cpu():
     _, fn, args = _small("scan")
     pf = probe(fn, ProbeConfig(inline="off_all", cycle_source="wallclock"),
