@@ -59,7 +59,7 @@
    host-device syncs in a step (``torch.cuda.set_sync_debug_mode``) with
    the session's host mirrors and with the device reads they replace,
    the capture time and ``state_nbytes``; then the batch walls in turns
-   (median of 5): unprobed, probed, probed with those device reads, and
+   (median of 3): unprobed, probed, probed with those device reads, and
    probed with the spilled rows' copies made no-ops;
 10. serves mamba2-370m at full width through the legacy loop profiled
    (``profile=True``, ``profile_every=8``: the decode loop under a
@@ -75,7 +75,7 @@
    shape, its output and row statistics (m, l) against the plain version
    and the output with statistics bitwise the serving launch's, and the
    backward (``_flash_bwd``) from the kernel's forward against the same
-   backward from the plain forward; then 2 warm-up and 2 timed steps
+   backward from the plain forward; then 1 warm-up and 2 timed steps
    (finite losses, flash launches == 2 x 22 x steps: forward and remat
    recompute; no paged or SSD launch), step wall, tokens/s, peak memory
    and model FLOP/s against the bf16 peak, a profiled step, the
@@ -92,8 +92,8 @@
    MiB, which equal the reference rule's (7: five stacked leaves by
    layer, the embedding and unembedding by row); probed against unprobed walls, transitions and launches
    a step, the ``~bwd`` share of the model clock; then the trainer
-   (``launch.train.train``, its ``--probe``: a ``ProbeSession``) for 2
-   steps, its ``[probe]`` lines and tables printed;
+   (``launch.train.train``, its ``--probe``: a ``ProbeSession``) for 1
+   step, its ``[probe]`` lines and tables printed;
 12. times each kernel (CUDA events, median) beside its plain version, a
    library call where one computes the same function (attention: SDPA
    under its flash backend), and its bound, at the main path's shapes:
@@ -162,7 +162,7 @@
    width with 1 of 35 layers through the engine (4 x 512, 8 new,
    ``max_memory_allocated``); each of those kernel shapes held against
    its plain version and timed; then mamba2-370m trained at full width
-   (B 8 x S 2048, 1 warm-up and 2 timed steps: wall, tokens/s, peak
+   (B 8 x S 2048, 1 warm-up and 1 timed step: wall, tokens/s, peak
    memory, the optimizer's row scans, no kernel launch: training takes
    the plain SSD path), the last step probed (outputs bitwise the
    unprobed step's, record == oracle, paths and calls the CPU's at smoke
@@ -188,6 +188,32 @@
    kernels at seed 6's and paged at the soak's decode shape against their
    plain versions, timed with their bounds. The kernels line gains those
    three entries.
+17. mesh-aware probing over ``torch.distributed`` (``repro_torch.core.
+   mesh_probe``, one rank a device): NCCL with more ranks than cards
+   must raise (naming gloo); world 1 over NCCL in this process: the
+   legacy serve of tinyllama-1.1b at full width with ``--mesh 1
+   --profile`` (8 x 512, 16 new; ids == the unprofiled legacy serve's,
+   flash 22, the session's calls == steps x one step's) and one
+   full-width ``build_dp_train_step`` (B 4 x S 512, bf16 master params,
+   so AdamW scans no row) under ``mesh_probe``: record == ``ShardOracle``
+   exactly, outputs bitwise ``unprobed()``'s, ``grad_exchange``'s
+   all-reduces at G 1 with 0 wire bytes, flash 44 (forward and remat
+   recompute); world 2 over gloo, both ranks on this card
+   (``launch.mesh.spawn``; a failed rank fails the step): which
+   collectives gloo runs on the card's tensors, each kind in a world of
+   its own so that a crash is reported (all-reduce, the DP step's one
+   kind, asserted), the skew workload (record == oracle on every device,
+   bitwise, 3-step session == 3 x one-shot, ``dynamic`` growing with the
+   device), the DP step at smoke width with head dim 64 (the same checks,
+   ``grad_exchange`` wire bytes > 0, flash 4 a rank in its probed call)
+   and one all-reduce-mean of its gradients timed, then, in the same two
+   ranks, the full-width mesh decode session (batch 8 split 4/4; ids ==
+   the unprofiled serve's, flash 22 a rank). One ``mesh [...]`` line a
+   run: world, backend, probes, per-device span and skew, comm cycles,
+   probed and unprobed wall, capture seconds, flash launches. Then flash
+   at the DP step's shape with statistics against plain (1e-2 of max
+   |plain|; a dropped causal mask must fail it), timed beside SDPA with
+   its bound: one more kernels-line entry.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -273,10 +299,10 @@ STEP_LOSS_ATOL, STEP_GNORM_RTOL, STEP_GRAD_RTOL = 1e-4, 5e-3, 2e-2
 CHUNK_LOGIT_ATOL = 5e-2
 # two timed and two session steps: the whole script stays well inside its
 # time limit
-TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, SESSION_STEPS = 8, 2048, 2, 2, 2
+TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS, SESSION_STEPS = 8, 2048, 1, 2, 1
 
 ARCH, BATCH, PROMPT, MAX_NEW, CHUNK = "tinyllama-1.1b", 8, 512, 32, 8
-WALL_TURNS = 5
+WALL_TURNS = 3
 SSM_ARCH, SSM_PROMPT = "mamba2-370m", 1024
 
 
@@ -635,13 +661,15 @@ def ssm_consistency(torch, dev):
           f"max |diff| / max |logit| {err:.3e}; same argmax {same}")
 
 
-def walls_ms(torch, fns: dict, reps: int = 9) -> dict:
+def walls_ms(torch, fns: dict, reps: int = 9, warm: bool = True) -> dict:
     """Median wall time (ms) of one call of each function, host in the
     loop, device synced after each call; the functions take turns, so
-    that a slow spell of the shared host falls on all of them."""
+    that a slow spell of the shared host falls on all of them. ``warm``
+    calls each once first (off where the caller just ran them)."""
     ts = {k: [] for k in fns}
-    for k, fn in fns.items():
-        fn()
+    if warm:
+        for k, fn in fns.items():
+            fn()
     torch.cuda.synchronize()
     for _ in range(reps):
         for k, fn in fns.items():
@@ -1646,11 +1674,11 @@ def train_phase(torch, fa, pa, ssd, dev, smi):
     opt_ms = walls_ms(torch, {
         "update": lambda: adamw.update(params, params, opt, tcfg, sched),
         "rows": lambda: adamw.update(rows, rows, rows_opt, tcfg, sched)},
-        reps=1)
+        reps=1, warm=False)
     del rows, rows_opt
     print(f"optimizer update {opt_ms['update']:.1f} ms a step, of which the "
-          f"row scans of the 2-D leaves {opt_ms['rows']:.1f} ms (one run "
-          f"after a warm-up, host clock, synced)")
+          f"row scans of the 2-D leaves {opt_ms['rows']:.1f} ms (one run, "
+          f"after the timed steps ran it, host clock, synced)")
 
     # the step's forward and backward with the flash forward by the kernel
     # and by its plain function, same params and batch
@@ -1727,10 +1755,11 @@ def train_phase(torch, fa, pa, ssd, dev, smi):
     bwd_share = int(dec["totals"][ids["loss~bwd"]]) / dec["cycle"]
     walls_pu = walls_ms(torch, {"unprobed": lambda: step(params, opt, batch),
                                 "probed": lambda: pf(params, opt, batch)},
-                        reps=3)
+                        reps=1, warm=False)
     run_stats = pf.last_run
     print(f"probe overhead: step wall {walls_pu['unprobed']:.1f} ms unprobed, "
-          f"{walls_pu['probed']:.1f} ms probed (median of 3, in turns); "
+          f"{walls_pu['probed']:.1f} ms probed (one each, in turns, both "
+          f"run just before); "
           f"{run_stats['transitions']} transitions, {run_stats['launches']} "
           f"probe_events launches a step; ~bwd share of the model clock "
           f"{100 * bwd_share:.1f} % ({smi})")
@@ -1743,8 +1772,8 @@ def train_phase(torch, fa, pa, ssd, dev, smi):
         c.launches = 0
     t0 = time.perf_counter()
     _, _, hist = train(ARCH, smoke=False, steps=SESSION_STEPS, batch=B,
-                       seq=S, probe_targets=("",), probe_every=2,
-                       log_every=2, device=dev)
+                       seq=S, probe_targets=("",), probe_every=1,
+                       log_every=1, device=dev)
     print(f"trainer under a ProbeSession: {SESSION_STEPS} steps in "
           f"{time.perf_counter() - t0:.1f} s (init and capture included), "
           f"losses {[round(x, 4) for x in hist]}, flash launches "
@@ -2487,7 +2516,7 @@ def big_moe_serve(torch, counters, serve, dev):
 def ssm_train_phase(torch, counters, dev, smi):
     """mamba2-370m trains at full width (48 layers, f32 master params,
     bf16 compute, remat full, the plain SSD path), B 8 x S 2048 from the
-    port's TokenPipeline: 1 warm-up and 2 timed steps, the optimizer's
+    port's TokenPipeline: 1 warm-up and 1 timed step, the optimizer's
     row scans, then the last step probed: outputs bitwise the unprobed
     step's, record == oracle, and paths and calls those of the same step
     probed on the CPU at smoke width with 48 layers and the card's chunk
@@ -2511,14 +2540,14 @@ def ssm_train_phase(torch, counters, dev, smi):
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
                                     global_batch=B, seed=0))
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in
-                pipe.batch_at(i).items()} for i in range(3)]
+                pipe.batch_at(i).items()} for i in range(2)]
     params, opt, met = step(params, opt, batches[0])
     warm = float(met["loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _zero(counters)
     walls, losses = [], []
-    for i in (1, 2):
+    for i in (1,):
         prev = (params, opt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2532,7 +2561,7 @@ def ssm_train_phase(torch, counters, dev, smi):
     ms = statistics.median(walls) * 1e3
     print(f"train {SSM_ARCH} full width, B={B} S={S}: losses "
           f"{[round(x, 4) for x in [warm] + losses]}; step wall {ms:.1f} ms "
-          f"(median of 2 after 1 warm-up, host clock, synced; runs "
+          f"(one run after 1 warm-up, host clock, synced; runs "
           f"{[round(w * 1e3, 1) for w in walls]}), {B * S / ms * 1e3:.0f} "
           f"tokens/s, peak memory {peak / 2**30:.2f} GiB ({smi}); launches "
           f"flash, paged, ssd {got} (want (0, 0, 0): training takes the "
@@ -2548,19 +2577,19 @@ def ssm_train_phase(torch, counters, dev, smi):
     if rows:
         rows_opt = adamw.init(rows, cfg.moment_dtype)
         r_ms = walls_ms(torch, {"rows": lambda: adamw.update(
-            rows, rows, rows_opt, tcfg, sched)}, reps=1)["rows"]
+            rows, rows, rows_opt, tcfg, sched)}, reps=1, warm=False)["rows"]
         del rows_opt
     del rows
     print(f"{SSM_ARCH} optimizer: the row scans of the 2-D leaves over "
           f"128 MiB ({n_rows} rows: the embedding and the unembedding) "
           f"take {r_ms:.1f} ms of the {ms:.1f} ms step "
-          f"({100 * r_ms / ms:.1f} %; one run after a warm-up, host clock, "
-          f"synced)")
+          f"({100 * r_ms / ms:.1f} %; one run, after the steps ran it, host "
+          f"clock, synced)")
 
     want_scans = adamw_scans(params)
     # the last timed step again, probed
     pp, po = prev
-    batch = batches[2]
+    batch = batches[1]
     pf = probe(step, ProbeConfig(inline="off_all", max_probes=500),
                device=dev)
     t0 = time.perf_counter()
@@ -2945,6 +2974,262 @@ def harness_phase(torch, fa, pa, ssd, dev, smi):
     return lines
 
 
+MESH_B, MESH_S, MESH_NEW = 4, 512, 16     # step 17: DP batch, serve tokens
+# the flash kernel against its plain version at the mesh DP step's shape
+# (randn, bf16), relative to max |plain| as at the graph's shape: most
+# output rows are averages of hundreds of values (~0.1), so an absolute
+# limit of a few ulps of the largest output would be a large share of
+# a typical one. A few bf16 ulps (2^-8) of max |plain| pass; a kernel
+# that drops the causal mask fails it
+FLASH_MESH_RTOL = 1e-2
+
+
+def _mesh_line(label, world, backend, probes, rec, comm_cyc, probed_s,
+               unprobed_s, capture_s, flash):
+    """One line a step 17 run: the device-major record's spans and skew
+    beside the walls, the capture and the flash launches."""
+    skew = max(rec["skew"]) if rec.get("skew") else 0
+    print(f"mesh [{label}]: world {world} over {backend}, {probes} probes; "
+          f"per-device span {rec['cycle']} cycles, max skew {skew}; comm "
+          f"{comm_cyc} cycles; probed {probed_s * 1e3:.1f} ms, unprobed "
+          f"{unprobed_s * 1e3:.1f} ms; capture {capture_s:.2f} s; flash "
+          f"launches {flash}", flush=True)
+
+
+def _comm_cycles(sites) -> int:
+    from repro_torch.core.costmodel import LINK_BYTES_PER_CYCLE
+    return int(math.ceil(sum(s[5] for s in sites) / LINK_BYTES_PER_CYCLE))
+
+
+def mesh_phase(torch, fa, pa, ssd, dev, smi):
+    """Step 17: mesh-aware probing over torch.distributed. World 1 over
+    NCCL in this process (its launch counters count): the legacy serve
+    with ``--mesh 1 --profile`` at full width and one full-width
+    data-parallel train step under ``mesh_probe``; world 2 over gloo with
+    both ranks on this card (``launch.mesh.spawn``; the kernels built
+    above, so the ranks load them): the collectives gloo takes on the
+    card's tensors, the skew workload, the DP step at smoke width with
+    head dim 64, and the full-width mesh decode session."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch.core import ProbeConfig, mesh_probe
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed.compat import P
+    from repro_torch.distributed.steps import build_dp_train_step
+    from repro_torch.launch.mesh import make_mesh, spawn
+    from repro_torch.launch.serve import serve
+    from repro_torch.optim import adamw
+    from repro_torch.testing import mesh_ranks
+    counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+    print(f"step 17, mesh-aware probing over torch.distributed, on {smi}")
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count() + 1
+    try:
+        spawn(mesh_ranks.failing_rank, (n,), device="cuda")
+    except ValueError as e:
+        assert 'backend="gloo"' in str(e), e
+        print(f"NCCL over {n} ranks on {n - 1} card(s) refused: {e}")
+    else:
+        raise AssertionError("NCCL with more ranks than cards did not raise")
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=120))
+    flash_main = 0
+    try:
+        mesh = make_mesh((1,), ("dev",))
+        # (a) serve --no-engine --profile --mesh 1 at full width
+        plain = serve(ARCH, smoke=False, batch=BATCH, prompt_len=PROMPT,
+                      max_new=MESH_NEW, engine=False, device=dev)
+        _zero(counters)
+        res = serve(ARCH, smoke=False, batch=BATCH, prompt_len=PROMPT,
+                    max_new=MESH_NEW, engine=False, profile=True,
+                    profile_every=8, profile_mesh=(1,), device=dev,
+                    _mesh=mesh)
+        launches = _launches(counters)
+        flash_main += launches[0]
+        snap = res.snapshot
+        rec = snap.record
+        same = bool(np.array_equal(res.tokens, plain.tokens))
+        one = rec.calls[0] // snap.steps
+        print(f"mesh serve world 1 (nccl): ids == the unprofiled legacy "
+              f"serve's: {same}; {snap.steps} steps, calls == steps x one "
+              f"step's: {bool((rec.calls == snap.steps * one).all())}; "
+              f"launches {launches} (want (22, 0, 0))")
+        assert same and snap.steps == MESH_NEW - 1 and rec.n_devices == 1
+        assert (rec.calls == snap.steps * one).all()
+        assert launches == (22, 0, 0), launches
+        _mesh_line(f"serve {ARCH} {BATCH}x{PROMPT}+{MESH_NEW}", 1, "nccl",
+                   len(rec.paths), dict(cycle=rec.cycle.tolist(),
+                                        skew=rec.skew().tolist()), 0,
+                   res.seconds, plain.seconds, res.stats["capture_s"],
+                   launches[0])
+        # (b) one full-width DP train step under mesh_probe
+        model = mesh_ranks.smoke_model(full=True)
+        cfg = model.cfg
+        params = model.init(0, dev)
+        opt = adamw.init(params, cfg.moment_dtype)
+        gen = torch.Generator(device=dev).manual_seed(17)
+        batch = {k: torch.randint(0, cfg.vocab_size, (MESH_B, MESH_S),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        step = build_dp_train_step(
+            model, TrainConfig(total_steps=10, warmup_steps=1), axis="dev")
+        mpf = mesh_probe(step, mesh, (P(), P(), P("dev")), (P(), P(), P()),
+                         ProbeConfig(targets=("grads", "grad_exchange",
+                                              "optimizer"), depth_limit=2),
+                         device=dev)
+        mpf.ensure_built(params, opt, batch)
+        torch.cuda.synchronize()
+        _zero(counters)
+        ts = time.perf_counter()
+        (p1, o1, m1), state = mpf(params, opt, batch)
+        torch.cuda.synchronize()
+        probed_s = time.perf_counter() - ts
+        launches = _launches(counters)
+        flash_main += launches[0]
+        ts = time.perf_counter()
+        p2, o2, m2 = mpf.unprobed()(params, opt, batch)
+        torch.cuda.synchronize()
+        unprobed_s = time.perf_counter() - ts
+        bitwise = (_tree_equal(torch, p1, p2) and
+                   _tree_equal(torch, o1.mu, o2.mu) and
+                   _tree_equal(torch, o1.nu, o2.nu) and
+                   torch.equal(m1["loss"], m2["loss"]) and
+                   torch.equal(m1["grad_norm"], m2["grad_norm"]))
+        rec = mpf.decode(state)
+        oc = mpf.oracle(params, opt, batch, device=0)
+        exact = mesh_ranks._oracle_matches(rec, oc, 0)
+        sites = mesh_ranks._sites(mpf)
+        ge = [s for s in sites if s[0] == "grad_exchange"]
+        print(f"mesh DP train step world 1 (nccl), {ARCH} full width "
+              f"(bf16 master params), B {MESH_B} x S {MESH_S}: loss "
+              f"{float(m1['loss']):.4f}; outputs == unprobed bitwise: "
+              f"{bitwise}; record == ShardOracle: {exact}; grad_exchange "
+              f"{len(ge)} all-reduces, G {sorted({s[3] for s in ge})}, wire "
+              f"bytes {sum(s[5] for s in ge)}; launches {launches} (want "
+              f"(44, 0, 0): forward and remat recompute x 22 layers)")
+        assert bitwise and exact and math.isfinite(float(m1["loss"]))
+        assert ge and all(s[1] == "all-reduce" and s[3] == 1 and s[5] == 0
+                          for s in ge), ge
+        assert launches == (2 * cfg.num_layers, 0, 0), launches
+        _mesh_line(f"DP train {ARCH} {MESH_B}x{MESH_S}", 1, "nccl",
+                   len(rec.paths), dict(cycle=rec.cycle.tolist(),
+                                        skew=rec.skew().tolist()),
+                   _comm_cycles(sites), probed_s, unprobed_s,
+                   mpf.capture_seconds, launches[0])
+        del p1, o1, p2, o2, params, opt, state, mpf
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"step 17 world 1 done at {time.perf_counter() - t0:.1f} s")
+    # (c) world 2 over gloo, both ranks on this card
+    card = str(dev)
+    rng = np.random.default_rng(17)
+    b2 = {k: rng.integers(0, 257, (4, 64)).astype(np.int32)
+          for k in ("tokens", "labels")}
+    cols = mesh_ranks.backend_collectives(card, "gloo")
+    print(f"gloo on {card} tensors, a world of 2 a kind: {cols} (done at "
+          f"{time.perf_counter() - t0:.1f} s)")
+    kw = dict(arch=ARCH, smoke=False, batch=BATCH, prompt_len=PROMPT,
+              max_new=MESH_NEW, engine=False, profile=True, profile_every=8,
+              profile_mesh=(2,))
+    ranks = spawn(mesh_ranks.card_world2_rank, (2,), backend="gloo",
+                  device=card, args=(b2, kw))
+    w = [r["workload"] for r in ranks]
+    wrec = w[0]["record"]
+    pid = wrec["paths"].index("dynamic")
+    per_dev = [t[pid] for t in wrec["totals"]]
+    print(f"mesh skew workload world 2 (gloo): record == ShardOracle on "
+          f"every device: {[x['oracle_ok'] for x in w]}, bitwise: "
+          f"{[x['bit_ok'] for x in w]}, 3-step session == 3 x one-shot: "
+          f"{[x['sess_ok'] for x in w]}; 'dynamic' per device {per_dev}")
+    assert all(x["oracle_ok"] and x["bit_ok"] and x["sess_ok"] for x in w)
+    assert per_dev[1] > per_dev[0]
+    skew = [max(c) - min(c) for c in zip(*wrec["totals"])]
+    _mesh_line("skew workload", 2, "gloo", len(wrec["paths"]),
+               dict(cycle=wrec["cycle"], skew=skew), _comm_cycles(
+                   w[0]["sites"]), w[0]["probed_s"], w[0]["unprobed_s"],
+               w[0]["capture_s"], 0)
+    d = [r["dp"] for r in ranks]
+    dsites = [s for s in d[0]["sites"] if s[0] == "grad_exchange"]
+    print(f"mesh DP train step world 2 (gloo), smoke width, head dim 64: "
+          f"record == ShardOracle: {[x['oracle_ok'] for x in d]}, bitwise: "
+          f"{[x['bit_ok'] for x in d]}, loss {d[0]['loss']:.4f}; "
+          f"grad_exchange wire bytes {sum(s[5] for s in dsites)} (G "
+          f"{sorted({s[3] for s in dsites})}); flash launches of the probed "
+          f"call a rank {[x['flash_launches'] for x in d]} (want 4: forward "
+          f"and remat recompute x 2 layers); one all-reduce-mean of the "
+          f"smoke gradients {[round(r['allreduce_ms'], 3) for r in ranks]} "
+          f"ms a rank")
+    assert cols["all-reduce"] == "ok", cols
+    assert all(x["oracle_ok"] and x["bit_ok"] for x in d)
+    assert dsites and sum(s[5] for s in dsites) > 0
+    assert all(x["flash_launches"] == 4 for x in d), d
+    drec = d[0]["record"]
+    _mesh_line("DP train smoke hd 64", 2, "gloo", len(drec["paths"]),
+               dict(cycle=drec["cycle"], skew=[]),
+               _comm_cycles(d[0]["sites"]), d[0]["probed_s"],
+               d[0]["unprobed_s"], d[0]["capture_s"], d[0]["flash_launches"])
+    sr = [r["serve"] for r in ranks]
+    srec = sr[0]["record"]
+    calls = np.asarray(srec["calls"])
+    print(f"mesh serve world 2 (gloo), {ARCH} full width, batch {BATCH} "
+          f"split 4/4: ids == the unprofiled serve's: "
+          f"{[bool(np.array_equal(r['tokens'], plain.tokens)) for r in sr]}; "
+          f"{sr[0]['steps']} steps, devices' calls equal: "
+          f"{bool((calls == calls[0]).all())}; launches a rank "
+          f"{[r['launches'] for r in sr]}; state {sr[0]['state_nbytes']} B")
+    assert all(np.array_equal(r["tokens"], plain.tokens) for r in sr)
+    assert (calls == calls[0]).all() and sr[0]["steps"] == MESH_NEW - 1
+    assert all(r["launches"] == dict(flash=22, paged=0) for r in sr), sr
+    _mesh_line(f"serve {ARCH} {BATCH}x{PROMPT}+{MESH_NEW}", 2, "gloo",
+               len(srec["paths"]), dict(cycle=srec["cycle"],
+                                        skew=sr[0]["skew"]), 0,
+               sr[0]["seconds"], plain.seconds, sr[0]["capture_s"],
+               sr[0]["launches"]["flash"])
+    # the flash kernel at the DP step's training shape, with statistics
+    gen = torch.Generator(device=dev).manual_seed(170)
+    q = torch.randn((MESH_B, 32, MESH_S, 64), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((MESH_B, 4, MESH_S, 64), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    out = fa.flash_attention(q, k, v, with_stats=True)[0]
+    ref = fa.flash_attention_plain(q, k, v, with_stats=True)[0]
+    # teeth: a kernel that ignored the causal mask
+    unmasked = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    top = ref.float().abs().max().item()
+    rel, wrong = rel_err(out, ref), rel_err(unmasked, ref)
+    assert torch.isfinite(out.float()).all() and rel <= FLASH_MESH_RTOL, rel
+    assert wrong > FLASH_MESH_RTOL, wrong
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, with_stats=True))
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, with_stats=True), reps=3)
+    sdpa, how = sdpa_flash(torch, F, q, k, v, 0)
+    lib_ms = time_ms(sdpa)
+    flops, nbytes = fa.flash_cost(q, k, v, with_stats=True)
+    bnd = bound(nbytes, flops)
+    print(f"flash at the mesh DP step's shape (B {MESH_B}, 32/4 heads, S "
+          f"{MESH_S}, D 64), with statistics: {ms * 1e3:.1f} us held (bound "
+          f"{bnd[0] * 1e3:.2f} us by {bnd[1]}), plain {plain_ms * 1e3:.1f} us,"
+          f" SDPA ({how}) {lib_ms * 1e3:.1f} us, max |kernel - plain| "
+          f"{err:.3e}, max |plain| {top:.3e}, ratio {rel:.3e} (rtol "
+          f"{FLASH_MESH_RTOL}; without the causal mask {wrong:.3e}) ({smi})")
+    print(f"step 17 took {time.perf_counter() - t0:.1f} s")
+    return _kernel_line(
+        f"flash_attention (step 17: the mesh DP train step, {ARCH}, B "
+        f"{MESH_B} S {MESH_S}, with statistics, and the mesh serve's "
+        f"prefill)", *FLASH_SRC, flash_main, err, ms, plain_ms, bnd, lib_ms)
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2983,25 +3268,36 @@ def main() -> int:
                  "flash_attention_q128", "ssd_scan"):
         assert sass[name]["HMMA"] + sass[name]["HGMMA"] > 0, (
             f"the {name} kernels run no tensor-core instruction")
+    def done(steps: str) -> None:
+        print(f"steps {steps} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
     pev = check_probe_events(torch, kpe, dev)
     flash = check_flash(torch, fa, flash_attention_ref, dev)
     paged = check_paged(torch, pa, dev)
     scan = check_ssd(torch, ssd, ssd_ref, dev)
+    done("1-5")
     flash_launches, paged_launches = serve_runs(torch, fa, pa, ssd, serve)
     ssd_launches, ssm_plain = serve_ssm(
         torch, (fa.flash_attention, pa.paged_attention, ssd.ssd_scan), serve,
         ssd.KERNELS)
     ssm_consistency(torch, dev)
+    done("6-7")
     probed = probe_phase(torch, fa, ssd, kpe, dev)
+    done("8")
     pe_launches = probed_engine_phase(torch, fa, pa, kpe, dev)
     profiled_ssm_phase(torch, fa, pa, ssd, serve, ssm_plain, dev)
+    done("9-10")
     tr = train_phase(torch, fa, pa, ssd, dev, smi)
+    done("11")
     kprobe = kernel_probe_phase(torch, fa, pa, ssd, kpe, dev, smi)
+    done("13")
     t_dse = time.perf_counter()
     dse = dse_phase(torch, fa, pa, ssd, kpe, dev, smi)
     print(f"step 14 took {time.perf_counter() - t_dse:.1f} s")
     fam = families_phase(torch, fa, pa, ssd, dev, smi)
     harness = harness_phase(torch, fa, pa, ssd, dev, smi)
+    mesh = mesh_phase(torch, fa, pa, ssd, dev, smi)
+    done("14-17")
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))
@@ -3095,7 +3391,8 @@ def main() -> int:
              bound_by=pev["bound"][1], library_ms=None),
         train_kernel(torch, fa, tr),
         fold,
-    ] + tile_lines(dse["tiles"], dse["serve_tiles"]) + fam["lines"] + harness
+    ] + tile_lines(dse["tiles"], dse["serve_tiles"]) + fam["lines"] + \
+        harness + [mesh]
     for kn in kernels:
         print(f"{kn['name']}: {kn['ms'] * 1e3:.1f} us (bound "
               f"{kn['bound_ms'] * 1e3:.2f} us by {kn['bound_by']}), plain "

@@ -26,6 +26,9 @@ Stages (paper Fig 3):
                 KernelOracle, kernel_grid_table / kernel_grid_heat)
   streaming     ProbeSession: the probe kept running across steps, with
                 constant-memory aggregates (StreamingSink, StreamAggregator)
+  mesh          mesh_probe / MeshProbeSession: one counter row a device of
+                a sharded body run on torch.distributed ranks (CycleRecord,
+                ShardOracle, MeshReport; launch.mesh.spawn starts the ranks)
   DSE           run_dse (probe storage x offload, Pareto), DSEEngine over
                 the CUDA kernels' tiles (SearchSpace, DeviceBudget,
                 EvalCache), run_sweep and tracesim, the overhead model
@@ -49,6 +52,10 @@ from repro_torch.core.incremental import (EvalCache, FileLock,
 from repro_torch.core.overhead import (OverheadModel, adapt_allocation,
                                        measure_overhead)
 from repro_torch.core.tracesim import KernelTrace, TraceEntry, TraceStore
+from repro_torch.core.meshprobe import (CycleRecord, MeshProbedFunction,
+                                        MeshProbeSession, MeshReport,
+                                        MeshSnapshot, ShardOracle,
+                                        mesh_probe)
 
 __all__ = ["scope", "probe", "ProbeConfig", "ProbedFunction", "Hierarchy",
            "capture", "Oracle", "Report", "bump_chart", "decode_record",
@@ -59,4 +66,6 @@ __all__ = ["scope", "probe", "ProbeConfig", "ProbedFunction", "Hierarchy",
            "TuneResult", "run_dse", "run_sweep", "EvalCache", "FileLock",
            "capture_fingerprint", "device_kind", "measure_incremental",
            "OverheadModel", "adapt_allocation", "measure_overhead",
-           "KernelTrace", "TraceEntry", "TraceStore"]
+           "KernelTrace", "TraceEntry", "TraceStore", "mesh_probe",
+           "MeshProbedFunction", "MeshProbeSession", "MeshSnapshot",
+           "CycleRecord", "ShardOracle", "MeshReport"]

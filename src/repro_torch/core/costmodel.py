@@ -9,9 +9,18 @@ capture's segment cycles (``core.hierarchy``), the oracle's live count
 
 Constants: the NVIDIA H100 SXM data sheet, as ``chip_smoke.py`` prices
 each kernel's bound: 989e12 dense bf16 tensor-core FLOP/s, 3.35e12 B/s
-HBM3, a 1.98 GHz boost clock. The interconnect term (NVLink, 450e9 B/s
-per direction) keeps the formula's shape; no operation of this slice
-prices communication.
+HBM3, a 1.98 GHz boost clock, NVLink at 450e9 B/s per direction for
+the interconnect term.
+
+Collectives (the JAX package's collective term): a functional collective
+(``_c10d_functional``, see ``launch.collectives``) over mesh axes of
+sizes in context (``collective_axis_sizes``, set by ``core.meshprobe``)
+costs ``ceil(ring_wire_bytes(kind, out_bytes, G))`` comm bytes at
+``LINK_BYTES_PER_CYCLE``, G the product of its group's axis sizes
+(``distributed.compat.group_axes``); outside that context it costs its
+input bytes, as JAX's fallback does. Its FLOPs are its output's size.
+``wait_tensor`` is no operation of the device (0 cycles). A program with
+no collective prices as it did before the term existed.
 
 Pricing of an aten operation (``op_cost``), as ``eqn_cost`` prices a
 jaxpr primitive:
@@ -54,6 +63,8 @@ term is scaled.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Tuple
@@ -135,6 +146,84 @@ def _matmul_flops(name: str, args) -> int:
     return 2 * a.numel() * b.shape[-1]
 
 
+# Mesh axis sizes for the collective term (``collective_axis_sizes``);
+# None: the operand-bytes fallback.
+_AXIS_SIZES: "contextvars.ContextVar[Optional[Dict[str, int]]]" = \
+    contextvars.ContextVar("repro_torch_collective_axis_sizes", default=None)
+
+
+@contextlib.contextmanager
+def collective_axis_sizes(sizes: Optional[Dict[str, int]]):
+    """Cost collectives against these mesh axis sizes (ring wire model)."""
+    tok = _AXIS_SIZES.set(dict(sizes) if sizes is not None else None)
+    try:
+        yield
+    finally:
+        _AXIS_SIZES.reset(tok)
+
+
+def current_axis_sizes() -> Optional[Dict[str, int]]:
+    return _AXIS_SIZES.get()
+
+
+def collective_comm_bytes(kind: str, axes: Tuple[str, ...],
+                          in_bytes: int, out_bytes: int) -> int:
+    """Comm bytes of one collective under the CURRENT axis-size context:
+    the ring wire model when mesh axis sizes are in context, the
+    operand-bytes fallback otherwise. Keyed by ring-model kind (the JAX
+    package keys by primitive; a permute here is an all_to_all_single,
+    told apart by its caller)."""
+    sizes = _AXIS_SIZES.get()
+    if sizes is None:
+        return in_bytes
+    from repro_torch.launch.collectives import ring_wire_bytes
+    g = 1
+    for a in axes:
+        g *= int(sizes.get(a, 1))
+    return int(math.ceil(ring_wire_bytes(kind, out_bytes, g)))
+
+
+@dataclass(frozen=True)
+class CollectiveOp:
+    """One collective as a capture records it (``launch.collectives``)."""
+    path: str
+    primitive: str
+    kind: str
+    axes: Tuple[str, ...]
+    in_bytes: int
+    out_bytes: int
+
+
+def collective_of(func, args, kwargs, out) -> Optional[CollectiveOp]:
+    """The collective a dispatcher operation is (path left empty), or
+    None for any other operation, ``wait_tensor`` included."""
+    if func.namespace not in ("_c10d_functional", "c10d"):
+        return None
+    from repro_torch.distributed import compat
+    from repro_torch.launch.collectives import PRIMITIVE_KINDS, op_name
+    name = op_name(func)
+    kind = PRIMITIVE_KINDS.get(name)
+    if kind is None:
+        return None
+    if kind == "all-to-all" and compat.is_permute():
+        kind = "collective-permute"
+    group = kwargs.get("group_name", args[-1] if args else None)
+    axes = compat.group_axes(group) if isinstance(group, str) else ()
+    ins = list(_tensors(args)) + list(_tensors(kwargs))
+    outs = list(_tensors(out))
+    return CollectiveOp(path="", primitive=name, kind=kind, axes=axes,
+                        in_bytes=sum(_nbytes(t) for t in ins),
+                        out_bytes=sum(_nbytes(t) for t in outs))
+
+
+def collective_cost(c: CollectiveOp, out) -> OpCost:
+    comm = collective_comm_bytes(c.kind, c.axes, c.in_bytes, c.out_bytes)
+    flops = max((t.numel() for t in _tensors(out)), default=0)
+    total = c.in_bytes + c.out_bytes
+    return OpCost(flops=int(flops), bytes=int(total), comm_bytes=int(comm),
+                  cycles=roofline_cycles(int(flops), int(total), int(comm)))
+
+
 def is_view(func) -> bool:
     return bool(getattr(func, "is_view", False)) or (
         func.overloadpacket.__name__ in _FREE)
@@ -144,6 +233,9 @@ def op_cost(func, args, kwargs, out) -> OpCost:
     """Flat cost of one aten operation (``func`` an ``OpOverload``)."""
     if is_view(func):
         return FREE
+    if func.namespace in ("_c10d_functional", "c10d"):
+        c = collective_of(func, args, kwargs, out)
+        return FREE if c is None else collective_cost(c, out)
     name = func.overloadpacket.__name__
     ins = list(_tensors(args)) + list(_tensors(kwargs))
     outs = list(_tensors(out))

@@ -29,7 +29,10 @@ The backward of a gradient taken with ``scope.grad`` is recorded like
 the forward: autograd carries the dispatch mode to the threads that run
 the backward, and the node hooks move the frames (``core.scope``).
 
-Every aten operation is priced by ``core.costmodel``. A hand kernel's
+Every aten operation is priced by ``core.costmodel``. A collective
+(``distributed.compat``) is also recorded, once a site as a jaxpr
+equation, with its scope path and the mesh axes of its process group
+(``Hierarchy.collectives``, read by ``launch.collectives``). A hand kernel's
 region is ONE operation; nothing inside it is recorded. A region that
 declares a grid plan (``core.kernelprobe``) is also a marker event of
 its own, and the capture keeps both views of it: ``Captured.view(
@@ -144,6 +147,9 @@ class Hierarchy:
     # kernel path -> (its last host counter block, as bytes; the grid's
     # cycles for it): the runs' clock mirror, priced once per block
     grid_cycles: Dict[str, Tuple[bytes, int]] = field(default_factory=dict)
+    # the collectives of one visit of each site, with their scope paths
+    # and mesh axes (``launch.collectives.captured_collectives``)
+    collectives: Tuple[cm.CollectiveOp, ...] = ()
 
     def with_kernel_probes(self, kernel_probes) -> "Hierarchy":
         """The view of the same capture for other kernel probes."""
@@ -234,8 +240,9 @@ class _WriteGuard:
 
 
 class _OpMode(TorchDispatchMode):
-    """Hands every aten operation, after it ran, to ``rec.op``; its
-    ``guard`` keeps the run free of side effects."""
+    """Runs every aten operation through ``rec._bind`` and hands it, after
+    it ran, to ``rec.op``; its ``guard`` keeps the run free of side
+    effects."""
 
     def __init__(self, rec):
         super().__init__()
@@ -245,7 +252,7 @@ class _OpMode(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         self.guard.before(func, args, kwargs)
-        out = func(*args, **kwargs)
+        out = self.rec._bind(func, args, kwargs)
         self.guard.after(func, out)
         self.rec.op(func, args, kwargs, out)
         return out
@@ -315,11 +322,22 @@ class OpTracker(sc.Tracker):
         self._mode.guard.restore()
         return super().__exit__(exc_type, exc, tb)
 
+    def _bind(self, func, args, kwargs):
+        """Execute one operation (``ShardOracle`` stubs collectives here,
+        as the JAX oracle's ``_bind``)."""
+        return func(*args, **kwargs)
+
     def op(self, func, args, kwargs, out) -> None:
         if self.in_kernel or func.overloadpacket.__name__ in cm.SKIP:
             return
+        c = cm.collective_of(func, args, kwargs, out)
+        if c is not None:
+            self.collective(c)
         self.priced(func.overloadpacket.__name__,
                     cm.op_cost(func, args, kwargs, out))
+
+    def collective(self, c: cm.CollectiveOp) -> None:
+        """A collective is about to be priced at the frame on top."""
 
     def kernel(self, name, cost, plan=None):
         if self.in_kernel:
@@ -342,6 +360,7 @@ class Capture(OpTracker):
         self._touched: set = {""}
         self._first: set = set()       # sites whose first visit is done
         self.kernels: Dict[int, KernelSite] = {}
+        self.collectives: List[cm.CollectiveOp] = []
 
     # -- tree ------------------------------------------------------------
     def _ensure(self, path: str, kind: str = "scope",
@@ -389,6 +408,11 @@ class Capture(OpTracker):
 
     def trigger(self, f):
         self._touch(f.path)
+
+    def collective(self, c):
+        f = self.top
+        if not self._acc[id(f)][2]:      # one site, as a jaxpr equation
+            self.collectives.append(dataclasses.replace(c, path=f.path))
 
     def seg_end(self, f, nxt):
         cyc, n_ops, _ = self._acc[id(f)]
@@ -456,7 +480,8 @@ class Capture(OpTracker):
     def result(self) -> "Captured":
         return Captured(tree=self.tree, sites=self.sites,
                         segments=self.segments, ops=self.ops,
-                        kernels=self.kernels)
+                        kernels=self.kernels,
+                        collectives=tuple(self.collectives))
 
 
 def _finalize(node: ScopeNode) -> Tuple[int, bool]:
@@ -482,6 +507,7 @@ class Captured:
     segments: Dict[Tuple[int, int], Segment]
     ops: Dict[str, List[Tuple[str, int]]]
     kernels: Dict[int, KernelSite]
+    collectives: Tuple[cm.CollectiveOp, ...] = ()
 
     def view(self, kernel_probes=()) -> Hierarchy:
         kernel_probes = tuple(kernel_probes)
@@ -528,7 +554,8 @@ class Captured:
         _finalize(tree)
         return Hierarchy(root=tree, sites=self.sites,
                          segments=self.segments, ops=ops, kernels=kernels,
-                         kernel_probes=kernel_probes, captured=self)
+                         kernel_probes=kernel_probes, captured=self,
+                         collectives=self.collectives)
 
 
 def _kernel_subtree(ks: KernelSite, kpath: str) -> ScopeNode:

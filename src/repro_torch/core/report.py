@@ -2,8 +2,8 @@
 
 Port of ``repro.core.report`` (the one-shot views, the streaming
 session's table and bump chart, the serving engine's phase, chunk and
-request bills, and the telemetry sentinel's tables; the mesh,
-DSE views come with their modules) and the kernel grid-step views
+request bills, the telemetry sentinel's tables, the mesh views of
+``core.meshprobe`` and the DSE leaderboard) and the kernel grid-step views
 (``kernel_grid_table``, ``kernel_grid_heat``). Builds per-probe
 rows (calls, total cycles, start/end, first-N iteration spans) from the
 decoded device record, merges offloaded history from the host sink, and
@@ -230,6 +230,151 @@ def kernel_grid_heat(h: Hierarchy, report: Report,
             shade = chars[int((v - lo) / span * (len(chars) - 1))]
             cells.append(f"{shade}{v:>{cell}}")
         lines.append(" ".join(cells))
+    return "\n".join(lines)
+
+
+# ------------------------------------------------------ mesh rendering
+
+_HEAT_CHARS = " .:-=+*#%@"
+
+
+def mesh_device_table(rec, top: int = 0) -> str:
+    """Per-device cycle table for a ``meshprobe.CycleRecord``: one row
+    per probe, one column per device, plus the cross-device reductions
+    (max / mean) and the skew straggler signal."""
+    D = rec.n_devices
+    w = max((len(p) for p in rec.paths), default=6) + 2
+    dev_w = max(10, len(str(int(rec.totals.max(initial=0)))) + 2)
+    head = (f"{'module':<{w}}" +
+            "".join(f"{'dev' + str(d):>{dev_w}}" for d in range(D)) +
+            f"{'max':>{dev_w}}{'mean':>{dev_w}}{'skew':>{dev_w}}")
+    coord = (f"{'(mesh coord)':<{w}}" +
+             "".join(f"{str(rec.coords(d)):>{dev_w}}" for d in range(D)))
+    lines = [f"# mesh {dict(zip(rec.mesh_axes, rec.mesh_shape))} — "
+             f"{D} devices, span max={int(rec.cycle.max(initial=0))} cycles",
+             head, coord]
+    order = np.argsort(-rec.totals.max(axis=0), kind="stable")
+    if top:
+        order = order[:top]
+    for pid in order:
+        t = rec.totals[:, pid]
+        lines.append(
+            f"{rec.paths[pid]:<{w}}" +
+            "".join(f"{int(t[d]):>{dev_w}}" for d in range(D)) +
+            f"{int(t.max()):>{dev_w}}{t.mean():>{dev_w}.1f}"
+            f"{int(t.max() - t.min()):>{dev_w}}")
+    return "\n".join(lines)
+
+
+def mesh_heat(rec, path: Optional[str] = None, chars: str = _HEAT_CHARS
+              ) -> str:
+    """ASCII heat map of one probe's cycles over the mesh grid — the
+    per-device view at a glance (dark cell = straggler). 1D meshes
+    render as a row; >2D meshes flatten their leading axes into rows."""
+    if not rec.paths:
+        return "(no probes selected)"
+    if path is None:
+        _, path = rec.straggler()
+    pid = rec.paths.index(path)
+    t = rec.totals[:, pid].astype(np.float64)
+    lo, hi = float(t.min()), float(t.max())
+    span = (hi - lo) or 1.0
+    shape = rec.mesh_shape if len(rec.mesh_shape) > 1 else \
+        (1,) + tuple(rec.mesh_shape)
+    grid = t.reshape((-1, shape[-1]))
+    cell = max((len(str(int(x))) for x in t), default=1) + 1
+    lines = [f"# heat: {path} over mesh "
+             f"{dict(zip(rec.mesh_axes, rec.mesh_shape))} "
+             f"(min={int(lo)} max={int(hi)} skew={int(hi - lo)})"]
+    for r in range(grid.shape[0]):
+        cells = []
+        for c in range(grid.shape[1]):
+            v = grid[r, c]
+            shade = chars[int((v - lo) / span * (len(chars) - 1))]
+            cells.append(f"{shade}{int(v):>{cell}}")
+        lines.append(" ".join(cells))
+    return "\n".join(lines)
+
+
+def mesh_comm_table(rec, hierarchy, sites,
+                    bytes_per_cycle: Optional[float] = None) -> str:
+    """Compute vs. communication per module: measured cycles (max over
+    devices) against the ring-model collective cycles attributed to the
+    same scope path (static per program run, ancestor loop trips
+    folded in). Comm cycles are wire bytes over ``bytes_per_cycle``
+    (default: the model's NVLink ``LINK_BYTES_PER_CYCLE``, where the JAX
+    package divides by its ICI rate)."""
+    if bytes_per_cycle is None:
+        from repro_torch.core.costmodel import LINK_BYTES_PER_CYCLE
+        bytes_per_cycle = LINK_BYTES_PER_CYCLE
+
+    def trip_mult(path: str) -> int:
+        mult, cur = 1, ""
+        for seg in (path.split("/") if path else []):
+            cur = f"{cur}/{seg}" if cur else seg
+            node = hierarchy.node(cur)
+            if node is not None and node.kind == "loop" and node.trip_count:
+                mult *= node.trip_count
+        return mult
+
+    per_path: Dict[str, Dict[str, float]] = {}
+    for s in sites:
+        d = per_path.setdefault(s.path, {"count": 0, "wire": 0.0,
+                                         "kinds": set()})
+        m = trip_mult(s.path)
+        d["count"] += m
+        d["wire"] += s.wire_bytes * m
+        d["kinds"].add(s.kind)
+    if not per_path:
+        return "(no collectives in the probed program)"
+    probed = {p: int(rec.totals[:, i].max())
+              for i, p in enumerate(rec.paths)}
+
+    def nearest_probe_cycles(path: str) -> Optional[int]:
+        cur = path
+        while True:
+            if cur in probed:
+                return probed[cur]
+            if "/" not in cur:
+                return probed.get("", None)
+            cur = cur.rsplit("/", 1)[0]
+
+    w = max(len(p) for p in per_path) + 2
+    lines = [f"{'module':<{w}}{'collectives':>12}{'wire_B':>12}"
+             f"{'comm_cyc':>10}{'probed_cyc':>11}{'comm%':>7}  kinds"]
+    for path in sorted(per_path, key=lambda p: -per_path[p]["wire"]):
+        d = per_path[path]
+        comm_cyc = int(np.ceil(d["wire"] / bytes_per_cycle))
+        total = nearest_probe_cycles(path)
+        pct = (f"{100.0 * comm_cyc / total:6.1f}%" if total else f"{'-':>7}")
+        lines.append(f"{path or '/':<{w}}{int(d['count']):>12}"
+                     f"{int(d['wire']):>12}{comm_cyc:>10}"
+                     f"{total if total is not None else '-':>11}{pct}"
+                     f"  {','.join(sorted(d['kinds']))}")
+    return "\n".join(lines)
+
+
+def mesh_session_table(snap, reduce: str = "max") -> str:
+    """Running table for a live ``MeshProbeSession`` snapshot, reduced
+    across devices (or expanded per device via ``reduce='per-device'``,
+    which falls through to the full device table)."""
+    rec = snap.record
+    if reduce == "per-device":
+        return mesh_device_table(rec)
+    red = rec.reduce(reduce)
+    skew = rec.skew()
+    calls = rec.calls.max(axis=0)
+    span = int(rec.cycle.max(initial=0))
+    w = max((len(p) for p in rec.paths), default=6) + 2
+    lines = [f"# mesh session: {snap.steps} steps, {rec.n_devices} devices, "
+             f"span(max)={span} cycles, state={snap.state_nbytes}B",
+             f"{'module':<{w}}{'calls':>9}{f'cycles({reduce})':>16}"
+             f"{'%span':>7}{'skew':>12}"]
+    for pid in np.argsort(-np.asarray(red), kind="stable"):
+        pct = 100.0 * float(red[pid]) / span if span else 0.0
+        lines.append(f"{rec.paths[pid]:<{w}}{int(calls[pid]):>9}"
+                     f"{float(red[pid]):>16.1f}{pct:>6.1f}%"
+                     f"{int(skew[pid]):>12}")
     return "\n".join(lines)
 
 

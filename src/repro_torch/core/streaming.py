@@ -144,6 +144,16 @@ class StreamAggregator:
             out.hist = self.hist.copy()
         return out
 
+    def __getstate__(self):
+        # pickles without its lock (a mesh rank's snapshot goes back to
+        # the parent process)
+        with self._lock:
+            return {k: v for k, v in self.__dict__.items() if k != "_lock"}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
     def quantile(self, pid: int, q: float) -> int:
         """Histogram-estimated q-quantile of per-call cycles (bucket
         midpoint, clamped to the exact observed [min, max])."""

@@ -1,7 +1,8 @@
-"""Train and eval step builders (one device).
+"""Train and eval step builders.
 
 Port of ``repro.distributed.steps``: ``build_train_step`` and
-``build_eval_step``. The steps are plain functions of (params,
+``build_eval_step``, and the per-shard bodies ``build_dp_train_step`` /
+``build_dp_eval_step``. The steps are plain functions of (params,
 opt_state, batch): ``value_and_grad`` becomes the forward under the
 ``loss`` scope and ``scope.grad`` (``torch.autograd.grad``, whose
 backward a probe sees under ``loss~bwd``), and the optimizer update is
@@ -10,10 +11,18 @@ a probe can run it as often as it likes. Gradient accumulation over
 ``TrainConfig.microbatches`` runs under ``microbatches`` / ``scope.scan``
 as JAX's ``lax.scan`` does.
 
-Not ported: the sharded paths (``grad_compression="int8_ef"`` with its
-pod-local exchange, and the per-shard ``build_dp_*`` steps) wait for the
-multi-device item of ROADMAP Queue 1; ``build_prefill_step`` and
-``build_decode_step`` are the engine's steps (``engine/step.py``).
+``grad_compression="int8_ef"`` (``train_step(params, opt_state, batch,
+ef_residual)`` under a mesh with a ``pod`` axis): gradients stay
+pod-local (``compat.shard_map`` over ``pod``, the batch split over it),
+are quantized to int8 with per-tensor scales (``optim.compression``) and
+ring-exchanged across pods (``compat.ppermute``) at 1 byte an element,
+with the quantization error carried as error-feedback state. The JAX
+package keeps the ``data`` and ``model`` axes auto-sharded inside; that
+needs ``distributed/sharding.py`` (ROADMAP Queue 1 item 4), so here they
+must have size 1.
+
+Not ported: ``build_prefill_step`` and ``build_decode_step`` are the
+engine's steps (``engine/step.py``).
 """
 from __future__ import annotations
 
@@ -23,8 +32,10 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import scope
+from repro_torch.distributed import compat
+from repro_torch.distributed.compat import P
 from repro_torch.models.model import Model
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, compression
 from repro_torch.optim.schedule import make_schedule
 
 
@@ -45,37 +56,45 @@ def _leaves_requiring_grad(params):
     return adamw.tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
+def _value_and_grad(model: Model, params, batch):
+    """(loss, metrics, grads) of ``model.loss_fn`` under the ``loss``
+    scope, the gradient by ``scope.grad``."""
+    leaves = _leaves_requiring_grad(params)
+    flat = adamw.tree_leaves(leaves)
+    extra = []
+    if "embeds" in batch:
+        # a frontend's embeddings: their gradient is taken and dropped, so
+        # the first layer's backward computes what every later layer's
+        # does (JAX's transposed layer scan carries the cotangent through
+        # every iteration alike)
+        batch = dict(batch, embeds=batch["embeds"].detach()
+                     .requires_grad_(True))
+        extra = [batch["embeds"]]
+    with torch.enable_grad():
+        with scope.named_scope("loss"):
+            loss, metrics = model.loss_fn(leaves, batch)
+        grads = scope.grad(loss, flat + extra)[:len(flat)]
+    return (loss.detach(), {n: m.detach() for n, m in metrics.items()},
+            adamw.tree_unflatten(params, list(grads)))
+
+
 def build_train_step(model: Model, tcfg: TrainConfig) -> Callable:
-    """Returns ``train_step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``; new params and state, the old left as they
-    were. ``metrics`` holds 0-d tensors: loss, nll (and z_loss, aux_loss
-    without microbatches), lr, grad_norm."""
-    if tcfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression={tcfg.grad_compression!r} needs the "
-            f"multi-device port (ROADMAP Queue 1) and optim/compression.py")
+    """Returns ``train_step(params, opt_state, batch[, ef_residual]) ->
+    (params, opt_state[, ef_residual], metrics)``; new params and state,
+    the old left as they were. ``metrics`` holds 0-d tensors: loss, nll
+    (and z_loss, aux_loss without microbatches), lr, grad_norm. With
+    ``grad_compression="int8_ef"`` and an ``ef_residual``
+    (``compression.init_residual``) the step runs under the ambient mesh
+    (``compat.mesh_context``), whose ``pod`` axis carries the int8 ring."""
+    if tcfg.grad_compression not in ("none", "int8_ef"):
+        raise ValueError(f"unknown grad_compression "
+                         f"{tcfg.grad_compression!r}")
     cfg = model.cfg
     schedule = make_schedule(cfg.schedule, tcfg)
     k = tcfg.microbatches
 
     def value_and_grad(params, batch):
-        leaves = _leaves_requiring_grad(params)
-        flat = adamw.tree_leaves(leaves)
-        extra = []
-        if "embeds" in batch:
-            # a frontend's embeddings: their gradient is taken and
-            # dropped, so the first layer's backward computes what every
-            # later layer's does (JAX's transposed layer scan carries the
-            # cotangent through every iteration alike)
-            batch = dict(batch, embeds=batch["embeds"].detach()
-                         .requires_grad_(True))
-            extra = [batch["embeds"]]
-        with torch.enable_grad():
-            with scope.named_scope("loss"):
-                loss, metrics = model.loss_fn(leaves, batch)
-            grads = scope.grad(loss, flat + extra)[:len(flat)]
-        return (loss.detach(), {n: m.detach() for n, m in metrics.items()},
-                adamw.tree_unflatten(params, list(grads)))
+        return _value_and_grad(model, params, batch)
 
     def grads_of(params, batch):
         if k == 1:
@@ -98,13 +117,62 @@ def build_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         loss = loss_sum / k
         return loss, {"nll": loss}, grads
 
-    def train_step(params, opt_state, batch):
-        loss, metrics, grads = grads_of(params, batch)
+    def compressed_grads_of(params, batch, residual):
+        """Pod-local grads + int8 error-feedback ring exchange over the
+        pod axis."""
+        env = compat.current()
+        if env is None or "pod" not in env.axes:
+            raise RuntimeError("grad_compression='int8_ef' runs under a "
+                               "mesh with a 'pod' axis (compat.mesh_context)")
+        n_pods = env.sizes["pod"]
+        perm = [(i, (i + 1) % n_pods) for i in range(n_pods)]
+
+        def pod_local(params_, batch_, res_):
+            loss, metrics, grads = grads_of(params_, batch_)
+            with scope.named_scope("grad_compress"):
+                payload, scales, new_res = compression.compress(grads, res_)
+
+                def xchg(q8, s):
+                    total = q8.to(torch.float32) * s
+                    q_rot, s_rot = q8, s
+                    for _ in range(n_pods - 1):     # int8 on the wire
+                        q_rot = compat.ppermute(q_rot, "pod", perm)
+                        s_rot = compat.ppermute(s_rot, "pod", perm)
+                        total = total + q_rot.to(torch.float32) * s_rot
+                    return total / n_pods
+
+                grads = adamw.tree_unflatten(payload, [
+                    xchg(q, sc) for q, sc in zip(adamw.tree_leaves(payload),
+                                                 adamw.tree_leaves(scales))])
+            loss = compat.pmean(loss, "pod")
+            metrics = {n: compat.pmean(m, "pod") for n, m in metrics.items()}
+            return loss, metrics, grads, new_res
+
+        def batch_spec(x):
+            if x.dim() == 0:
+                return P()
+            if cfg.pos_emb == "mrope" and x.dim() == 3 and x.shape[0] == 3:
+                return P(None, "pod")
+            return P("pod")
+
+        specs = {key: batch_spec(v) for key, v in batch.items()}
+        return compat.shard_map(
+            pod_local, mesh=env, in_specs=(P(), specs, P()), out_specs=P(),
+            axis_names={"pod"})(params, batch, residual)
+
+    def train_step(params, opt_state, batch, ef_residual=None):
+        if ef_residual is not None and tcfg.grad_compression == "int8_ef":
+            loss, metrics, grads, ef_residual = compressed_grads_of(
+                params, batch, ef_residual)
+        else:
+            loss, metrics, grads = grads_of(params, batch)
         with scope.named_scope("optimizer"):
             params, opt_state, om = adamw.update(params, grads, opt_state,
                                                  tcfg, schedule)
         metrics = dict(metrics)
         metrics.update(loss=loss, **om)
+        if ef_residual is not None:
+            return params, opt_state, ef_residual, metrics
         return params, opt_state, metrics
 
     return train_step
@@ -118,4 +186,58 @@ def build_eval_step(model: Model) -> Callable:
         metrics = dict(metrics)
         metrics["loss"] = loss
         return loss, metrics
+    return eval_step
+
+
+# ---------------------------------------------------- per-shard bodies
+#
+# Explicit-collective SPMD bodies for ``compat.shard_map`` and therefore
+# for ``core.mesh_probe``, which records a per-device cycle row for every
+# probe inside them. Parameters and optimizer state are replicated, the
+# batch is sharded over ``axis`` (pure data parallelism), and the
+# gradient exchange is an explicit all-reduce-mean (``compat.pmean``)
+# that the probe attributes to the "grad_exchange" scope (ring wire-byte
+# model; see launch/collectives.py).
+
+def _pmean_tree(tree, axis):
+    return adamw.tree_map(lambda x: compat.pmean(x, axis), tree)
+
+
+def build_dp_train_step(model: Model, tcfg: TrainConfig,
+                        axis="dev") -> Callable:
+    """Data-parallel per-shard train step: grads_local -> all-reduce-mean
+    over ``axis`` -> replicated AdamW update. Returns
+    ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with every output replicated."""
+    schedule = make_schedule(model.cfg.schedule, tcfg)
+
+    def train_step(params, opt_state, batch):
+        with scope.named_scope("grads"):
+            loss, metrics, grads = _value_and_grad(model, params, batch)
+        with scope.named_scope("grad_exchange"):
+            grads = _pmean_tree(grads, axis)
+            loss = compat.pmean(loss, axis)
+            metrics = _pmean_tree(metrics, axis)
+        with scope.named_scope("optimizer"):
+            params, opt_state, om = adamw.update(params, grads, opt_state,
+                                                 tcfg, schedule)
+        metrics = dict(metrics)
+        metrics.update(loss=loss, **om)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def build_dp_eval_step(model: Model, axis="dev") -> Callable:
+    """Data-parallel per-shard eval step (loss all-reduce-meaned over
+    ``axis``)."""
+    base = build_eval_step(model)
+
+    def eval_step(params, batch):
+        loss, metrics = base(params, batch)
+        with scope.named_scope("loss_exchange"):
+            loss = compat.pmean(loss, axis)
+            metrics = _pmean_tree(metrics, axis)
+        return loss, metrics
+
     return eval_step

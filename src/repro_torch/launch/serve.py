@@ -19,6 +19,14 @@ at the end. Token ids are those of the unprofiled serve.
 ``--status-port P`` serves the live telemetry (bus, drift sentinel,
 HTTP status server; 0 = any free port, the URL is printed).
 
+``--mesh 2`` (or ``2x2``) forces the legacy loop, as in JAX; with
+``--profile`` its decode step runs per device: one rank a device
+(``launch.mesh.spawn``: NCCL on the cards, gloo with ``--device cpu``),
+each with the whole prefill and, under a ``MeshProbeSession`` (source
+``serve/mesh``), the decode step on its share of the batch and of every
+cache leaf's batch dimension. Rank 0 prints the ``[probe]`` lines, the
+session table, the per-device table and the straggler heat view.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 2 --max-new 8
 """
 from __future__ import annotations
@@ -35,7 +43,6 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.core import ProbeConfig, ProbeSession
-from repro_torch.core.streaming import StreamSnapshot
 from repro_torch.engine import EngineConfig, InferenceEngine, engine_compatible
 from repro_torch.models.frontends import synth_frontend_batch
 from repro_torch.models.model import Model
@@ -46,8 +53,10 @@ class ServeResult:
     tokens: np.ndarray                # (batch, max_new) int32 token ids
     first_logits: torch.Tensor        # (batch, V) f32, first sampled step
     seconds: float                    # submit to last token (host clock)
-    stats: Dict[str, Any] = field(default_factory=dict)  # engine only
-    snapshot: Optional[StreamSnapshot] = None   # profiled legacy loop
+    stats: Dict[str, Any] = field(default_factory=dict)  # engine's; the
+                                      # profiled legacy loop's capture_s
+    snapshot: Optional[Any] = None    # profiled legacy loop: a
+                                      # StreamSnapshot (MeshSnapshot)
 
 
 def _sync(device):
@@ -98,11 +107,32 @@ def _engine_serve(model, params, prompts, *, max_new: int,
                        seconds, st)
 
 
+def _mesh_decode_session(model, mesh, cache, frontend: bool, targets,
+                         max_probes: int, window_steps: int, device,
+                         bus=None):
+    """Mesh-probed decode: the batch and every cache leaf's batch
+    dimension (dim 1 of each) split over the mesh, so the live session
+    records one cycle-counter row a device."""
+    from repro_torch.core import MeshProbeSession, mesh_probe
+    from repro_torch.distributed.compat import P
+    axes = tuple(mesh.mesh_dim_names)
+    cache_spec = {k: P(None, axes) for k in cache}
+    batch_spec = {"embeds" if frontend else "tokens": P(axes), "pos": P()}
+    return MeshProbeSession(
+        mesh_probe(model.decode_step, mesh,
+                   in_specs=(P(), cache_spec, batch_spec),
+                   out_specs=(P(axes), cache_spec, P(axes)),
+                   config=ProbeConfig(targets=targets,
+                                      max_probes=max_probes),
+                   device=device),
+        window_steps=window_steps, bus=bus, source="serve/mesh")
+
+
 def _legacy_serve(model, params, prompts, *, max_new: int, device,
                   profile: bool = False,
                   profile_targets: Tuple[str, ...] = ("",),
                   profile_every: int = 8, profile_max_probes: int = 16,
-                  bus=None) -> ServeResult:
+                  bus=None, mesh=None) -> ServeResult:
     """The unbatched lock-step loop: one prefill over the whole batch,
     then one decode step per token against a dense cache (under a live
     ``ProbeSession`` when profiled). A frontend arch takes synthetic
@@ -111,6 +141,8 @@ def _legacy_serve(model, params, prompts, *, max_new: int, device,
     nothing back."""
     batch, prompt_len = prompts.shape
     cfg = model.cfg
+    say = print if mesh is None or mesh.get_rank() == 0 else \
+        (lambda *a, **k: None)
     cparams = model._compute_cast(params)   # one compute-dtype copy
     tokens = torch.as_tensor(prompts, device=device)
     gen = None
@@ -123,7 +155,15 @@ def _legacy_serve(model, params, prompts, *, max_new: int, device,
     profile_every = max(profile_every, 1)
     session = None
     decode = model.decode_step
-    if profile:
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(cparams, pbatch, prompt_len + max_new - 1)
+    if profile and mesh is not None:
+        session = _mesh_decode_session(
+            model, mesh, cache, gen is not None, profile_targets,
+            profile_max_probes, profile_every, device, bus=bus)
+        decode = session.step
+    elif profile:
         session = ProbeSession(
             model.decode_step,
             ProbeConfig(targets=profile_targets, offload=1.0,
@@ -131,9 +171,6 @@ def _legacy_serve(model, params, prompts, *, max_new: int, device,
             window_steps=profile_every, bus=bus, source="serve/decode",
             device=device)
         decode = session.step
-    _sync(device)
-    t0 = time.perf_counter()
-    logits, cache = model.prefill(cparams, pbatch, prompt_len + max_new - 1)
     first = logits
     next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [next_tok]
@@ -148,23 +185,42 @@ def _legacy_serve(model, params, prompts, *, max_new: int, device,
         out.append(next_tok)
         if session is not None and session.steps % profile_every == 0:
             snap = session.snapshot()
+            if mesh is not None:
+                d, p = snap.record.straggler()
+                say(f"[probe] decode step {session.steps:4d}: "
+                    f"span(max)={snap.span} cycles over "
+                    f"{snap.record.n_devices} devices, "
+                    f"straggler=dev{d}:{p} "
+                    f"(skew {int(snap.record.skew().max(initial=0))})",
+                    flush=True)
+                continue
             hot = snap.bottleneck()
             hot_s = (f"{hot.path} (ema {hot.ema:.1f} cyc/call)"
                      if hot else "-")
-            print(f"[probe] decode step {session.steps:4d}: "
-                  f"span={snap.span} cycles, state={snap.state_nbytes}B, "
-                  f"hot={hot_s}", flush=True)
+            say(f"[probe] decode step {session.steps:4d}: "
+                f"span={snap.span} cycles, state={snap.state_nbytes}B, "
+                f"hot={hot_s}", flush=True)
     toks = torch.stack(out, dim=1).cpu().numpy()
     seconds = time.perf_counter() - t0
-    print(f"prefill {prompt_len} tokens x{batch} + decode {max_new} steps: "
-          f"{seconds * 1e3:.1f} ms")
+    say(f"prefill {prompt_len} tokens x{batch} + decode {max_new} steps: "
+        f"{seconds * 1e3:.1f} ms")
     final = session.close() if session is not None else None
+    stats = {}
+    if session is not None:
+        pf = session.mpf if mesh is not None else session.pf
+        stats["capture_s"] = pf.capture_seconds
     if final is not None:
-        print("\n# streaming probe telemetry (decode loop)")
-        print(final.table())
-        print("\n# bottleneck drift across windows")
-        print(final.bump_chart())
-    return ServeResult(toks, first, seconds, snapshot=final)
+        say("\n# streaming probe telemetry (decode loop)")
+        say(final.table())
+        if mesh is not None:
+            say("\n# per-device cycle records")
+            say(final.device_table())
+            say("\n# straggler heat view")
+            say(final.heat())
+        else:
+            say("\n# bottleneck drift across windows")
+            say(final.bump_chart())
+    return ServeResult(toks, first, seconds, stats, snapshot=final)
 
 
 def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
@@ -174,7 +230,8 @@ def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
           profile_targets: Tuple[str, ...] = ("",), profile_every: int = 8,
           profile_max_probes: int = 16, status_port: Optional[int] = None,
           autotune: bool = False, tune_cache: Optional[str] = None,
-          layers: Optional[int] = None, device=None) -> ServeResult:
+          layers: Optional[int] = None, device=None,
+          profile_mesh: Tuple[int, ...] = (), _mesh=None) -> ServeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens, ``max_new``
     tokens each, with random weights from seed 0 (prompts from seed 1).
     ``layers`` cuts the config's depth (its widths stay), for a model
@@ -184,8 +241,23 @@ def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
     DSE-tuned kernel configs of this device from the eval cache
     (``tune_cache``, default ``.repro_cache/dse``) into
     ``kernels.tuning`` first, as ``python -m repro_torch.tune`` left
-    them."""
+    them. ``profile_mesh`` (with ``profile``) probes the legacy decode
+    per device on one rank a device (NCCL on cuda, gloo on the CPU);
+    rank 0's result comes back."""
     device = resolve_device(device)
+    if profile and profile_mesh and _mesh is None and engine is not True:
+        import repro_torch.launch.serve as mod
+        from repro_torch.launch.mesh import spawn
+        kw = dict(arch=arch, smoke=smoke, batch=batch,
+                  prompt_len=prompt_len, max_new=max_new, engine=False,
+                  profile=True, profile_targets=profile_targets,
+                  profile_every=profile_every,
+                  profile_max_probes=profile_max_probes,
+                  status_port=status_port, autotune=autotune,
+                  tune_cache=tune_cache, layers=layers,
+                  profile_mesh=tuple(profile_mesh))
+        return spawn(mod._serve_rank, profile_mesh, device=str(device),
+                     args=(kw,))[0]
     if autotune:
         from repro_torch.core.incremental import device_kind
         from repro_torch.kernels import tuning
@@ -200,9 +272,9 @@ def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, dtype=torch.int32).numpy()
     if engine is None:
-        engine = engine_compatible(cfg)
+        engine = engine_compatible(cfg) and not profile_mesh
     plane = None
-    if status_port is not None:
+    if status_port is not None and (_mesh is None or _mesh.get_rank() == 0):
         from repro_torch.telemetry import ControlPlane
         plane = ControlPlane(status_port).start()
     bus = plane.bus if plane is not None else None
@@ -215,13 +287,27 @@ def serve(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
                                  prefill_chunk=prefill_chunk, **prof)
         return _legacy_serve(model, params, prompts, max_new=max_new,
                              device=device, profile_every=profile_every,
-                             **prof)
+                             mesh=_mesh, **prof)
     finally:
         if plane is not None:
             plane.finish()
 
 
+def _serve_rank(rank: int, device, kw) -> Optional[ServeResult]:
+    """One rank of a mesh-profiled legacy serve (``launch.mesh.spawn``);
+    rank 0 returns its result, on the CPU."""
+    from repro_torch.launch.mesh import make_mesh, probe_axis_names
+    shape = kw["profile_mesh"]
+    res = serve(**kw, device=device,
+                _mesh=make_mesh(shape, probe_axis_names(shape)))
+    if rank:
+        return None
+    res.first_logits = res.first_logits.cpu()
+    return res
+
+
 def main():
+    from repro_torch.launch.mesh import parse_mesh_arg
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--batch", type=int, default=4)
@@ -249,6 +335,11 @@ def main():
                     help="probe the serve: per-phase and per-request cycle "
                          "bills (engine), or the decode loop under a live "
                          "ProbeSession (legacy loop)")
+    ap.add_argument("--mesh", default=None,
+                    help="profile the legacy decode per device on an N-way "
+                         "mesh, e.g. '2' or '2x2' (with --profile; batch "
+                         "must divide the mesh size): one rank a device, "
+                         "NCCL on the cards, gloo with --device cpu")
     ap.add_argument("--profile-targets", default="",
                     help="comma-separated probe subtree roots")
     ap.add_argument("--profile-every", type=int, default=8)
@@ -269,7 +360,7 @@ def main():
                 profile_every=args.profile_every,
                 status_port=args.status_port, autotune=args.autotune,
                 tune_cache=args.tune_cache, layers=args.layers,
-                device=args.device)
+                device=args.device, profile_mesh=parse_mesh_arg(args.mesh))
     print("sampled token ids (first sequence):", res.tokens[0].tolist())
 
 

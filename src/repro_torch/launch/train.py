@@ -21,8 +21,18 @@ the pipeline's labels.
 ``--autotune`` loads the DSE-tuned kernel configs of the device from the
 eval cache (``--tune-cache``, default ``.repro_cache/dse``; written by
 ``python -m repro_torch.tune``) before the model is built, as the JAX
-trainer does. Not ported yet (ROADMAP Queue 1): ``--mesh`` (mesh-aware
-probing of a data-parallel step); it raises.
+trainer does.
+
+``--mesh 2`` (or ``2x2``, with ``--probe``) probes per device: one rank
+a device (``launch.mesh.spawn``: NCCL on the cards, gloo with
+``--device cpu``), each running ``build_dp_train_step`` on its share of
+the global batch under a ``MeshProbeSession`` (source ``train/mesh``);
+rank 0 prints the mesh-session snapshots, then the per-device table and
+the straggler heat view. A mesh without probing (``mesh_shape``,
+or ``--mesh`` without ``--probe``: the auto-sharded step) waits for
+``distributed/sharding.py`` (ROADMAP Queue 1 item 4) and raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 2 --batch 2 --seq 32 --probe --mesh 2
 """
 from __future__ import annotations
 
@@ -53,14 +63,32 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
           tcfg: Optional[TrainConfig] = None, log_every: int = 10,
           probe_every: int = 0, autotune: bool = False,
           tune_cache: Optional[str] = None,
-          status_port: Optional[int] = None, device=None):
+          status_port: Optional[int] = None, device=None, _mesh=None):
     """Train ``arch`` for ``steps`` steps; returns (params, opt_state,
     losses). Parameters come from ``Model.init(tcfg.seed)``, batches
-    from ``TokenPipeline`` (seed ``tcfg.seed``)."""
-    if mesh_shape or probe_mesh:
+    from ``TokenPipeline`` (seed ``tcfg.seed``). With ``probe_targets``
+    and ``probe_mesh`` the step runs data-parallel on one rank a device
+    (NCCL on cuda, gloo on the CPU); rank 0's (params, opt_state,
+    losses) come back, on the CPU."""
+    if (mesh_shape or probe_mesh) and (probe_targets is None
+                                       or not probe_mesh):
         raise NotImplementedError(
-            "--mesh (mesh-aware probing of a sharded step) needs the "
-            "multi-device port (ROADMAP Queue 1)")
+            "a mesh without probing (the auto-sharded train step) needs "
+            "distributed/sharding.py (ROADMAP Queue 1 item 4); --mesh with "
+            "--probe runs the data-parallel step per device")
+    if probe_mesh and _mesh is None:
+        import repro_torch.launch.train as mod
+        from repro_torch.launch.mesh import spawn
+        kw = dict(arch=arch, smoke=smoke, steps=steps, batch=batch,
+                  seq=seq, probe_targets=probe_targets,
+                  probe_mesh=tuple(probe_mesh),
+                  checkpoint_dir=checkpoint_dir, resume=resume, tcfg=tcfg,
+                  log_every=log_every, probe_every=probe_every,
+                  autotune=autotune, tune_cache=tune_cache,
+                  status_port=status_port)
+        dev = resolve_device(device)
+        return spawn(mod._train_rank, probe_mesh, device=str(dev),
+                     args=(kw,))[0]
     dev = resolve_device(device)
     if autotune:
         from repro_torch.core.incremental import device_kind
@@ -92,13 +120,32 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
             pipe.state.step = int(extra["data_step"])
 
     step_fn = build_train_step(model, tcfg)
+    rank0 = _mesh is None or _mesh.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     plane = None
-    if status_port is not None:
+    if status_port is not None and rank0:
         from repro_torch.telemetry import ControlPlane
         plane = ControlPlane(status_port).start()
     bus = plane.bus if plane is not None else None
     session = None
-    if probe_targets is not None:
+    if _mesh is not None:
+        # mesh-aware probing: the data-parallel per-shard step, one
+        # cycle-counter row a device
+        from repro_torch.core import MeshProbeSession, ProbeConfig, mesh_probe
+        from repro_torch.distributed.compat import P
+        from repro_torch.distributed.steps import build_dp_train_step
+        axes = tuple(_mesh.mesh_dim_names)
+        dp_step = build_dp_train_step(
+            model, tcfg, axis=axes[0] if len(axes) == 1 else axes)
+        session = MeshProbeSession(
+            mesh_probe(dp_step, _mesh, in_specs=(P(), P(), P(axes)),
+                       out_specs=(P(), P(), P()),
+                       config=ProbeConfig(targets=tuple(probe_targets),
+                                          max_probes=16), device=dev),
+            window_steps=max(probe_every or log_every, 1),
+            bus=bus, source="train/mesh")
+        run = session.step
+    elif probe_targets is not None:
         from repro_torch.core import ProbeConfig, ProbeSession
         session = ProbeSession(
             step_fn, ProbeConfig(targets=tuple(probe_targets),
@@ -126,36 +173,61 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
         history.append(loss)
         if step % log_every == 0 or step == steps - 1:
             dt = time.time() - t0
-            print(f"step {step:5d} loss {loss:8.4f} "
+            say(f"step {step:5d} loss {loss:8.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['grad_norm']):7.3f} "
                   f"({dt:.1f}s)", flush=True)
         if session is not None and \
                 session.steps % (probe_every or log_every) == 0:
             snap = session.snapshot()
-            print(f"[probe] {snap.steps} steps, span={snap.span} "
-                  f"cycles, state={snap.state_nbytes}B", flush=True)
-            print(snap.table(), flush=True)
-        if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
+            say(f"[probe] {snap.steps} steps, span={snap.span} "
+                f"cycles, state={snap.state_nbytes}B", flush=True)
+            say(snap.table(), flush=True)
+        if ckpt and rank0 and (step + 1) % tcfg.checkpoint_every == 0:
             ckpt.save(step + 1, (params, opt_state),
                       extra={"step": step + 1,
                              "data_step": pipe.state.step})
-    if ckpt:
+    if ckpt and rank0:
         ckpt.save(steps, (params, opt_state),
                   extra={"step": steps, "data_step": pipe.state.step})
         ckpt.wait()
     if session is not None:
         final = session.close()
         if final is not None:
-            print("\n# final streaming probe telemetry")
-            print(final.table())
-            print(final.bump_chart())
+            say("\n# final streaming probe telemetry")
+            say(final.table())
+            if _mesh is not None:
+                say("\n# per-device cycle records")
+                say(final.device_table())
+                say("\n# straggler heat view")
+                say(final.heat())
+            else:
+                say(final.bump_chart())
     if plane is not None:
         plane.finish()
     return params, opt_state, history
 
 
+def _to_cpu(tree):
+    from repro_torch.distributed import compat
+    return compat.tree_unflatten(tree, [t.detach().cpu() for t in
+                                        compat.tree_leaves(tree)])
+
+
+def _train_rank(rank: int, device, kw):
+    """One rank of a mesh-probed ``train`` (``launch.mesh.spawn``):
+    rank 0 returns (params, opt_state, losses) on the CPU."""
+    from repro_torch.launch.mesh import make_mesh, probe_axis_names
+    shape = kw["probe_mesh"]
+    mesh = make_mesh(shape, probe_axis_names(shape))
+    params, opt_state, history = train(**kw, device=device, _mesh=mesh)
+    if rank:
+        return None
+    return _to_cpu(params), _to_cpu(opt_state), history
+
+
 def main():
+    from repro_torch.launch.mesh import parse_mesh_arg
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--steps", type=int, default=20)
@@ -172,7 +244,10 @@ def main():
     ap.add_argument("--probe", action="store_true",
                     help="profile the train step with a live ProbeSession")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (ROADMAP Queue 1): raises")
+                    help="probe per device on an N-way mesh, e.g. '2' or "
+                         "'2x2' (with --probe; batch must divide the mesh "
+                         "size): one rank a device, NCCL on the cards, "
+                         "gloo with --device cpu")
     ap.add_argument("--probe-targets", default="",
                     help="comma-separated probe subtree roots")
     ap.add_argument("--probe-every", type=int, default=0,
@@ -189,7 +264,7 @@ def main():
           batch=args.batch, seq=args.seq,
           probe_targets=(tuple(args.probe_targets.split(","))
                          if args.probe else None),
-          probe_mesh=(args.mesh,) if args.mesh else None,
+          probe_mesh=parse_mesh_arg(args.mesh),
           probe_every=args.probe_every,
           checkpoint_dir=args.checkpoint_dir, resume=args.resume,
           autotune=args.autotune, tune_cache=args.tune_cache,

@@ -210,12 +210,13 @@ def moe_apply(params, x, cfg: ModelConfig, mesh=None
     """MoE FFN. x: (B, S, d) -> (out, aux_loss x ``aux_loss_weight``).
 
     The local path. The JAX package runs the interior under ``shard_map``
-    when sharding rules are active; the port has no mesh yet, and a mesh
-    given here raises (ROADMAP Queue 1: multi-device)."""
+    when sharding rules are active; that needs the logical-axis rules of
+    ``distributed/sharding.py``, so a mesh given here raises (ROADMAP
+    Queue 1 item 4)."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded MoE (the shard_map path of repro.models.moe) needs "
-            "the multi-device port (ROADMAP Queue 1, multi-device)")
+            "distributed/sharding.py (ROADMAP Queue 1 item 4)")
     with scope.named_scope("moe"):
         out, aux = _moe_local(x, params["router"], params["wi"],
                               params["wg"], params["wo"], cfg)

@@ -3,9 +3,10 @@
 Port of ``repro.telemetry.bus`` (pure Python and numpy; only the imports
 differ). ``ProbeSession`` (its ``StreamingSink`` worker) and
 ``InferenceEngine`` (per-phase / per-request cycle bills) publish to it;
-the device-major streams (``n_devices > 1``) serve ``/mesh/skew`` and
-the fault driver's ``StragglerFault`` (the port has no mesh session
-yet). The pub/sub abstraction:
+the device-major streams (``n_devices > 1``) of a ``MeshProbeSession``
+(``core.meshprobe``, sources ``train/mesh`` / ``serve/mesh``) serve
+``/mesh/skew`` and the fault driver's ``StragglerFault``. The pub/sub
+abstraction:
 
 - **streams** — named per-probe duration statistics.  A publisher
   registers a :class:`ProbeStream` (``bus.stream(name, paths)``) and

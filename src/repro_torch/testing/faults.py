@@ -15,7 +15,8 @@ the deterministic traffic driver those claims are asserted against
   time-independent and replayable.
 - Fault specs — :class:`StepFault` (sudden sustained shift),
   :class:`RampFault` (compounding multiplicative creep), and
-  :class:`StragglerFault` (one device of a device-major stream slows).
+  :class:`StragglerFault` (one device of a device-major stream slows,
+  the stream a ``MeshProbeSession`` publishes).
 - :class:`FaultDriver` — generates seeded synthetic per-call cycle
   durations window by window, applies the active fault factors,
   publishes them to a :class:`~repro_torch.telemetry.bus.ProbeStream`, and

@@ -44,7 +44,10 @@ PORT_MODULES = (
     "repro_torch.core.dse", "repro_torch.core.tracesim",
     "repro_torch.kernels.tuning", "repro_torch.kernels.ops",
     "repro_torch.kernels.search_spaces", "repro_torch.launch.tune",
-    "repro_torch.tune",
+    "repro_torch.tune", "repro_torch.distributed.compat",
+    "repro_torch.launch.mesh", "repro_torch.launch.collectives",
+    "repro_torch.core.meshprobe", "repro_torch.optim.compression",
+    "repro_torch.testing.mesh_ranks",
 )
 
 
@@ -144,7 +147,8 @@ def test_serve_engine_and_legacy_loop_agree_on_cpu():
 
 def test_trainer_cli_on_the_cpu_and_its_unported_flags(tmp_path, capsys):
     """``python -m repro_torch.launch.train --device cpu`` trains (and
-    probes); ``--mesh`` raises, naming the roadmap; ``--autotune`` (ported
+    probes); ``--mesh`` without ``--probe`` (the auto-sharded step)
+    raises, naming the roadmap; ``--autotune`` (ported
     with the DSE) loads the tuned configs, none from an empty cache."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     base = [sys.executable, "-m", "repro_torch.launch.train", "--device",
