@@ -81,16 +81,17 @@
    and model FLOP/s against the bf16 peak, a profiled step, the
    optimizer's time and its 2-D row scans' share; the step's forward and
    backward with the kernel forward against the same with the plain
-   forward (loss, grad norm, every gradient leaf); the same step
-   unprobed and probed (model clock, every scope a
+   forward (loss, grad norm, every gradient leaf); the step on bf16
+   master params (so AdamW scans no 2-D leaf by rows: their capture and
+   oracle took minutes) unprobed and probed (model clock, every scope a
    probe): params, moments, loss and grad norm bitwise equal, record ==
    oracle, no write-guard copy, 44 flash launches, and probe paths and
    calls equal to the same step's probed on the CPU at smoke width with
    22 layers and the card's row and chunk plans (so the backward's
    ``~bwd`` and ``rematted_computation`` scopes reach the card's autograd
    thread), apart from the optimizer's scans over the leaves over 128
-   MiB, which equal the reference rule's (7: five stacked leaves by
-   layer, the embedding and unembedding by row); probed against unprobed walls, transitions and launches
+   MiB, which equal the reference rule's (five stacked leaves by layer);
+   probed against unprobed walls, transitions and launches
    a step, the ``~bwd`` share of the model clock; then the trainer
    (``launch.train.train``, its ``--probe``: a ``ProbeSession``) for 1
    step, its ``[probe]`` lines and tables printed;
@@ -164,8 +165,9 @@
    its plain version and timed; then mamba2-370m trained at full width
    (B 8 x S 2048, 1 warm-up and 1 timed step: wall, tokens/s, peak
    memory, the optimizer's row scans, no kernel launch: training takes
-   the plain SSD path), the last step probed (outputs bitwise the
-   unprobed step's, record == oracle, paths and calls the CPU's at smoke
+   the plain SSD path), one step of bf16 master params (no row scans)
+   probed (outputs bitwise the unprobed step's, record == oracle, paths
+   and calls the CPU's at smoke
    width with 48 layers and the card's chunk plan, apart from the
    optimizer's scans over the leaves over 128 MiB, which equal the
    reference rule's). The kernels line gains one entry a (kernel, shape)
@@ -214,6 +216,28 @@
    at the DP step's shape with statistics against plain (1e-2 of max
    |plain|; a dropped causal mask must fail it), timed beside SDPA with
    its bound: one more kernels-line entry.
+18. logical-axis sharding over DTensor (``repro_torch.distributed.
+   sharding``), world 1 over NCCL in this process, mesh ("data",
+   "model") = (1, 1): (a) the ``TRAIN_RULES`` ``build_train_step`` on
+   params placed by ``distribute_params`` against the unsharded step,
+   tinyllama-1.1b full width, B 4 x S 512, bf16 master params, one
+   warm-up each (loss, grad norm, params, mu, nu bitwise; flash 44; both
+   walls, the aten ops a step through DTensor and their host cost);
+   (b) ``remat="dots"`` against ``"full"``, the step's loss and
+   gradients (bitwise, flash 44 each, the layers' unbatched products
+   recomputed by full and none by dots, the memory held after the
+   forward and the peak of each); (c) ``build_prefill_step`` + 16 steps
+   of ``build_decode_step`` under ``SERVE_RULES``, 8 x 512 (ids == the
+   unsharded legacy serve's, flash 22; ``prefill_microbatches`` 2 vs 1
+   within the chunked-prefill limit); (d) granite-moe-1b-a400m full
+   width, ``loss_fn`` through the sharded MoE (``shard_map``) against the
+   local path, bitwise. (e), in spawned processes beside (b)-(d): a gloo
+   world of 2 on this card, one DTensor ``Shard(0)`` -> ``Replicate``
+   redistribute (an all-gather) of the card's tensors, reported; only if
+   it runs, the smoke auto-sharded train step at (1, 2) (head dim 64)
+   against the unsharded one (loss rel 2e-3). One ``sharding [...]`` line
+   a run. It launches flash at shapes the kernels line has, so it adds no
+   entry.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -1412,6 +1436,7 @@ def profiled_ssm_phase(torch, fa, pa, ssd, serve, plain, dev):
     docstring, step 10); ``plain`` is step 7's unprofiled serve."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core import ProbeConfig, decode_record, probe
+    from repro_torch.distributed.steps import build_decode_step
     from repro_torch.models import Model
     L = get_config(SSM_ARCH).num_layers
     for fn in (fa.flash_attention, pa.paged_attention, ssd.ssd_scan):
@@ -1428,7 +1453,9 @@ def profiled_ssm_phase(torch, fa, pa, ssd, serve, plain, dev):
     toks = torch.randint(0, m.cfg.vocab_size, (1, 16), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(9))
     _, cache = m.prefill(p, {"tokens": toks}, 17)
-    pf = probe(m.decode_step, ProbeConfig(offload=1.0, max_probes=16))
+    # the legacy loop probes build_decode_step (JAX's ``decode`` root)
+    pf = probe(build_decode_step(m), ProbeConfig(offload=1.0,
+                                                 max_probes=16))
     _, rec = pf(p, cache, {"tokens": toks[:, -1:], "pos": 16})
     one = dict(zip(pf.probe_paths(),
                    (int(c) for c in decode_record(rec)["calls"])))
@@ -1597,6 +1624,46 @@ def adamw_scans(params) -> dict:
             for i, p in enumerate(big)}
 
 
+SCAN_ROWS = 64      # step 11: rows of the f32 leaf whose row scan is probed
+
+
+def check_row_scan(torch, dev, tcfg, sched) -> None:
+    """Step 11: AdamW's row scan of an f32 2-D leaf just over the 128 MiB
+    threshold (``SCAN_ROWS`` rows, the full-width embedding's rule at a
+    few rows), probed alone: the update's outputs bitwise the unprobed
+    ones, record == oracle, and its scan the reference rule's."""
+    from repro_torch.core import ProbeConfig, decode_record, probe, scope
+    from repro_torch.optim import adamw
+    cols = adamw.SCAN_THRESHOLD_BYTES // (4 * SCAN_ROWS) + 1
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p, g = ({"w": torch.randn(SCAN_ROWS, cols, generator=gen, device=dev)}
+            for _ in range(2))
+    opt = adamw.init(p)
+
+    def update(p, g, opt):
+        with scope.named_scope("optimizer"):
+            return adamw.update(p, g, opt, tcfg, sched)
+    want = update(p, g, opt)
+    pf = probe(update, ProbeConfig(inline="off_all", max_probes=500),
+               device=dev)
+    got, rec = pf(p, g, opt)
+    eq = (_tree_equal(torch, got[0], want[0])
+          and _tree_equal(torch, tuple(got[1]), tuple(want[1]))
+          and _tree_equal(torch, got[2], want[2]))
+    dec, oc = decode_record(rec), pf.oracle(p, g, opt)
+    exact = (dec["cycle"] == oc.cycle and list(dec["calls"]) == oc.calls
+             and list(dec["totals"]) == oc.totals
+             and list(dec["starts"]) == oc.starts
+             and list(dec["ends"]) == oc.ends)
+    scans = {q: int(c) for q, c in zip(pf.probe_paths(), dec["calls"])
+             if q.startswith("optimizer/adamw/scan#")}
+    print(f"AdamW row scan of an f32 ({SCAN_ROWS}, {cols}) leaf probed "
+          f"alone: outputs == unprobed bitwise: {eq}; record == oracle: "
+          f"{exact}; scans {scans} == the reference rule's: "
+          f"{scans == adamw_scans(p)}")
+    assert eq and exact and scans == adamw_scans(p)
+
+
 def train_phase(torch, fa, pa, ssd, dev, smi):
     """Step 11: train tinyllama-1.1b at full width and depth (random
     weights from seed 0, batches from the port's TokenPipeline, seed 0)
@@ -1692,7 +1759,16 @@ def train_phase(torch, fa, pa, ssd, dev, smi):
     assert dl <= STEP_LOSS_ATOL and dg <= STEP_GNORM_RTOL
     assert dgrad <= STEP_GRAD_RTOL
 
-    # the same step unprobed and probed (model clock, every scope a probe)
+    # the step unprobed and probed (model clock, every scope a probe), on
+    # bf16 master params: no 2-D leaf is then over 128 MiB, so AdamW
+    # scans none by rows (34,048 iterations whose capture, probed run and
+    # oracle took minutes of the script); the stacked layers still scan
+    del params, opt
+    torch.cuda.empty_cache()
+    model = Model(cfg.replace(param_dtype="bfloat16"))
+    step = build_train_step(model, tcfg)
+    params = model.init(0, device=dev)
+    opt = adamw.init(params, cfg.moment_dtype)
     copies0 = write_copies()
     pf = probe(step, ProbeConfig(inline="off_all", max_probes=500),
                device=dev)
@@ -1716,8 +1792,9 @@ def train_phase(torch, fa, pa, ssd, dev, smi):
              and list(dec["starts"]) == oc.starts
              and list(dec["ends"]) == oc.ends)
     copies = write_copies() - copies0
-    print(f"probed train step: outputs (params, moments, loss, grad norm) "
-          f"== unprobed bitwise: {eq}; record == oracle: {exact}; flash "
+    print(f"probed train step (bf16 master params): outputs (params, "
+          f"moments, loss, grad norm) == unprobed bitwise: {eq}; record == "
+          f"oracle: {exact}; flash "
           f"launches {p_launches[0]}; write-guard copies {copies}; "
           f"{len(paths)} probes, capture {cap_s:.1f} s")
     assert eq and exact and copies == 0
@@ -1750,6 +1827,7 @@ def train_phase(torch, fa, pa, ssd, dev, smi):
           f"{sorted(want_scans.items())}: {dict(scans) == want_scans}")
     assert same and bwd
     assert len(scans) == len(want_scans) and dict(scans) == want_scans
+    check_row_scan(torch, dev, tcfg, sched)
 
     ids = {p: i for i, p in enumerate(paths)}
     bwd_share = int(dec["totals"][ids["loss~bwd"]]) / dec["cycle"]
@@ -2517,8 +2595,9 @@ def ssm_train_phase(torch, counters, dev, smi):
     """mamba2-370m trains at full width (48 layers, f32 master params,
     bf16 compute, remat full, the plain SSD path), B 8 x S 2048 from the
     port's TokenPipeline: 1 warm-up and 1 timed step, the optimizer's
-    row scans, then the last step probed: outputs bitwise the unprobed
-    step's, record == oracle, and paths and calls those of the same step
+    row scans, then one step of bf16 master params (no 2-D leaf scanned
+    by rows) probed: outputs bitwise the unprobed step's, record ==
+    oracle, and paths and calls those of the same step
     probed on the CPU at smoke width with 48 layers and the card's chunk
     plan (8 SSD chunks, one loss chunk), apart from the optimizer's scans
     over the leaves over 128 MiB."""
@@ -2586,15 +2665,23 @@ def ssm_train_phase(torch, counters, dev, smi):
           f"({100 * r_ms / ms:.1f} %; one run, after the steps ran it, host "
           f"clock, synced)")
 
-    want_scans = adamw_scans(params)
-    # the last timed step again, probed
-    pp, po = prev
+    # one step of bf16 master params, unprobed and probed: no 2-D leaf is
+    # then over 128 MiB, so AdamW scans none by rows (their capture and
+    # oracle took minutes of the script); the stacked layers still scan
+    del prev, want, params, opt
+    torch.cuda.empty_cache()
+    model = Model(cfg.replace(param_dtype="bfloat16"))
+    step = build_train_step(model, tcfg)
+    pp = model.init(0, device=dev)
+    po = adamw.init(pp, cfg.moment_dtype)
+    want_scans = adamw_scans(pp)
     batch = batches[1]
     pf = probe(step, ProbeConfig(inline="off_all", max_probes=500),
                device=dev)
     t0 = time.perf_counter()
     pf.ensure_built(pp, po, batch)
     cap = time.perf_counter() - t0
+    want = step(pp, po, batch)
     out, rec = pf(pp, po, batch)
     torch.cuda.synchronize()
     eq = (_tree_equal(torch, out[0], want[0])
@@ -2606,13 +2693,13 @@ def ssm_train_phase(torch, counters, dev, smi):
     exact = (dec["cycle"] == oc.cycle and list(dec["calls"]) == oc.calls
              and list(dec["totals"]) == oc.totals)
     paths = pf.probe_paths()
-    print(f"probed {SSM_ARCH} train step ({smi}): outputs (params, "
-          f"moments, loss, "
+    print(f"probed {SSM_ARCH} train step, bf16 master params ({smi}): "
+          f"outputs (params, moments, loss, "
           f"grad norm) == unprobed bitwise: {eq}; record == oracle: "
           f"{exact}; {len(paths)} probes, capture {cap:.1f} s, "
           f"{pf.last_run['transitions']} transitions")
     assert eq and exact
-    del pp, po, prev, want, params, opt, batches
+    del pp, po, want, batches
     torch.cuda.empty_cache()
 
     ccfg = smoke_config(SSM_ARCH).replace(num_layers=cfg.num_layers,
@@ -3230,6 +3317,335 @@ def mesh_phase(torch, fa, pa, ssd, dev, smi):
 
 
 
+SHARD_DECODE = 16       # step 18: decode steps of the sharded serve
+MOE_B, MOE_S = 1, 512   # step 18 (d): granite-moe (step 15 prefill shape)
+
+
+class _OpCount:
+    """A ``TorchDispatchMode`` counting the aten ops dispatched inside."""
+
+    def __new__(cls):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Mode(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.n = {}
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                key = str(func.overloadpacket)
+                self.n[key] = self.n.get(key, 0) + 1
+                return func(*args, **(kwargs or {}))
+        return Mode()
+
+
+def _sharding_line(label, **kw):
+    print(f"sharding [{label}]: " + ", ".join(f"{k} {v}" for k, v in
+                                               kw.items()), flush=True)
+
+
+def sharding_phase(torch, fa, pa, ssd, dev, smi):
+    """Step 18: logical-axis sharding over DTensor. World 1 over NCCL in
+    this process, mesh ("data", "model") = (1, 1): (a) the auto-sharded
+    ``build_train_step`` under ``TRAIN_RULES`` against the unsharded step
+    at full width (B 4 x S 512, bf16 master params), bitwise, with the
+    walls and the DTensor dispatch's host cost; (b) ``remat="dots"``
+    against ``"full"``: the step's loss and gradients bitwise, no
+    unbatched matmul recomputed, the memory held after the forward and
+    the peak of each; (c) ``build_prefill_step`` + 16 steps of
+    ``build_decode_step`` under ``SERVE_RULES`` against the unsharded
+    legacy serve's ids, and
+    ``prefill_microbatches`` 2 against 1; (d) granite-moe's loss through
+    the sharded MoE against the local path, bitwise. Then (e) a world of
+    2 over gloo on this card: one ``Shard(0)`` -> ``Replicate``
+    redistribute of a card tensor, and only if it runs, the smoke
+    auto-sharded train step at (1, 2) against the unsharded one, in
+    spawned processes beside (b)-(d)."""
+    import datetime
+    import gc
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.steps import (build_decode_step,
+                                               build_prefill_step,
+                                               build_train_step)
+    from repro_torch.launch.mesh import make_mesh, spawn
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.testing import mesh_ranks, sharded_ranks
+    counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+    print(f"step 18, logical-axis sharding over DTensor, on {smi}")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, device_id=dev, timeout=datetime.timedelta(seconds=120))
+
+    def sync_wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        host = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, host
+
+    card = str(dev)
+    e_out = {}
+
+    def gloo_world2():
+        """(e): its own worlds of spawned ranks, so it runs beside (b)-(d)
+        (the script's process only waits on it)."""
+        try:
+            red = spawn(sharded_ranks.redistribute_rank, (2,),
+                        backend="gloo", device=card, timeout=60)
+            e_out["kind"] = ("ok" if all(r["ok"] for r in red) else
+                             "wrong value")
+        except RuntimeError as e:
+            e_out["kind"] = "crashed (" + str(e).splitlines()[0][:120] + ")"
+            return
+        if e_out["kind"] == "ok":
+            over = dict(compute_dtype="bfloat16", head_dim=64, d_model=256)
+            e_out["train"] = spawn(
+                sharded_ranks.checks_rank, (1, 2), backend="gloo",
+                device=card, args=([((1, 2), ("data", "model"), {
+                    "train": dict(over=over)})],))[0]["train"]
+
+    flash_main = 0
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        on = lambda rules: (compat.mesh_context(mesh),   # noqa: E731
+                            shd.axis_rules(rules, mesh))
+        # (a) the auto-sharded train step against the unsharded one
+        model = mesh_ranks.smoke_model(full=True)
+        cfg = model.cfg
+        tcfg = TrainConfig(total_steps=10, warmup_steps=1)
+        step = build_train_step(model, tcfg)
+        params = model.init(0, dev)
+        gen = torch.Generator(device=dev).manual_seed(18)
+        batch = {k: torch.randint(0, cfg.vocab_size, (MESH_B, MESH_S),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        opt = adamw.init(params, cfg.moment_dtype)
+        step(params, opt, batch)                            # warm-up
+        (p1, o1, m1), wall1, host1 = sync_wall(
+            lambda: step(params, opt, batch))
+        ctx = on(shd.TRAIN_RULES)
+        with ctx[0], ctx[1]:
+            dp = shd.distribute_params(params, model.schema(), mesh,
+                                       shd.TRAIN_RULES)
+            dopt = adamw.init(dp, cfg.moment_dtype)
+            with _OpCount() as ops:                         # warm-up
+                _, first, _ = sync_wall(lambda: step(dp, dopt, batch))
+            n_ops = sum(ops.n.values())
+            _zero(counters)
+            (p2, o2, m2), wall2, host2 = sync_wall(
+                lambda: step(dp, dopt, batch))
+            launches = _launches(counters)
+            p2, o2, m2 = shd.gather((p2, o2, m2))
+        flash_main += launches[0]
+        same = (bool(torch.equal(m1["loss"], m2["loss"])) and
+                bool(torch.equal(m1["grad_norm"], m2["grad_norm"])) and
+                _tree_equal(torch, p1, p2) and
+                _tree_equal(torch, o1.mu, o2.mu) and
+                _tree_equal(torch, o1.nu, o2.nu))
+        print(f"(a) auto-sharded train step {ARCH} full width, B {MESH_B} S "
+              f"{MESH_S}, bf16 master params, TRAIN_RULES on (1, 1): loss "
+              f"{float(m2['loss']):.6f}, grad norm "
+              f"{float(m2['grad_norm']):.6f}; loss, grad norm, params, mu, "
+              f"nu == the unsharded step's bitwise: {same}; flash launches "
+              f"{launches} (want (44, 0, 0)); walls: unsharded "
+              f"{wall1 * 1e3:.1f} ms (host {host1 * 1e3:.1f} ms), sharded "
+              f"{wall2 * 1e3:.1f} ms (host {host2 * 1e3:.1f} ms), first "
+              f"sharded step (ops counted) {first:.2f} s; {n_ops} aten ops a "
+              f"step through "
+              f"DTensor, {(host2 - host1) / n_ops * 1e6:.1f} us of host "
+              f"each beyond the plain dispatch ({smi})")
+        assert same, "the auto-sharded step differs at world 1"
+        assert launches == (2 * cfg.num_layers, 0, 0), launches
+        _sharding_line("train TRAIN_RULES (1,1)", wall_ms=round(wall2 * 1e3, 1),
+                       plain_ms=round(wall1 * 1e3, 1),
+                       host_us_per_op=round((host2 - host1) / n_ops * 1e6, 1),
+                       flash=launches[0], bitwise=same)
+        del p1, o1, p2, o2, dp, dopt, opt
+        gc.collect()                 # DTensors in cycles: free them now
+        torch.cuda.empty_cache()
+        print(f"step 18 (a) done at {time.perf_counter() - t0:.1f} s")
+        # (e) starts now, in its own processes, beside (b)-(d)
+        world2 = threading.Thread(target=gloo_world2)
+        world2.start()
+
+        # (b) remat="dots" against "full": the step's loss and gradients
+        # (what remat changes; the optimizer's peak would hide it)
+        res = {}
+        for remat in ("full", "dots"):
+            m = Model(cfg.replace(remat=remat))
+            gc.collect()             # nothing freed inside the measurement
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            _zero(counters)
+            leaves = adamw.tree_map(
+                lambda p: p.detach().requires_grad_(True), params)
+            held = []
+
+            def loss_and_grads():
+                loss, _ = m.loss_fn(leaves, batch)
+                held.append(torch.cuda.memory_allocated(dev) - base)
+                return loss, torch.autograd.grad(loss,
+                                                 adamw.tree_leaves(leaves))
+            with _OpCount() as ops:
+                out, wall, _ = sync_wall(loss_and_grads)
+            res[remat] = dict(out=out, wall=wall, mm=ops.n.get("aten.mm", 0),
+                              addmm=ops.n.get("aten.addmm", 0),
+                              flash=_launches(counters)[0], held=held[0],
+                              peak=torch.cuda.max_memory_allocated(dev) - base)
+            del leaves
+        with torch.no_grad(), _OpCount() as fwd:
+            model.loss_fn(params, batch)
+        chunks = MESH_S // min(cfg.loss_chunk, MESH_S)
+        layer_mm = fwd.n.get("aten.mm", 0) - chunks
+        f, d = res["full"], res["dots"]
+        same = (bool(torch.equal(f["out"][0], d["out"][0])) and all(
+            torch.equal(a, b) for a, b in zip(f["out"][1], d["out"][1])))
+        extra = (d["held"] - f["held"]) / 2**30
+        print(f"(b) remat dots vs full, loss and gradients of the step: "
+              f"bitwise {same}; "
+              f"flash launches {f['flash']} / {d['flash']} (want 44 each); "
+              f"aten.mm in the step {f['mm']} / {d['mm']}: full recomputes "
+              f"the layers' {layer_mm} unbatched products, dots "
+              f"{layer_mm - (f['mm'] - d['mm'])} of them (addmm "
+              f"{f['addmm']} / {d['addmm']}); held after the forward "
+              f"{f['held'] / 2**30:.2f} / {d['held'] / 2**30:.2f} GiB (dots "
+              f"{extra:+.2f} GiB; predicted +1.6 GB = 1.49 GiB), peak above "
+              f"the params (activations and gradients) "
+              f"{f['peak'] / 2**30:.2f} / {d['peak'] / 2**30:.2f} GiB; walls "
+              f"{f['wall'] * 1e3:.1f} / {d['wall'] * 1e3:.1f} ms ({smi})")
+        assert same and f["flash"] == d["flash"] == 2 * cfg.num_layers
+        assert f["mm"] - d["mm"] == layer_mm and f["addmm"] == d["addmm"]
+        _sharding_line("remat dots vs full", held_gib=[
+            round(f["held"] / 2**30, 2), round(d["held"] / 2**30, 2)],
+            peak_gib=[
+            round(f["peak"] / 2**30, 2), round(d["peak"] / 2**30, 2)],
+            wall_ms=[round(f["wall"] * 1e3, 1), round(d["wall"] * 1e3, 1)],
+            mm_recomputed=[layer_mm, layer_mm - (f["mm"] - d["mm"])],
+            bitwise=same)
+        del res, f, d, params
+        torch.cuda.empty_cache()
+        print(f"step 18 (b) done at {time.perf_counter() - t0:.1f} s")
+
+        # (c) the serving step builders under SERVE_RULES
+        plain = serve(ARCH, smoke=False, batch=BATCH, prompt_len=PROMPT,
+                      max_new=SHARD_DECODE + 1, engine=False, device=dev)
+        smodel = Model(get_config(ARCH))
+        sparams = smodel._compute_cast(smodel.init(0, dev))
+        prompts = torch.randint(0, smodel.cfg.vocab_size, (BATCH, PROMPT),
+                                generator=torch.Generator().manual_seed(1),
+                                dtype=torch.int32).to(dev)
+        cache_len = PROMPT + SHARD_DECODE
+        sc = ShapeConfig("serve", cache_len, BATCH, "prefill")
+        decode = build_decode_step(smodel)
+        ctx = on(shd.SERVE_RULES)
+        with ctx[0], ctx[1], torch.no_grad():
+            dparams = shd.distribute_params(sparams, smodel.schema(), mesh,
+                                            shd.SERVE_RULES)
+            _zero(counters)
+            (logits, cache), pf_wall, _ = sync_wall(lambda: build_prefill_step(
+                smodel, sc)(dparams, {"tokens": prompts}))
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            ids = [nxt]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(SHARD_DECODE):
+                logits, cache, nxt = decode(dparams, cache, {
+                    "tokens": nxt[:, None], "pos": PROMPT + i})
+                ids.append(nxt)
+            torch.cuda.synchronize()
+            dec_wall = (time.perf_counter() - t) / SHARD_DECODE
+            launches = _launches(counters)
+            placed = str(tuple(cache["k"].placements))
+            ids = torch.stack([shd.gather(x) for x in ids], 1).cpu().numpy()
+            m2 = Model(get_config(ARCH).replace(prefill_microbatches=2))
+            (l2, c2), pf2_wall, _ = sync_wall(lambda: build_prefill_step(
+                m2, sc)(dparams, {"tokens": prompts}))
+            (l1, c1) = build_prefill_step(smodel, sc)(
+                dparams, {"tokens": prompts})
+            l1, l2, c1, c2 = shd.gather((l1, l2, c1, c2))
+        flash_main += launches[0]
+        same = bool(np.array_equal(ids, plain.tokens))
+        V = smodel.cfg.vocab_size
+        mb_diff = (l1[:, :V] - l2[:, :V]).abs().max().item()
+        cache_same = all(torch.equal(c1[k], c2[k]) for k in c1)
+        print(f"(c) SERVE_RULES (1, 1) prefill {BATCH}x{PROMPT} + "
+              f"{SHARD_DECODE} decode steps, {ARCH} full width: ids == the "
+              f"unsharded legacy serve's: {same}; cache placements {placed};"
+              f" launches {launches} (want (22, 0, 0)); prefill "
+              f"{pf_wall * 1e3:.1f} ms, decode {dec_wall * 1e3:.1f} ms a step"
+              f" (the unsharded legacy serve {plain.seconds * 1e3:.1f} ms in "
+              f"all); prefill_microbatches 2 vs 1: {pf2_wall * 1e3:.1f} ms, "
+              f"max |last logits diff| {mb_diff:.3e} (atol {CHUNK_LOGIT_ATOL}), "
+              f"caches equal: {cache_same} ({smi})")
+        assert same and launches == (cfg.num_layers, 0, 0), launches
+        assert mb_diff <= CHUNK_LOGIT_ATOL
+        _sharding_line("serve SERVE_RULES (1,1)",
+                       prefill_ms=round(pf_wall * 1e3, 1),
+                       decode_ms=round(dec_wall * 1e3, 2),
+                       microbatches2_ms=round(pf2_wall * 1e3, 1),
+                       ids_equal=same, flash=launches[0])
+        del dparams, sparams, cache, c1, c2
+        torch.cuda.empty_cache()
+        print(f"step 18 (c) done at {time.perf_counter() - t0:.1f} s")
+
+        # (d) granite-moe's loss through the sharded MoE, world 1
+        mo = Model(get_config("granite-moe-1b-a400m"))
+        mp = mo.init(0, dev)
+        mb = {k: torch.randint(0, mo.cfg.vocab_size, (MOE_B, MOE_S),
+                               generator=gen, device=dev, dtype=torch.int32)
+              for k in ("tokens", "labels")}
+        with torch.no_grad():
+            (l_loc, _), w_loc, _ = sync_wall(lambda: mo.loss_fn(mp, mb))
+            ctx = on(shd.TRAIN_RULES)
+            with ctx[0], ctx[1]:
+                dmp = shd.distribute_params(mp, mo.schema(), mesh,
+                                            shd.TRAIN_RULES)
+                (l_sh, _), w_sh, _ = sync_wall(lambda: mo.loss_fn(dmp, mb))
+                l_sh = shd.gather(l_sh)
+        same = bool(torch.equal(l_loc, l_sh))
+        print(f"(d) granite-moe-1b-a400m full width, loss_fn B {MOE_B} S "
+              f"{MOE_S}: sharded MoE (shard_map over (1, 1)) "
+              f"{float(l_sh):.6f} vs local {float(l_loc):.6f}, bitwise "
+              f"{same}; walls {w_sh * 1e3:.1f} / {w_loc * 1e3:.1f} ms")
+        assert same
+        _sharding_line("moe TRAIN_RULES (1,1)", wall_ms=round(w_sh * 1e3, 1),
+                       local_ms=round(w_loc * 1e3, 1), bitwise=same)
+        del mp, dmp
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"step 18 world 1 done at {time.perf_counter() - t0:.1f} s")
+
+    world2.join()
+    kind = e_out["kind"]
+    print(f"(e) gloo on {card} tensors, a world of 2: DTensor Shard(0) -> "
+          f"Replicate redistribute (an all-gather): {kind}")
+    if kind == "ok":
+        r = e_out["train"]
+        rel = abs(r["loss"][1] - r["loss"][0]) / abs(r["loss"][0])
+        print(f"(e) smoke auto-sharded train step at (1, 2) on the card "
+              f"(head dim 64, bf16): loss {r['loss']}, rel {rel:.2e} (2e-3)")
+        assert rel < 2e-3
+    _sharding_line("gloo world 2 on the card", redistribute=kind)
+    print(f"step 18 took {time.perf_counter() - t0:.1f} s")
+    return flash_main
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3297,7 +3713,8 @@ def main() -> int:
     fam = families_phase(torch, fa, pa, ssd, dev, smi)
     harness = harness_phase(torch, fa, pa, ssd, dev, smi)
     mesh = mesh_phase(torch, fa, pa, ssd, dev, smi)
-    done("14-17")
+    sharding_phase(torch, fa, pa, ssd, dev, smi)
+    done("14-18")
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))

@@ -237,13 +237,55 @@ class _RematEnd(torch.autograd.Function):
         return gs
 
 
-def remat(fn: Callable, *args) -> Any:
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable():
+    """``remat``'s ``context_fn`` for JAX's
+    ``dots_with_no_batch_dims_saveable``: the forward keeps the outputs of
+    the matrix products with no batch dimensions (``aten.mm``,
+    ``aten.addmm``) in order, and the recompute takes each from there
+    instead of running it; every other operation, batched products and
+    kernels included, is recomputed. Only the products are intercepted,
+    so a probe's own operations in the recompute change nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    saved: List[Any] = []
+
+    class Keep(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in _DOTS:
+                saved.append((out.detach(), out._version))
+            return out
+
+    class Reuse(TorchDispatchMode):
+        i = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func not in _DOTS:
+                return func(*args, **(kwargs or {}))
+            out, version = saved[self.i]
+            if out._version != version:
+                raise RuntimeError("a saved matmul output was written in "
+                                   "place before the recompute")
+            saved[self.i] = None               # held until used once
+            self.i += 1
+            return out
+    return Keep(), Reuse()
+
+
+def remat(fn: Callable, *args, policy: Optional[str] = None) -> Any:
     """``jax.checkpoint(fn)(*args)``: ``torch.utils.checkpoint``
     (non-reentrant, no early stop, no RNG state) whose recompute runs first
     in the region's backward and, while a probe runs, under
     ``rematted_computation`` at the backward frame of the call. ``fn``
-    returns a tensor or a tuple of tensors."""
+    returns a tensor or a tuple of tensors. ``policy="dots"`` keeps the
+    unbatched matmul outputs (``_dots_saveable``), so the recompute runs
+    everything but them; None keeps nothing."""
     import torch.utils.checkpoint as tc
+    if policy not in (None, "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {"context_fn": _dots_saveable} if policy == "dots" else {}
     first = [True]
 
     def body(*a):
@@ -259,7 +301,7 @@ def remat(fn: Callable, *args) -> Any:
 
     with tc.set_checkpoint_early_stop(False):
         return tc.checkpoint(body, *args, use_reentrant=False,
-                             preserve_rng_state=False)
+                             preserve_rng_state=False, **kw)
 
 
 # --------------------------------------------------------------- tracker

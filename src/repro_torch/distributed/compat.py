@@ -18,9 +18,25 @@ an eager meaning is ported:
   ``wait_tensor``, so a capture sees it, prices it and writes nothing in
   place. The operation names its process group, and ``group_axes`` maps
   the group back to the mesh axes (the collective's G);
-- ``shard_map(f, mesh=, in_specs=, out_specs=)``: each global argument
-  sliced to this device's shard, ``f`` run, and the outputs a spec shards
-  gathered back; ``P`` is the port's ``PartitionSpec``.
+- ``shard_map(f, mesh=, in_specs=, out_specs=[, axis_names=])``: each
+  global argument sliced to this device's shard, ``f`` run, and the
+  outputs a spec shards gathered back; ``P`` is the port's
+  ``PartitionSpec``. With DTensor arguments (``distributed.sharding``)
+  the manual axes (``axis_names``, default all) are sliced from each
+  DTensor's placement and the others stay DTensor placements on the
+  sub-mesh of the auto axes (``placement_mesh`` inside the body), as
+  JAX's partial-manual ``shard_map`` keeps them auto-sharded; the
+  outputs come back as DTensors on the whole mesh. A collective over
+  manual axes acts on each rank's block of a DTensor; ``psum`` and
+  ``all_gather`` carry gradients (their transposes: identity for the
+  replicated sum, ``psum_scatter`` for the gather). A DTensor
+  argument's cotangent is summed over the manual axes its spec leaves
+  it replicated on, as JAX's transpose (``check_vma=False``) psums it.
+  JAX also divides an output's cotangent by the size of the manual axes
+  it is replicated over and transposes psum to psum; here both are the
+  identity. The gradients are the same where a body makes every output
+  replicated over a manual axis so by a psum or pmean over that axis,
+  as the sharded MoE does.
 
 Backends: NCCL takes the card's tensors for every kind. gloo takes host
 tensors for every kind; on an H100 under torch 2.11.0+cu128 it runs
@@ -43,6 +59,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -71,6 +89,8 @@ class MeshEnv:
     coords: Tuple[int, ...]           # this device's (or the replayed one's)
     device: Optional[torch.device]    # where ``axis_index`` lives
     mesh: Any = None                  # the DeviceMesh; None in a replay
+    manual: Tuple[str, ...] = ()      # inside a DTensor shard_map body:
+    auto: Any = None                  # its manual axes, the auto sub-mesh
 
     @property
     def sizes(self) -> Dict[str, int]:
@@ -133,6 +153,44 @@ def get_mesh():
     """The ambient ``DeviceMesh``, or None (no mesh, or a replay)."""
     env = _ENV.get()
     return env.mesh if env is not None else None
+
+
+_SUBMESHES: Dict[Tuple[Any, Tuple[str, ...]], Any] = {}
+
+
+def sub_mesh(mesh, axes: Sequence[str]):
+    """The ``DeviceMesh`` of ``axes`` (mesh order) of ``mesh``, without
+    its axes of size 1 unless every one is: a size-1 axis splits nothing,
+    and each mesh dim multiplies the placements DTensor weighs for every
+    op (on a (2, 1, 2) mesh the first step's sharding propagation takes
+    minutes, on (2, 2) seconds)."""
+    names = tuple(mesh.mesh_dim_names)
+    axes = tuple(a for a in names if a in set(axes))
+    big = tuple(a for a in axes if mesh.size(names.index(a)) > 1)
+    axes = big or axes
+    if axes == names:
+        return mesh
+    key = (mesh, axes)
+    if key not in _SUBMESHES:
+        _SUBMESHES[key] = mesh[axes]
+    return _SUBMESHES[key]
+
+
+def placement_mesh():
+    """The ``DeviceMesh`` DTensor placements live on: the ambient mesh's
+    axes (``sub_mesh``), or inside a DTensor ``shard_map`` body its auto
+    axes (None when every axis is manual)."""
+    env = _ENV.get()
+    if env is None or env.mesh is None:
+        return None
+    if env.manual:
+        return env.auto
+    return sub_mesh(env.mesh, env.axes)
+
+
+def manual_axes() -> Tuple[str, ...]:
+    env = _ENV.get()
+    return env.manual if env is not None else ()
 
 
 def _env() -> MeshEnv:
@@ -205,9 +263,72 @@ def is_permute() -> bool:
 
 # ----------------------------------------------------------- collectives
 
-def psum(x: torch.Tensor, axis: Axes) -> torch.Tensor:
+def is_dtensor(x) -> bool:
+    """Is ``x`` a DTensor? (Without importing ``torch.distributed``.)"""
+    return type(x) is not torch.Tensor and hasattr(x, "placements")
+
+
+def zeros_like(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``x``'s shape in ``dtype`` on its device; a DTensor's keep
+    its placements (each rank makes its block)."""
+    if is_dtensor(x):
+        return torch.zeros_like(x, dtype=dtype)
+    return torch.zeros(x.shape, dtype=dtype, device=x.device)
+
+
+def _blockwise(fn):
+    """A collective over manual axes on a DTensor (auto axes): it acts on
+    this rank's block, and the result keeps the placements."""
+    @functools.wraps(fn)
+    def run(x, *args, **kwargs):
+        if not is_dtensor(x):
+            return fn(x, *args, **kwargs)
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(fn(x.to_local(), *args, **kwargs),
+                                  x.device_mesh, x.placements,
+                                  run_check=False)
+    return run
+
+
+def _all_reduce(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     f = torch.ops._c10d_functional
     return f.wait_tensor(f.all_reduce(x, "sum", group_name(axis)))
+
+
+class _Psum(torch.autograd.Function):
+    """psum whose result is used replicated: the cotangent passes as is."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather (tiled); its transpose sums the blocks (psum_scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return _all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_scatter(g, ctx.axis, ctx.dim), None, None
+
+
+def _wants_grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+@_blockwise
+def psum(x: torch.Tensor, axis: Axes) -> torch.Tensor:
+    if _wants_grad(x):
+        return _Psum.apply(x, axis)
+    return _all_reduce(x, axis)
 
 
 def pmean(x: torch.Tensor, axis: Axes) -> torch.Tensor:
@@ -215,8 +336,15 @@ def pmean(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     return psum(x, axis) / axis_size(axis)
 
 
+@_blockwise
 def all_gather(x: torch.Tensor, axis: Axes, dim: int = 0) -> torch.Tensor:
     """Concatenate every device's ``x`` along ``dim`` (``tiled=True``)."""
+    if _wants_grad(x):
+        return _AllGather.apply(x, axis, dim)
+    return _all_gather(x, axis, dim)
+
+
+def _all_gather(x: torch.Tensor, axis: Axes, dim: int = 0) -> torch.Tensor:
     f = torch.ops._c10d_functional
     g = axis_size(axis)
     y = x.movedim(dim, 0).contiguous() if dim else x.contiguous()
@@ -224,8 +352,13 @@ def all_gather(x: torch.Tensor, axis: Axes, dim: int = 0) -> torch.Tensor:
     return out.movedim(0, dim) if dim else out
 
 
+@_blockwise
 def psum_scatter(x: torch.Tensor, axis: Axes, dim: int = 0) -> torch.Tensor:
     """Sum over devices, each keeping its block of ``dim`` (tiled)."""
+    return _psum_scatter(x, axis, dim)
+
+
+def _psum_scatter(x: torch.Tensor, axis: Axes, dim: int = 0) -> torch.Tensor:
     f = torch.ops._c10d_functional
     g = axis_size(axis)
     y = x.movedim(dim, 0).contiguous() if dim else x.contiguous()
@@ -234,6 +367,7 @@ def psum_scatter(x: torch.Tensor, axis: Axes, dim: int = 0) -> torch.Tensor:
     return out.movedim(0, dim) if dim else out
 
 
+@_blockwise
 def all_to_all(x: torch.Tensor, axis: Axes) -> torch.Tensor:
     """Block i of dim 0 goes to device i; dim 0 of the result is the
     blocks received, in device order."""
@@ -244,6 +378,7 @@ def all_to_all(x: torch.Tensor, axis: Axes) -> torch.Tensor:
                                              group_name(axis)))
 
 
+@_blockwise
 def ppermute(x: torch.Tensor, axis: Axes,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Send ``x`` to the devices ``perm`` pairs this one with (src, dst);
@@ -419,26 +554,32 @@ def host_gather(x: torch.Tensor, axes: Tuple[str, ...], dim: int):
 def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None):
     """``f`` run on this device's shard of its global arguments; the
     outputs ``out_specs`` shard are gathered, the rest are this device's
-    (replicated by contract). ``axis_names`` restricts the manual axes:
-    the others must have size 1 until ``distributed/sharding.py`` is
-    ported (ROADMAP Queue 1 item 4)."""
+    (replicated by contract). ``axis_names`` restricts the manual axes;
+    the others are auto-sharded, which takes DTensor arguments (see the
+    module docstring): then every tensor output comes back a DTensor on
+    the whole mesh, its manual axes placed by ``out_specs``."""
     env = (current() if mesh is None else
            mesh if isinstance(mesh, MeshEnv) else env_of(mesh))
     if env is None:
         raise RuntimeError("shard_map needs a mesh (or an ambient one)")
-    if axis_names is not None:
-        rest = [a for a in env.axes if a not in set(axis_names)
-                and env.sizes[a] > 1]
-        if rest:
-            raise NotImplementedError(
-                f"shard_map with auto-sharded axes {rest} of size > 1 needs "
-                f"distributed/sharding.py (ROADMAP Queue 1 item 4)")
+    manual = tuple(a for a in env.axes
+                   if axis_names is None or a in set(axis_names))
 
     def run(*args):
         specs = flat_specs(in_specs, args, "in_specs")
+        flat = tree_leaves(args)
+        if any(is_dtensor(a) for a in flat):
+            return _dtensor_shard_map(f, env, manual, args, flat, specs,
+                                      out_specs)
+        auto = [a for a in env.axes if a not in manual and env.sizes[a] > 1]
+        if auto:
+            raise ValueError(
+                f"shard_map with auto-sharded axes {auto} takes DTensor "
+                f"arguments (distributed.sharding.distribute_params under "
+                f"sharding.axis_rules)")
         coords = dict(zip(env.axes, env.coords))
         leaves = [shard_slice(a, s, env.sizes, coords)
-                  for a, s in zip(tree_leaves(args), specs)]
+                  for a, s in zip(flat, specs)]
         with mesh_context(env):
             out = f(*tree_unflatten(args, leaves))
             ospecs = flat_specs(out_specs, out, "out_specs")
@@ -446,3 +587,82 @@ def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None):
                 gather_shard(o, s)
                 for o, s in zip(tree_leaves(out), ospecs)])
     return run
+
+
+def _manual_placements(x, spec: Optional[P], manual: Tuple[str, ...]):
+    """A DTensor's placements with each manual axis of its mesh set by
+    ``spec`` (``Shard`` of the dim it names, else ``Replicate``) and each
+    auto axis kept, unless it shards a dim a manual axis also shards."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(x.device_mesh.mesh_dim_names)
+    out = list(x.placements)
+    by_axis = {a: i for i, axes in enumerate(spec_axes(spec, x.dim()))
+               for a in axes}
+    for j, a in enumerate(names):
+        if a in manual:
+            out[j] = Shard(by_axis[a]) if a in by_axis else Replicate()
+    split = {by_axis[m] for m in manual if m in by_axis}
+    for j, a in enumerate(names):
+        if a not in manual and out[j].is_shard() and out[j].dim in split:
+            out[j] = Replicate()
+    return out
+
+
+def _cotangent_placements(pl, names: Tuple[str, ...],
+                          manual: Tuple[str, ...]):
+    """The placements of an argument's cotangent: each rank's is its
+    part alone on the manual axes the argument is replicated over
+    (``Partial``, summed as it leaves the body), as JAX's ``shard_map``
+    transpose psums such cotangents over the axes their spec omits."""
+    from torch.distributed.tensor import Partial
+    return [Partial() if a in manual and p.is_replicate() else p
+            for a, p in zip(names, pl)]
+
+
+def _dtensor_shard_map(f, env: MeshEnv, manual, args, flat, specs,
+                       out_specs):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if env.mesh is None:
+        raise RuntimeError("a DTensor shard_map needs a DeviceMesh")
+    outer = sub_mesh(env.mesh, env.axes)
+    onames = tuple(outer.mesh_dim_names)
+    auto = tuple(a for a in onames if a not in manual)
+    sub = sub_mesh(env.mesh, auto) if auto else None
+    coords = dict(zip(env.axes, env.coords))
+    leaves = []
+    for x, spec in zip(flat, specs):
+        if not is_dtensor(x):
+            leaves.append(shard_slice(x, spec, env.sizes, {
+                a: c for a, c in coords.items() if a in manual}))
+            continue
+        if x.device_mesh != outer:
+            raise ValueError("a DTensor argument of shard_map lies on "
+                             "another mesh than the ambient one")
+        pl = _manual_placements(x, spec, manual)
+        loc = x.redistribute(outer, pl).to_local(
+            grad_placements=_cotangent_placements(pl, onames, manual))
+        if sub is not None:
+            loc = DTensor.from_local(
+                loc, sub, [pl[onames.index(a)] for a in auto],
+                run_check=False)
+        leaves.append(loc)
+    body_env = dataclasses.replace(env, manual=manual, auto=sub)
+    with mesh_context(body_env):
+        out = f(*tree_unflatten(args, leaves))
+    ospecs = flat_specs(out_specs, out, "out_specs")
+
+    def back(o, spec):
+        if not isinstance(o, torch.Tensor):
+            return o
+        pl = [Replicate()] * len(onames)
+        for i, axes in enumerate(spec_axes(spec, o.dim())):
+            for a in axes:
+                if a in onames:
+                    pl[onames.index(a)] = Shard(i)
+        if is_dtensor(o):
+            for a, p in zip(o.device_mesh.mesh_dim_names, o.placements):
+                pl[onames.index(a)] = p
+            o = o.to_local()
+        return DTensor.from_local(o, outer, pl, run_check=False)
+    return tree_unflatten(out, [back(o, s) for o, s in
+                                zip(tree_leaves(out), ospecs)])

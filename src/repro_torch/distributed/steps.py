@@ -1,8 +1,13 @@
-"""Train and eval step builders.
+"""Train, eval, prefill and decode step builders.
 
-Port of ``repro.distributed.steps``: ``build_train_step`` and
-``build_eval_step``, and the per-shard bodies ``build_dp_train_step`` /
-``build_dp_eval_step``. The steps are plain functions of (params,
+Port of ``repro.distributed.steps``: ``build_train_step``,
+``build_eval_step``, ``build_prefill_step`` and ``build_decode_step``,
+and the per-shard bodies ``build_dp_train_step`` /
+``build_dp_eval_step``. Under active sharding rules
+(``sharding.axis_rules`` with a mesh, params placed by
+``sharding.distribute_params``) the same builders run auto-sharded: the
+params, moments and activations are DTensors and each rank computes its
+blocks. The steps are plain functions of (params,
 opt_state, batch): ``value_and_grad`` becomes the forward under the
 ``loss`` scope and ``scope.grad`` (``torch.autograd.grad``, whose
 backward a probe sees under ``loss~bwd``), and the optimizer update is
@@ -16,13 +21,9 @@ ef_residual)`` under a mesh with a ``pod`` axis): gradients stay
 pod-local (``compat.shard_map`` over ``pod``, the batch split over it),
 are quantized to int8 with per-tensor scales (``optim.compression``) and
 ring-exchanged across pods (``compat.ppermute``) at 1 byte an element,
-with the quantization error carried as error-feedback state. The JAX
-package keeps the ``data`` and ``model`` axes auto-sharded inside; that
-needs ``distributed/sharding.py`` (ROADMAP Queue 1 item 4), so here they
-must have size 1.
-
-Not ported: ``build_prefill_step`` and ``build_decode_step`` are the
-engine's steps (``engine/step.py``).
+with the quantization error carried as error-feedback state. The
+``data`` and ``model`` axes stay auto-sharded inside (DTensor placements
+on the sub-mesh without ``pod``), as in JAX.
 """
 from __future__ import annotations
 
@@ -30,9 +31,10 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.core import scope
 from repro_torch.distributed import compat
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.compat import P
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw, compression
@@ -74,6 +76,11 @@ def _value_and_grad(model: Model, params, batch):
         with scope.named_scope("loss"):
             loss, metrics = model.loss_fn(leaves, batch)
         grads = scope.grad(loss, flat + extra)[:len(flat)]
+    # a DTensor's gradient comes out as its backward placed it: give it
+    # its param's placements (JAX's gradients carry the params' sharding)
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if shd.is_dtensor(p) and tuple(g.placements) != p.placements
+             else g for g, p in zip(grads, flat)]
     return (loss.detach(), {n: m.detach() for n, m in metrics.items()},
             adamw.tree_unflatten(params, list(grads)))
 
@@ -176,6 +183,58 @@ def build_train_step(model: Model, tcfg: TrainConfig) -> Callable:
         return params, opt_state, metrics
 
     return train_step
+
+
+def build_prefill_step(model: Model, shape: ShapeConfig) -> Callable:
+    """Returns ``prefill_step(params, batch) -> (logits, cache)`` with a
+    cache of ``shape.seq_len``. ``cfg.prefill_microbatches`` = k > 1 runs
+    the batch in k chunks under ``scope.scan`` (JAX's ``lax.map``): the
+    forward's activations scale with B / k, each chunk's GEMMs run at
+    M = B / k x S, and the logits and cache equal the whole batch's."""
+    k = model.cfg.prefill_microbatches
+
+    def prefill_step(params, batch):
+        if k == 1:
+            with scope.named_scope("prefill"):
+                return model.prefill(params, batch, shape.seq_len)
+
+        def split(key, v):
+            if key == "positions" and v.dim() == 3 and v.shape[0] == 3:
+                b = v.shape[1]
+                return v.reshape(3, k, b // k, v.shape[2]).movedim(1, 0)
+            return v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
+
+        def respec(key, v):      # keep the chunks data-sharded
+            if key == "positions" and v.dim() == 4:
+                return shd.shard(v, None, None, "batch", "seq")
+            if v.dim() == 3:
+                return shd.shard(v, None, "batch", "seq")
+            return v
+
+        mb = {key: respec(key, split(key, v)) for key, v in batch.items()}
+        logits, caches = [], []
+        for i in scope.scan(k):
+            with scope.named_scope("prefill_chunk"):
+                lg, cache = model.prefill(
+                    params, {key: v[i] for key, v in mb.items()},
+                    shape.seq_len)
+            logits.append(lg)
+            caches.append(cache)
+        # cache leaves: (L, B / k, ...) a chunk -> (L, B, ...)
+        return torch.cat(logits, dim=0), {
+            key: torch.cat([c[key] for c in caches], dim=1)
+            for key in caches[0]}
+
+    return prefill_step
+
+
+def build_decode_step(model: Model) -> Callable:
+    """Returns ``decode_step(params, cache, batch) -> (logits, cache,
+    next_token)``: ``Model.decode_step`` under the ``decode`` scope."""
+    def decode_step(params, cache, batch):
+        with scope.named_scope("decode"):
+            return model.decode_step(params, cache, batch)
+    return decode_step
 
 
 def build_eval_step(model: Model) -> Callable:

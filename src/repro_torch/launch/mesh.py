@@ -13,7 +13,7 @@ package's.
 
 No counterpart: ``make_production_mesh`` (16x16 TPU pods, two pods
 multi-pod) describes TPU slices that no card host has; a card mesh is
-``make_mesh`` over the ranks ``spawn`` starts (ROADMAP Queue 1 item 4).
+``make_mesh`` over the ranks ``spawn`` starts.
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 Port of ``repro.launch.serve`` (engine path and the legacy unbatched
 loop). Each batch row becomes one request of the engine; decode runs at
 a batch bucket over the paged KV pool (the dense and MoE families).
-``--no-engine`` runs the legacy lock-step loop (``Model.prefill`` +
-``Model.decode_step`` over a dense cache), which the ssm and hybrid
+``--no-engine`` runs the legacy lock-step loop (``build_prefill_step`` +
+``build_decode_step`` over a dense cache, as JAX's), which the ssm and hybrid
 families and the archs with a modality frontend always take; a frontend
 arch's prompt and each decode step's input are synthetic embeddings
 (``models.frontends.synth_frontend_batch``, seed 1), as the JAX serve's.
@@ -41,8 +41,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.core import ProbeConfig, ProbeSession
+from repro_torch.distributed.steps import (build_decode_step,
+                                           build_prefill_step)
 from repro_torch.engine import EngineConfig, InferenceEngine, engine_compatible
 from repro_torch.models.frontends import synth_frontend_batch
 from repro_torch.models.model import Model
@@ -119,7 +122,7 @@ def _mesh_decode_session(model, mesh, cache, frontend: bool, targets,
     cache_spec = {k: P(None, axes) for k in cache}
     batch_spec = {"embeds" if frontend else "tokens": P(axes), "pos": P()}
     return MeshProbeSession(
-        mesh_probe(model.decode_step, mesh,
+        mesh_probe(build_decode_step(model), mesh,
                    in_specs=(P(), cache_spec, batch_spec),
                    out_specs=(P(axes), cache_spec, P(axes)),
                    config=ProbeConfig(targets=targets,
@@ -154,10 +157,12 @@ def _legacy_serve(model, params, prompts, *, max_new: int, device,
         pbatch = {"tokens": tokens}
     profile_every = max(profile_every, 1)
     session = None
-    decode = model.decode_step
+    decode = build_decode_step(model)
+    prefill = build_prefill_step(model, ShapeConfig(
+        "pf", prompt_len + max_new - 1, batch, "prefill"))
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(cparams, pbatch, prompt_len + max_new - 1)
+    logits, cache = prefill(cparams, pbatch)
     if profile and mesh is not None:
         session = _mesh_decode_session(
             model, mesh, cache, gen is not None, profile_targets,
@@ -165,7 +170,7 @@ def _legacy_serve(model, params, prompts, *, max_new: int, device,
         decode = session.step
     elif profile:
         session = ProbeSession(
-            model.decode_step,
+            decode,
             ProbeConfig(targets=profile_targets, offload=1.0,
                         max_probes=profile_max_probes),
             window_steps=profile_every, bus=bus, source="serve/decode",

@@ -28,9 +28,16 @@ a device (``launch.mesh.spawn``: NCCL on the cards, gloo with
 ``--device cpu``), each running ``build_dp_train_step`` on its share of
 the global batch under a ``MeshProbeSession`` (source ``train/mesh``);
 rank 0 prints the mesh-session snapshots, then the per-device table and
-the straggler heat view. A mesh without probing (``mesh_shape``,
-or ``--mesh`` without ``--probe``: the auto-sharded step) waits for
-``distributed/sharding.py`` (ROADMAP Queue 1 item 4) and raises.
+the straggler heat view.
+
+``train(mesh_shape=(2, 2))`` runs the auto-sharded step, as JAX's
+``mesh_shape`` does: one rank a device (``launch.mesh.spawn``), the
+mesh's axes ``data, model`` (``data`` for one dim, ``pod, data,
+model`` for three), params and moments DTensors placed
+by ``TRAIN_RULES`` (``distributed.sharding``), every rank fed the whole
+global batch. Checkpoints gather each DTensor leaf whole before rank 0
+saves it; rank 0's (params, opt_state, losses) come back. ``--mesh``
+without ``--probe`` raises: JAX's CLI silently runs one device there.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 2 --batch 2 --seq 32 --probe --mesh 2
 """
@@ -49,6 +56,8 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config, smoke_config
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.distributed import compat
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.steps import build_train_step
 from repro_torch.models.frontends import synth_frontend_batch
 from repro_torch.models.model import Model
@@ -70,12 +79,26 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
     and ``probe_mesh`` the step runs data-parallel on one rank a device
     (NCCL on cuda, gloo on the CPU); rank 0's (params, opt_state,
     losses) come back, on the CPU."""
-    if (mesh_shape or probe_mesh) and (probe_targets is None
-                                       or not probe_mesh):
+    if probe_mesh and probe_targets is None:
         raise NotImplementedError(
-            "a mesh without probing (the auto-sharded train step) needs "
-            "distributed/sharding.py (ROADMAP Queue 1 item 4); --mesh with "
-            "--probe runs the data-parallel step per device")
+            "--mesh without --probe: JAX's CLI silently trains on one "
+            "device there; the port refuses (ROADMAP Queue 3). --mesh with "
+            "--probe probes the data-parallel step per device; the "
+            "auto-sharded step is train(mesh_shape=...)")
+    if mesh_shape and (probe_mesh or probe_targets is not None):
+        raise ValueError("mesh_shape runs the auto-sharded step unprobed; "
+                         "probe per device with probe_mesh")
+    if mesh_shape and _mesh is None:
+        import repro_torch.launch.train as mod
+        from repro_torch.launch.mesh import spawn
+        shape, axes = _mesh_shape_axes(mesh_shape)
+        kw = dict(arch=arch, smoke=smoke, steps=steps, batch=batch,
+                  seq=seq, checkpoint_dir=checkpoint_dir, resume=resume,
+                  tcfg=tcfg, log_every=log_every, autotune=autotune,
+                  tune_cache=tune_cache, status_port=status_port)
+        return spawn(mod._train_sharded_rank, shape,
+                     device=str(resolve_device(device)),
+                     args=(kw, shape, axes))[0]
     if probe_mesh and _mesh is None:
         import repro_torch.launch.train as mod
         from repro_torch.launch.mesh import spawn
@@ -105,19 +128,31 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
     pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=batch, seed=tcfg.seed))
     params = model.init(tcfg.seed, device=dev)
-    opt_state = adamw.init(params, cfg.moment_dtype)
+    sharded = _mesh is not None and mesh_shape
+    rules = shd.filter_rules(shd.TRAIN_RULES, _mesh) if sharded else None
 
     ckpt = None
     start_step = 0
+    opt_state = None
     if checkpoint_dir:
         ckpt = Checkpointer(checkpoint_dir, keep=tcfg.keep_checkpoints,
                             async_save=tcfg.async_checkpoint)
         last = ckpt.latest()
         if resume and last is not None:
             (params, opt_state), extra = ckpt.restore(
-                last, (params, opt_state))
+                last, (params, adamw.init(params, cfg.moment_dtype)))
             start_step = int(extra["step"])
             pipe.state.step = int(extra["data_step"])
+    if sharded:
+        params = shd.distribute_params(params, model.schema(), _mesh, rules)
+        if opt_state is not None:   # restored: the moments placed alike
+            opt_state = opt_state._replace(
+                mu=shd.distribute_params(opt_state.mu, model.schema(),
+                                         _mesh, rules),
+                nu=shd.distribute_params(opt_state.nu, model.schema(),
+                                         _mesh, rules))
+    if opt_state is None:
+        opt_state = adamw.init(params, cfg.moment_dtype)
 
     step_fn = build_train_step(model, tcfg)
     rank0 = _mesh is None or _mesh.get_rank() == 0
@@ -128,7 +163,9 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
         plane = ControlPlane(status_port).start()
     bus = plane.bus if plane is not None else None
     session = None
-    if _mesh is not None:
+    if sharded:
+        run = step_fn
+    elif _mesh is not None:
         # mesh-aware probing: the data-parallel per-shard step, one
         # cycle-counter row a device
         from repro_torch.core import MeshProbeSession, ProbeConfig, mesh_probe
@@ -159,38 +196,40 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
     history = []
     gen = (torch.Generator(device=dev).manual_seed(tcfg.seed)
            if cfg.frontend != "none" else None)
-    t0 = time.time()
-    for step in range(start_step, steps):
-        batch_np = pipe.batch_at(step)
-        pipe.state.step = step + 1
-        b = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
-        if gen is not None:
-            del b["tokens"]
-            b.update(synth_frontend_batch(cfg, batch, seq, torch.bfloat16,
-                                          gen))
-        params, opt_state, metrics = run(params, opt_state, b)
-        loss = float(metrics["loss"])
-        history.append(loss)
-        if step % log_every == 0 or step == steps - 1:
-            dt = time.time() - t0
-            say(f"step {step:5d} loss {loss:8.4f} "
-                  f"lr {float(metrics['lr']):.2e} "
-                  f"gnorm {float(metrics['grad_norm']):7.3f} "
-                  f"({dt:.1f}s)", flush=True)
-        if session is not None and \
-                session.steps % (probe_every or log_every) == 0:
-            snap = session.snapshot()
-            say(f"[probe] {snap.steps} steps, span={snap.span} "
-                f"cycles, state={snap.state_nbytes}B", flush=True)
-            say(snap.table(), flush=True)
-        if ckpt and rank0 and (step + 1) % tcfg.checkpoint_every == 0:
-            ckpt.save(step + 1, (params, opt_state),
-                      extra={"step": step + 1,
-                             "data_step": pipe.state.step})
-    if ckpt and rank0:
-        ckpt.save(steps, (params, opt_state),
-                  extra={"step": steps, "data_step": pipe.state.step})
-        ckpt.wait()
+    with compat.mesh_context(_mesh if sharded else None), \
+            shd.axis_rules(rules, _mesh if sharded else None):
+        t0 = time.time()
+        for step in range(start_step, steps):
+            batch_np = pipe.batch_at(step)
+            pipe.state.step = step + 1
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in batch_np.items()}
+            if gen is not None:
+                del b["tokens"]
+                b.update(synth_frontend_batch(cfg, batch, seq,
+                                              torch.bfloat16, gen))
+            params, opt_state, metrics = run(params, opt_state, b)
+            metrics = shd.gather(metrics)
+            loss = float(metrics["loss"])
+            history.append(loss)
+            if step % log_every == 0 or step == steps - 1:
+                dt = time.time() - t0
+                say(f"step {step:5d} loss {loss:8.4f} "
+                    f"lr {float(metrics['lr']):.2e} "
+                    f"gnorm {float(metrics['grad_norm']):7.3f} "
+                    f"({dt:.1f}s)", flush=True)
+            if session is not None and \
+                    session.steps % (probe_every or log_every) == 0:
+                snap = session.snapshot()
+                say(f"[probe] {snap.steps} steps, span={snap.span} "
+                    f"cycles, state={snap.state_nbytes}B", flush=True)
+                say(snap.table(), flush=True)
+            if ckpt and (step + 1) % tcfg.checkpoint_every == 0:
+                _save(ckpt, rank0, step + 1, params, opt_state, pipe)
+        if ckpt:
+            _save(ckpt, rank0, steps, params, opt_state, pipe)
+            if rank0:
+                ckpt.wait()
     if session is not None:
         final = session.close()
         if final is not None:
@@ -206,6 +245,39 @@ def train(arch: str = "tinyllama-1.1b", *, smoke: bool = True,
     if plane is not None:
         plane.finish()
     return params, opt_state, history
+
+
+def _save(ckpt, rank0: bool, step: int, params, opt_state, pipe):
+    """Every rank gathers the DTensor leaves whole; rank 0 saves."""
+    whole = shd.gather((params, opt_state))
+    if rank0:
+        ckpt.save(step, whole, extra={"step": step,
+                                      "data_step": pipe.state.step})
+
+
+_MESH_AXES = {1: ("data",), 2: ("data", "model"),
+              3: ("pod", "data", "model")}
+
+
+def _mesh_shape_axes(mesh_shape):
+    """``(2, 2)`` -> ((2, 2), ("data", "model")): the rule sets' axes."""
+    shape = tuple(int(n) for n in mesh_shape)
+    if len(shape) not in _MESH_AXES:
+        raise ValueError(f"mesh_shape {shape}: 1 to 3 dims")
+    return shape, _MESH_AXES[len(shape)]
+
+
+def _train_sharded_rank(rank: int, device, kw, shape, axes):
+    """One rank of an auto-sharded ``train`` (``launch.mesh.spawn``):
+    rank 0 returns (params, opt_state, losses) gathered, on the CPU."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, axes)
+    params, opt_state, history = train(**kw, mesh_shape=shape,
+                                       device=device, _mesh=mesh)
+    params, opt_state = shd.gather((params, opt_state))
+    if rank:
+        return None
+    return _to_cpu(params), _to_cpu(opt_state), history
 
 
 def _to_cpu(tree):

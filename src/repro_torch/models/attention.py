@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
+from repro_torch.distributed.sharding import is_dtensor, put, shard
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import _bf16
 from repro_torch.models.layers import Param, apply_mrope, apply_rope
@@ -225,8 +226,13 @@ class _CausalFlash(torch.autograd.Function):
 
 
 def causal_flash(q, k, v, q_block: int, kv_chunk: int):
-    """Differentiable causal GQA flash attention (see ``_CausalFlash``)."""
-    return _CausalFlash.apply(q, k, v, q_block, kv_chunk)
+    """Differentiable causal GQA flash attention (see ``_CausalFlash``);
+    DTensors run it per rank on their own rows and heads
+    (``kops.local_call``)."""
+    return kops.local_call(
+        lambda q, k, v: _CausalFlash.apply(q, k, v, q_block, kv_chunk),
+        (q, k, v), ((0, 2, False), (0, 2, True), (0, 2, True)), ((0, 2),),
+        ratio=q.shape[2] // k.shape[2])
 
 
 # ----------------------------------------------------------- public ops
@@ -243,7 +249,9 @@ def attn_train(params, x, positions, cfg: ModelConfig):
         if Hp != H:
             o = F.pad(o, (0, 0, 0, Hp - H))
     with scope.named_scope("out_proj"):
-        return out_proj(o.to(x.dtype), params["wo"])
+        o = shard(o.to(x.dtype), "batch", "seq", "q_heads", "head_dim")
+        out = out_proj(o, params["wo"])
+    return shard(out, "batch", "seq", None)
 
 
 def attn_prefill(params, x, positions, cfg: ModelConfig):
@@ -257,15 +265,16 @@ def attn_prefill(params, x, positions, cfg: ModelConfig):
     with scope.named_scope("out_proj"):
         out = out_proj(o.to(x.dtype), params["wo"])
     kvd = getattr(torch, cfg.kv_cache_dtype)
-    return out, (k.to(kvd), v.to(kvd))
+    return shard(out, "batch", "seq", None), (k.to(kvd), v.to(kvd))
 
 
 def attn_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
     """Single-token decode against a dense KV cache.
 
     x: (B, 1, d); cache_k/v: (B, S_max, kv, hd), updated in place at
-    ``pos`` (JAX's dynamic_update_slice returns a new cache instead).
-    Returns (out (B,1,d), cache_k, cache_v)."""
+    ``pos`` (JAX's dynamic_update_slice returns a new cache instead); a
+    cache sharded on ``kv_seq`` is written by the rank that holds ``pos``
+    (``sharding.put``). Returns (out (B,1,d), cache_k, cache_v)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     if cfg.pos_emb == "mrope":
@@ -276,8 +285,13 @@ def attn_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
         H, kv = cfg.num_heads, cfg.num_kv_heads
         qg = q[:, :, :H].reshape(B, 1, kv, cfg.q_per_kv, HD)
     with scope.named_scope("cache_update"):
-        cache_k[:, pos] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v_new[:, 0].to(cache_v.dtype)
+        put(cache_k, (slice(None), pos), k_new[:, 0].to(cache_k.dtype))
+        put(cache_v, (slice(None), pos), v_new[:, 0].to(cache_v.dtype))
+        if is_dtensor(cache_k):
+            cache_k = shard(cache_k, "batch", "kv_seq", "kv_heads",
+                            "head_dim")
+            cache_v = shard(cache_v, "batch", "kv_seq", "kv_heads",
+                            "head_dim")
     with scope.named_scope("attend"):
         scale = 1.0 / math.sqrt(HD)
         bf = torch.bfloat16
@@ -296,4 +310,4 @@ def attn_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
         if Hp != H:
             o = F.pad(o, (0, 0, 0, Hp - H))
         out = out_proj(o, params["wo"])
-    return out, cache_k, cache_v
+    return shard(out, "batch", "seq", None), cache_k, cache_v

@@ -15,6 +15,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard
+
 
 class Param(NamedTuple):
     shape: Tuple[int, ...]
@@ -53,7 +55,7 @@ def _init_leaf(p: Param, gen: torch.Generator, dtype, device):
     std = p.scale / math.sqrt(max(fan_in, 1))
     x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)      # in place: one f32 copy, not two
 
 
 def materialize(schema, gen: torch.Generator, dtype, device) -> Any:
@@ -159,7 +161,10 @@ def mlp_apply(params, x):
     if "bi" in params:
         h = h + params["bi"]
         g = g + params["bg"]
-    out = (F.silu(g) * h) @ params["wo"]
+    h = F.silu(g) * h
+    if h.dim() == 3:
+        h = shard(h, "batch", "seq", "ff")
+    out = h @ params["wo"]
     if "bo" in params:
         out = out + params["bo"]
     return out

@@ -24,6 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
+from repro_torch.distributed.sharding import is_dtensor, shard
 from repro_torch.models import transformer as tfm
 from repro_torch.models.frontends import frontend_input_specs
 from repro_torch.models.layers import Param, materialize
@@ -56,9 +57,8 @@ _FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
 
 def unsupported(cfg: ModelConfig) -> str:
     """Why the port cannot run ``cfg`` ('' if it can). Every registry
-    config runs; what is left out is the JAX package's sharded MoE
-    (``shard_map``), which needs a mesh (``moe.moe_apply`` raises; ROADMAP
-    Queue 1, multi-device), and values no JAX module takes either."""
+    config runs (the MoE sharded too, under ``distributed.sharding``'s
+    rules); what is left out are values no JAX module takes either."""
     if cfg.family not in _FAMILIES:
         return f"family {cfg.family!r}"
     if cfg.pos_emb not in ("rope", "mrope", "none"):
@@ -112,9 +112,11 @@ class Model:
     def _embed_in(self, params, batch):
         cd = getattr(torch, self.cfg.compute_dtype)
         if self.cfg.frontend != "none":
-            return batch["embeds"].to(cd)
-        with scope.named_scope("embed"):
-            return params["embed"][batch["tokens"].long()].to(cd)
+            x = batch["embeds"].to(cd)
+        else:
+            with scope.named_scope("embed"):
+                x = params["embed"][batch["tokens"].long()].to(cd)
+        return shard(x, "batch", "seq", None)
 
     def _positions(self, batch, seq: int, batch_size: int, device):
         if self.cfg.pos_emb == "mrope":
@@ -122,8 +124,13 @@ class Model:
         return torch.arange(seq, device=device)[None].expand(batch_size, seq)
 
     def _mask_pad(self, logits):
-        if self.cfg.padded_vocab_size != self.cfg.vocab_size:
-            logits[:, self.cfg.vocab_size:] = float("-inf")
+        V = self.cfg.vocab_size
+        if self.cfg.padded_vocab_size != V:
+            if is_dtensor(logits):       # vocab-sharded: no in-place fill
+                pad = torch.arange(logits.shape[-1],
+                                   device=logits.device) >= V
+                return logits.masked_fill(pad, float("-inf"))
+            logits[:, V:] = float("-inf")
         return logits
 
     def _unembed_weight(self, params):
@@ -163,11 +170,19 @@ class Model:
             with scope.named_scope("logits"):
                 logits = x_.float() @ w_.to(x_.dtype).float()
                 logits = logits.masked_fill(pad_mask, float("-inf"))
+                logits = shard(logits, "batch", "seq", "vocab")
             with scope.named_scope("xent"):
                 m = logits.amax(dim=-1, keepdim=True).detach()
                 logz = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) \
                     + m[..., 0]
-                ll = torch.gather(logits, -1, l_.long()[..., None])[..., 0]
+                if is_dtensor(logits):
+                    # vocab-sharded: each rank picks the label's column
+                    # from its block, the others add exact zeros
+                    hit = torch.arange(V, device=x_.device) == \
+                        l_.long()[..., None]
+                    ll = torch.where(hit, logits, 0.0).sum(-1)
+                else:
+                    ll = torch.gather(logits, -1, l_.long()[..., None])[..., 0]
                 return torch.sum(logz - ll), torch.sum(torch.square(logz))
 
         nll = zl = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -12,12 +12,16 @@ Port of ``repro.models.moe`` (the local path). Tokens are flattened, the
 - ``impl="ragged"``: dropless, every expert's rows as one segment of a
   grouped GEMM (``grouped_matmul``, with the reference's sparse VJP).
 
-The JAX package's sharded path (``shard_map`` over the mesh, FSDP
-gathers, psum of the d_ff partials) waits for the multi-device port
-(ROADMAP Queue 1): ``moe_apply`` raises when given a mesh. The scopes
-are the JAX package's: ``moe`` > ``router``, ``dispatch``,
-``dispatch_pad`` / ``expert_gemm``, ``combine``, ``reduce``, then
-``dense_residual``.
+Sharding (the JAX package's): with logical-axis rules active
+(``distributed.sharding``) the interior runs under ``compat.shard_map``
+over every mesh axis. Expert weights keep all experts on every rank,
+TP-sharded on the expert d_ff (``ff`` -> model) and FSDP-sharded on
+d_model (``embed`` -> data); the body all-gathers the FSDP shards (their
+gradient is reduce-scattered back), sorts its own tokens (no global
+sort), and sums the down-projection partials over the model axis, the
+collectives of the dense TP MLP. The scopes are the JAX package's:
+``moe`` > ``router``, ``dispatch``, ``dispatch_pad`` / ``expert_gemm``,
+``combine``, ``reduce``, then ``dense_residual``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
+from repro_torch.distributed import compat
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.compat import P
 from repro_torch.models.layers import Param, mlp_apply
 
 
@@ -137,9 +144,15 @@ def _capacity(cfg: ModelConfig, T: int) -> int:
     return max(8, ((c + 7) // 8) * 8)
 
 
-def _moe_local(x, router_w, wi, wg, wo, cfg: ModelConfig):
-    """The MoE body on one device. x: (B, S, d) -> (out, aux)."""
+def _moe_local(x, router_w, wi, wg, wo, cfg: ModelConfig, fsdp_axis=None,
+               model_axis=None, batch_axes=()):
+    """The MoE body on one device, or per shard inside ``shard_map`` (the
+    collectives run only for the mesh axes given). x: (B, S, d) -> (out,
+    aux)."""
     E, k = cfg.moe.num_experts, cfg.moe.top_k
+    if fsdp_axis is not None:    # FSDP all-gather of the embed shards
+        wi = compat.all_gather(wi, fsdp_axis, dim=1)
+        wg = compat.all_gather(wg, fsdp_axis, dim=1)
     B, S, D = x.shape
     x_flat = x.reshape(B * S, D)
     T = B * S
@@ -185,7 +198,12 @@ def _moe_local(x, router_w, wi, wg, wo, cfg: ModelConfig):
             out = gathered[inv].reshape(T, k, D)
             out = torch.einsum("tkd,tk->td", out, weights.to(out.dtype))
     with scope.named_scope("reduce"):
-        pass                    # one device: no partial sums to reduce
+        if model_axis is not None:   # partial d_ff contributions
+            out = compat.psum(out, model_axis)
+        if batch_axes:
+            aux = compat.pmean(aux, batch_axes)
+        if model_axis is not None:
+            aux = compat.pmean(aux, model_axis)
     return out.reshape(B, S, D), aux
 
 
@@ -209,17 +227,45 @@ def moe_apply(params, x, cfg: ModelConfig, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN. x: (B, S, d) -> (out, aux_loss x ``aux_loss_weight``).
 
-    The local path. The JAX package runs the interior under ``shard_map``
-    when sharding rules are active; that needs the logical-axis rules of
-    ``distributed/sharding.py``, so a mesh given here raises (ROADMAP
-    Queue 1 item 4)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded MoE (the shard_map path of repro.models.moe) needs "
-            "distributed/sharding.py (ROADMAP Queue 1 item 4)")
+    With active sharding rules (``sharding.axis_rules``) the interior
+    runs under ``compat.shard_map`` on ``mesh`` (default: the ambient
+    one): local sort, TP-sharded d_ff, FSDP-gathered weights; otherwise
+    the plain local path."""
+    rules = shd.current_rules()
+    env = compat.current() if mesh is None else (
+        mesh if isinstance(mesh, compat.MeshEnv) else compat.env_of(mesh))
     with scope.named_scope("moe"):
-        out, aux = _moe_local(x, params["router"], params["wi"],
-                              params["wg"], params["wo"], cfg)
+        if rules is None or env is None or env.mesh is None:
+            if mesh is not None:
+                raise ValueError("the sharded MoE runs under sharding."
+                                 "axis_rules (logical-axis rules)")
+            out, aux = _moe_local(x, params["router"], params["wi"],
+                                  params["wg"], params["wo"], cfg)
+        else:
+            pmesh = compat.sub_mesh(env.mesh, env.axes)
+            rules = shd.filter_rules(rules, env.mesh)
+            batch = rules.get("batch")
+            batch_axes = ((batch,) if isinstance(batch, str) else
+                          tuple(batch) if batch else ())
+            fsdp = rules.get("embed")
+            model = rules.get("ff")
+            x_spec = P(batch, None, None)
+            w_spec = P(None, fsdp, model)       # (E, d, ff)
+            wo_spec = P(None, model, fsdp)      # (E, ff, d): embed FSDP
+
+            def wrapped(x_, rw, wi_, wg_, wo_):
+                # wo's embed-dim FSDP shards, gathered inside
+                if fsdp is not None:
+                    wo_ = compat.all_gather(wo_, fsdp, dim=2)
+                return _moe_local(x_, rw, wi_, wg_, wo_, cfg,
+                                  fsdp_axis=fsdp, model_axis=model,
+                                  batch_axes=batch_axes)
+            x = shd.as_dtensor(x, pmesh)
+            out, aux = compat.shard_map(
+                wrapped, mesh=env,
+                in_specs=(x_spec, P(None, None), w_spec, w_spec, wo_spec),
+                out_specs=(x_spec, P()),
+            )(x, params["router"], params["wi"], params["wg"], params["wo"])
         if cfg.moe.dense_residual:
             with scope.named_scope("dense_residual"):
                 res = mlp_apply({"wi": params["res_wi"],

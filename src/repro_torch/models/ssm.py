@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import Param, rmsnorm
 
@@ -148,13 +149,16 @@ def ssd_chunked(x, a, b, c, chunk: int, h_per_g: int):
     with scope.named_scope("intra"):
         cb = _dot("bcqgn,bckgn->bcgqk", ce, be, dtype=torch.float32)
         decay = _segsum_exp(a_cs)                                # (B,G,E,C,Q,Q)
+        decay = shard(decay, "batch", None, "ssm_heads", None, None, None)
         cbl = cb[:, :, :, None] * decay.permute(0, 3, 1, 2, 4, 5)
+        cbl = shard(cbl, "batch", None, None, "ssm_heads", None, None)
         y_diag = _dot("bcgeqk,bckgep->bcqgep", cbl.to(dt), xe, dtype=dt)
 
     with scope.named_scope("chunk_states"):
         decay_states = torch.exp(a_cs[..., -1:] - a_cs)          # (B,G,E,C,Q)
         states = _dot("bckgn,bgeck,bckgep->bcgepn", be,
                       decay_states.to(dt), xe, dtype=dt)
+        states = shard(states, "batch", None, None, "ssm_heads", None, None)
 
     with scope.named_scope("state_pass"):
         chunk_decay = torch.exp(a_cs[..., -1])                   # (B,G,E,C)
@@ -182,7 +186,7 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
     B, S, _ = x.shape
     di, g, n, h = d["d_inner"], d["groups"], d["d_state"], d["heads"]
     with scope.named_scope("in_proj"):
-        zxbcdt = x @ params["in_proj"]
+        zxbcdt = shard(x @ params["in_proj"], "batch", "seq", "ssm_inner")
     z, xbc_raw, dt = torch.split(zxbcdt, [di, d["conv_dim"], h], dim=-1)
     with scope.named_scope("conv"):
         xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"],
@@ -222,6 +226,7 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
         y = y.reshape(B, S, di)
         y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
         out = y @ params["out_proj"]
+    out = shard(out, "batch", "seq", None)
     if return_state:
         K = d["conv_kernel"]
         # the last K-1 conv inputs; a prompt shorter than that is

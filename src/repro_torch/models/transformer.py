@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
+from repro_torch.distributed.sharding import current_rules, put, shard
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -94,29 +95,30 @@ def _attn_mlp_block(lp, x, positions, cfg: ModelConfig):
     if cfg.moe is not None:
         h, aux = moe_mod.moe_apply(lp["moe"],
                                    rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg)
-        return x + h, aux
+        return shard(x + h, "batch", "act_seq", None), aux
     with scope.named_scope("mlp"):
         h = mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps))
-    return x + h
+    return shard(x + h, "batch", "act_seq", None)
 
 
 def _ssm_block(lp, x, cfg: ModelConfig):
     with scope.named_scope("ssm"):
         h = ssm_mod.ssm_apply(lp["ssm"], rmsnorm(x, lp["ln"], cfg.norm_eps),
                               cfg, use_kernel=False)
-    return x + h
+    return shard(x + h, "batch", "act_seq", None)
 
 
 def _remat(fn, cfg: ModelConfig):
     """JAX's ``_remat``: ``"full"`` keeps nothing of the layer for the
-    backward (``scope.remat``: ``torch.utils.checkpoint``), ``"none"``
-    keeps everything."""
+    backward (``scope.remat``: ``torch.utils.checkpoint``), ``"dots"``
+    keeps the outputs of the unbatched matmuls (the projections and MLP
+    products; selective checkpointing, JAX's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
+    flash included, ``"none"`` keeps everything."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs) is not ported yet "
-            "(ROADMAP Queue 1); no shipped config uses it")
+        return lambda *a: scope.remat(fn, *a, policy="dots")
     return lambda *a: scope.remat(fn, *a)
 
 
@@ -217,12 +219,16 @@ def mlp_residual(lp, h, cfg: ModelConfig, moe_scope: bool = False):
     return h + m
 
 
+_CACHE_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+
+
 def kv_cache(cfg: ModelConfig, n: int, B: int, cache_len: int, device):
-    """Zero K and V caches (n, B, cache_len, kv, hd) in kv_cache_dtype."""
+    """Zero K and V caches (n, B, cache_len, kv, hd) in kv_cache_dtype,
+    sharded by the active rules (sequence-sharded for serving)."""
     shape = (n, B, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     kvd = getattr(torch, cfg.kv_cache_dtype)
-    return (torch.zeros(shape, dtype=kvd, device=device),
-            torch.zeros(shape, dtype=kvd, device=device))
+    return (shard(torch.zeros(shape, dtype=kvd, device=device), *_CACHE_AXES),
+            shard(torch.zeros(shape, dtype=kvd, device=device), *_CACHE_AXES))
 
 
 def stack_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
@@ -247,9 +253,10 @@ def stack_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):
                     a, (k, v) = attn.attn_prefill(
                         lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
                         positions, cfg)
-                    ck[li, :, :S] = k
-                    cv[li, :, :S] = v
-                x = mlp_residual(lp, x + a, cfg)
+                    put(ck, (li, slice(None), slice(0, S)), k)
+                    put(cv, (li, slice(None), slice(0, S)), v)
+                x = shard(mlp_residual(lp, x + a, cfg), "batch", "act_seq",
+                          None)
     with scope.named_scope("final_norm"):
         x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return x, {"k": ck, "v": cv}
@@ -270,6 +277,9 @@ def stack_decode(params, cache, x, pos: int, cfg: ModelConfig):
     Returns (x, cache)."""
     if cfg.family in ("ssm", "hybrid"):
         return _stack_decode_ssm(params, cache, x, pos, cfg)
+    if current_rules() is not None:
+        cache = dict(cache, k=shard(cache["k"], *_CACHE_AXES),
+                     v=shard(cache["v"], *_CACHE_AXES))
     with scope.named_scope("layers"):
         for li in scope.scan(cfg.num_layers):
             with scope.named_scope("layer"):
@@ -318,9 +328,10 @@ def _stack_prefill_ssm(params, x, positions, cfg: ModelConfig,
                     a, (k, v) = attn.attn_prefill(
                         sp["attn"], rmsnorm(x, sp["ln1"], cfg.norm_eps),
                         positions, cfg)
-                    ck[g, :, :S] = k
-                    cv[g, :, :S] = v
-                    x = mlp_residual(sp, x + a, cfg.replace(moe=None))
+                    put(ck, (g, slice(None), slice(0, S)), k)
+                    put(cv, (g, slice(None), slice(0, S)), v)
+                    x = shard(mlp_residual(sp, x + a, cfg.replace(moe=None)),
+                              "batch", "seq", None)
         cache.update(k=ck, v=cv)
     cache = {"conv": torch.stack(convs), "ssd": torch.stack(ssds), **cache}
     with scope.named_scope("final_norm"):
@@ -333,8 +344,8 @@ def _decode_block_ssm(lp, x, cache, li: int, cfg: ModelConfig):
         y, conv_s, ssd_s = ssm_mod.ssm_decode(
             lp["ssm"], rmsnorm(x, lp["ln"], cfg.norm_eps),
             cache["conv"][li], cache["ssd"][li], cfg)
-    cache["conv"][li] = conv_s
-    cache["ssd"][li] = ssd_s
+    put(cache["conv"], (li,), conv_s)
+    put(cache["ssd"], (li,), ssd_s)
     return x + y
 
 

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import scope
+from repro_torch.distributed import compat
 from repro_torch.optim.quantized import (QTensor, dequantize, quantize,
                                          zeros_like_q)
 
@@ -68,8 +69,9 @@ def init(params, moment_dtype: str = "float32") -> AdamWState:
         zeros = zeros_like_q
     else:
         md = getattr(torch, moment_dtype)
-        zeros = lambda p: torch.zeros(p.shape, dtype=md,    # noqa: E731
-                                      device=p.device)
+
+        def zeros(p):
+            return compat.zeros_like(p, md)
     dev = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
@@ -100,6 +102,24 @@ def clip_by_global_norm(grads, max_norm: float):
     scale = torch.clamp(max_norm / norm.clamp_min(1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     grads), norm
+
+
+def _blockwise(upd, p, g, m, v):
+    """AdamW on a DTensor leaf, rank by rank: the update is elementwise,
+    so each rank updates its own block of p, g, m and v laid out alike
+    (scanning its block's leading axis when the whole leaf is over the
+    threshold, as the one-device rule says), and the blocks are the new
+    leaf's. A slice of a sharded dimension would be a gather."""
+    from torch.distributed.tensor import DTensor
+    mesh, pl = p.device_mesh, p.placements
+    if isinstance(m, QTensor):
+        raise NotImplementedError("int8 moments of a DTensor leaf")
+    blocks = [t.redistribute(mesh, pl).to_local() for t in (p, g, m, v)]
+    big = p.dim() >= 2 and p.numel() * p.element_size() > \
+        SCAN_THRESHOLD_BYTES
+    return tuple(DTensor.from_local(t, mesh, pl, run_check=False,
+                                    shape=p.shape, stride=p.stride())
+                 for t in upd(*blocks, scanned=big))
 
 
 def update(params, grads, state: AdamWState, cfg: TrainConfig,
@@ -140,8 +160,13 @@ def update(params, grads, state: AdamWState, cfg: TrainConfig,
             return QTensor(x.q[i], x.s[i]) if isinstance(x, QTensor) else x[i]
 
         def upd_maybe_scanned(p, g, m, v):
-            if p.dim() >= 2 and p.numel() * p.element_size() > \
-                    SCAN_THRESHOLD_BYTES:
+            if compat.is_dtensor(p):
+                return _blockwise(upd_leaf, p, g, m, v)
+            return upd_leaf(p, g, m, v, p.dim() >= 2 and p.numel() *
+                            p.element_size() > SCAN_THRESHOLD_BYTES)
+
+        def upd_leaf(p, g, m, v, scanned):
+            if scanned:
                 out = (torch.empty_like(p), empty_like(m), empty_like(v))
                 for i in scope.scan(p.shape[0]):
                     for dst, src in zip(out, upd(p[i], g[i], at(m, i),

@@ -13,13 +13,13 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.distributed import compat
 from repro_torch.optim import adamw
 
 
 def init_residual(params) -> Any:
-    return adamw.tree_map(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params)
+    return adamw.tree_map(lambda p: compat.zeros_like(p, torch.float32),
+                          params)
 
 
 def _q(g: torch.Tensor, r: torch.Tensor):

@@ -386,12 +386,20 @@ def test_spawn_refuses_nccl_beyond_the_cards_and_reports_a_failed_rank():
 
 
 def test_unported_mesh_paths_raise_naming_the_roadmap():
+    """The paths this test once saw refused now run (the auto-sharded
+    ``train(mesh_shape=...)`` and a ``shard_map`` whose auto axes have
+    size > 1, over DTensor arguments); a ``shard_map`` given plain
+    tensors for auto axes of size > 1 says what it takes."""
     from repro_torch.launch.train import train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(steps=1, batch=2, seq=8, device="cpu", mesh_shape=(2,))
+    from repro_torch.testing import sharded_ranks
+    _, _, losses = train(steps=1, batch=2, seq=8, device="cpu",
+                         mesh_shape=(2,))
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    got = tmesh.spawn(sharded_ranks.auto_axes_rank, (2,))
+    assert all(r["ok"] for r in got), got
     env = compat.MeshEnv(("pod", "data", "model"), (1, 2, 1), (0, 0, 0),
                          torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="DTensor"):
         compat.shard_map(lambda x: x, mesh=env, in_specs=P(),
                          out_specs=P(), axis_names={"pod"})(torch.ones(2))
     from repro_torch.configs.base import TrainConfig

@@ -69,8 +69,10 @@ def test_prefill_and_decode_match_jax(over, atol, cache_atol):
 
 def test_unsupported_families_refused():
     """Every registry arch builds; what is refused is a config no JAX
-    module takes either, and the sharded MoE path, which names its
-    ROADMAP item."""
+    module takes either. The sharded MoE path, once refused here, runs:
+    on a world-1 mesh under ``TRAIN_RULES`` (this process, gloo) it
+    equals the local path bitwise, and given a mesh with no rules active
+    it says what it needs."""
     from repro_torch.configs.registry import get_config, list_archs
     from repro_torch.models import moe
     from repro_torch.models.model import unsupported
@@ -81,6 +83,30 @@ def test_unsupported_families_refused():
                  dict(frontend="video")):
         with pytest.raises(NotImplementedError, match="not ported"):
             Model(smoke_config("tinyllama-1.1b").replace(**over))
-    cfg = smoke_config("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_apply({}, torch.zeros(1, 1, cfg.d_model), cfg, mesh=object())
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    cfg = smoke_config("granite-moe-1b-a400m").replace(
+        compute_dtype="float32")
+    m = Model(cfg)
+    lp = {k: v[0] for k, v in m.init(0, device="cpu")["stack"]["layers"]
+          ["moe"].items()}
+    x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    want, want_aux = moe.moe_apply(lp, x, cfg)
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("gloo", store=dist.FileStore(tmp + "/s", 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with pytest.raises(ValueError, match="axis_rules"):
+            moe.moe_apply(lp, x, cfg, mesh=mesh)
+        with compat.mesh_context(mesh), shd.axis_rules(shd.TRAIN_RULES,
+                                                        mesh):
+            out, aux = moe.moe_apply(lp, x, cfg, mesh=mesh)
+            out, aux = shd.gather((out, aux))
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
