@@ -238,6 +238,25 @@
    against the unsharded one (loss rel 2e-3). One ``sharding [...]`` line
    a run. It launches flash at shapes the kernels line has, so it adds no
    entry.
+19. the dry run and the roofline (``repro_torch.launch.{dryrun,
+   hlo_cost, roofline}``): (a) tinyllama-1.1b at full width, bf16 master
+   params, mesh "1" (one device, no process group): ``lower_cell`` on
+   the meta device for a train step (B 4 x S 512), a prefill (8 x 512)
+   and a decode step (B 8 at cache 544); then the same three steps on
+   the card (``dryrun.build_cell``, random from seed 0) under the same
+   counter (``hlo_cost.analyze``): FLOPs and bytes equal the meta
+   record's exactly, no collective, flash launches 44, 22 and 0, the
+   measured peak (``max_memory_allocated`` over the call, the arguments
+   resident) within ``DRY_MEM_RTOL`` of ``peak_estimate_bytes``, and the
+   roofline bound at most the measured wall of each step; prints the
+   roofline fraction and useful ratio, and for training
+   ``_train_flops`` beside ``model_flops`` and the counted FLOPs. (b) in
+   a subprocess, ``python -m repro_torch.launch.dryrun --arch
+   tinyllama-1.1b --shape train_4k --mesh 16x16 --force`` (256 fake
+   ranks, no card): rc 0 and a record with no error; prints its
+   per-device FLOPs, bytes, collective bytes by kind, peak GiB, dominant
+   term and trace seconds. It launches flash at shapes the kernels line
+   has, so it adds no entry.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -260,10 +279,11 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor-core FLOP/s
-# and f32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s and dense bf16 tensor-core
+# FLOP/s (the port's one definition, ``core.costmodel``), and f32 FLOP/s
+# outside the tensor cores
+from repro_torch.core.costmodel import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.core.costmodel import PEAK_FLOPS_BF16 as BF16_FLOPS  # noqa: E402
 F32_FLOPS = 67e12
 # spin of the timing hold, ~20 ms at the H100's ~1.98 GHz boost clock
 HOLD_CYCLES = 40_000_000
@@ -3646,6 +3666,138 @@ def sharding_phase(torch, fa, pa, ssd, dev, smi):
     return flash_main
 
 
+# -------------------------------------------------------------- step 19
+# (label, seq_len, global_batch, kind): step 19's one-device cells
+DRY_CELLS = (("train_b4", 512, 4, "train"), ("prefill_b8", 512, 8, "prefill"),
+             ("decode_b8", 544, 8, "decode"))
+DRY_FLASH = {"train": 44, "prefill": 22, "decode": 0}
+# the card's peak over a step (``max_memory_allocated`` above what was
+# allocated before it, plus the arguments) against the dry run's
+# live-bytes estimate: the caching allocator rounds each block up to 512
+# bytes, and an op that takes a workspace from the allocator without a
+# dispatched op of its own is not in the estimate. The card read |rel| <
+# 5e-5 for the train, prefill and decode steps (NVIDIA H100 80GB HBM3,
+# 700 W; the cuBLAS workspace is allocated by the warm-up, before the
+# measured call)
+DRY_MEM_RTOL = 1e-2
+
+
+def dryrun_phase(torch, fa, pa, ssd, dev, smi):
+    """Step 19: the dry run and the roofline (module docstring)."""
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.hlo_cost import analyze
+    from repro_torch.models import Model
+    counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+    print(f"step 19, the dry run and the roofline, on {smi}")
+    t0 = time.perf_counter()
+    extra = {"param_dtype": "bfloat16"}
+    cfg = get_config(ARCH).replace(**extra)
+    for label, S, B, kind in DRY_CELLS:
+        shape = ShapeConfig(label, S, B, kind)
+        rec = dryrun.lower_cell(ARCH, shape, "1", extra_cfg=extra)
+        model = Model(cfg)
+        step, args = dryrun.build_cell(model, shape, device=dev, seed=0)
+        step(*args)                    # warm-up: kernels, cuBLAS workspace
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        card = analyze(step, *args)
+        torch.cuda.synchronize()
+        launches = _launches(counters)
+        del card["result"]
+        gc.collect()
+        peak = (torch.cuda.max_memory_allocated() - base
+                + rec["memory"]["argument_bytes"])
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        wall = statistics.median(walls)
+        terms = roofline.cell_terms(rec, 1, shape=shape)
+        est = rec["memory"]["peak_estimate_bytes"]
+        mem_rel = (peak - est) / est
+        print(f"(a) {ARCH} {label} ({B} x {S}): meta flops "
+              f"{rec['flops_per_device']:.6e} bytes "
+              f"{rec['bytes_per_device']:.6e} (trace {rec['trace_s']} s); "
+              f"card flops {card['flops']:.6e} bytes {card['bytes']:.6e}; "
+              f"collectives {card['collectives']}; launches (flash, paged, "
+              f"ssd) {launches}")
+        print(f"(a) {label}: peak measured {peak / 2**30:.3f} GiB vs "
+              f"estimate {est / 2**30:.3f} GiB ({peak - est:+d} bytes, rel "
+              f"{mem_rel:+.2e}; "
+              f"arguments {rec['memory']['argument_bytes'] / 2**30:.3f} "
+              f"GiB, temp {rec['memory']['temp_bytes'] / 2**30:.3f} GiB); "
+              f"wall {wall * 1e3:.2f} ms, bound "
+              f"{terms['bound_step_s'] * 1e3:.3f} ms by {terms['dominant']}"
+              f" (compute {terms['compute_s'] * 1e3:.3f}, memory "
+              f"{terms['memory_s'] * 1e3:.3f} ms): roofline fraction "
+              f"{terms['roofline_fraction']:.4f}, bound / wall "
+              f"{terms['bound_step_s'] / wall:.4f}, useful ratio "
+              f"{terms['useful_ratio']:.4f}")
+        if kind == "train":
+            print(f"(a) {label}: model_flops (6 N D) "
+                  f"{terms['model_flops']:.6e}, _train_flops "
+                  f"{_train_flops(cfg, B, S):.6e}, counted "
+                  f"{rec['flops_per_device']:.6e}")
+        assert card["flops"] == rec["flops_per_device"], label
+        assert card["bytes"] == rec["bytes_per_device"], label
+        assert not card["collectives"] and not rec["collectives"], label
+        assert launches == (DRY_FLASH[kind], 0, 0), (label, launches)
+        assert abs(mem_rel) <= DRY_MEM_RTOL, (label, mem_rel)
+        assert terms["bound_step_s"] <= wall, (label, terms, wall)
+        _dry_line(label, flops=rec["flops_per_device"], card_equal=True,
+                  flash=launches[0], peak_gib=round(peak / 2**30, 3),
+                  est_gib=round(est / 2**30, 3), wall_ms=round(wall * 1e3, 2),
+                  bound_ms=round(terms["bound_step_s"] * 1e3, 3))
+        del step, args, card
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"step 19 (a) done at {time.perf_counter() - t0:.1f} s")
+
+    t = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+           "--shape", "train_4k", "--mesh", "16x16", "--force"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    sub_s = time.perf_counter() - t
+    out = dryrun.RESULTS_DIR / f"{ARCH}__train_4k__16x16.json"
+    print(f"(b) {' '.join(cmd[1:])}: rc {proc.returncode} in {sub_s:.1f} s")
+    if proc.returncode:
+        print(proc.stdout[-3000:], proc.stderr[-3000:])
+    assert proc.returncode == 0
+    rec = json.loads(out.read_text())
+    assert "error" not in rec, rec.get("error")
+    terms = roofline.cell_terms(rec, dryrun.CHIPS["16x16"])
+    coll = {k: v["wire_bytes"] for k, v in rec["collectives"].items()}
+    print(f"(b) {ARCH} train_4k on 16x16 (256 fake ranks): per device "
+          f"flops {rec['flops_per_device']:.6e}, bytes "
+          f"{rec['bytes_per_device']:.6e}, collective bytes {coll}, peak "
+          f"{rec['memory']['peak_estimate_bytes'] / 2**30:.3f} GiB, "
+          f"dominant {terms['dominant']} (compute {terms['compute_s']:.4f}"
+          f" s, memory {terms['memory_s']:.4f} s, collective "
+          f"{terms['collective_s']:.4f} s), useful ratio "
+          f"{terms['useful_ratio']:.4f}, trace_s {rec['trace_s']}")
+    _dry_line("train_4k 16x16", trace_s=rec["trace_s"],
+              subprocess_s=round(sub_s, 1), dominant=terms["dominant"],
+              peak_gib=round(rec["memory"]["peak_estimate_bytes"] / 2**30, 3))
+    print(f"step 19 took {time.perf_counter() - t0:.1f} s")
+
+
+def _dry_line(label, **kw):
+    print(f"dryrun [{label}]: " + ", ".join(f"{k} {v}" for k, v in
+                                             kw.items()), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3714,7 +3866,8 @@ def main() -> int:
     harness = harness_phase(torch, fa, pa, ssd, dev, smi)
     mesh = mesh_phase(torch, fa, pa, ssd, dev, smi)
     sharding_phase(torch, fa, pa, ssd, dev, smi)
-    done("14-18")
+    dryrun_phase(torch, fa, pa, ssd, dev, smi)
+    done("14-19")
 
     q, k, v = flash["inputs"]
     fl_ms = time_ms(lambda: fa.flash_attention(q, k, v))

@@ -128,12 +128,20 @@ class named_scope:
         return False
 
 
-def scan(length: int):
+def scan(length: int, same_shapes: bool = False):
     """``lax.scan`` over ``length`` steps: ``for i in scan(n): body``.
     Each iteration is one visit of node ``<path>/scan#k``. Leaving the
-    loop early (``break``) is not allowed while probed."""
+    loop early (``break``) is not allowed while probed.
+
+    ``same_shapes``: every iteration runs the same operations on tensors
+    of the same shapes, so a kernel listener that counts shapes alone (a
+    dry run's ``launch.hlo_cost.analyze(..., fold_scans=True)``) may run
+    two iterations and count the second ``length - 1`` times."""
     rec = _live()
     if rec is None:
+        lis = _listener() if same_shapes else None
+        if getattr(lis, "scan", None) is not None:
+            return lis.scan(int(length))
         return range(length)
     return rec.scan(int(length))
 
@@ -187,9 +195,27 @@ def kernel_region(name: str, cost: Callable[[], Tuple[float, float]],
     """
     rec = _live()
     if rec is None:
-        lis = _LISTENER.get()
+        lis = _listener()
         return _NULL if lis is None else lis.kernel(name, cost, plan)
     return rec.kernel(name, cost, plan)
+
+
+def _listener():
+    """The kernel listener: the context's (``kernel_listener``), else a
+    ``TorchDispatchMode`` on this thread's mode stack that is one (its
+    ``kernel_listener`` attribute true). Autograd runs a CUDA backward on
+    a device thread of its own, which inherits the caller's dispatch
+    modes but not its context variables: a counting mode there still
+    sees the kernels of a rematerialised forward."""
+    lis = _LISTENER.get()
+    if lis is not None:
+        return lis
+    from torch.utils._python_dispatch import \
+        _get_current_dispatch_mode_stack
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if getattr(mode, "kernel_listener", False):
+            return mode
+    return None
 
 
 class kernel_listener:

@@ -176,6 +176,13 @@ def sub_mesh(mesh, axes: Sequence[str]):
     return _SUBMESHES[key]
 
 
+def forget_mesh(mesh) -> None:
+    """Drop ``sub_mesh``'s cached sub-meshes of ``mesh`` (its process
+    group is going away)."""
+    for key in [k for k in _SUBMESHES if k[0] is mesh]:
+        del _SUBMESHES[key]
+
+
 def placement_mesh():
     """The ``DeviceMesh`` DTensor placements live on: the ambient mesh's
     axes (``sub_mesh``), or inside a DTensor ``shard_map`` body its auto

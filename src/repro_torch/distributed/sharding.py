@@ -254,6 +254,89 @@ def shard(x, *axes):
     return x.redistribute(mesh, want)
 
 
+def splittable(x, dim: int, n: int):
+    """``x`` with dimension ``dim`` replicated on each mesh dim whose
+    shards would not hold whole groups of ``x.shape[dim] // n``, so that
+    the dimension can be unflattened to (n, ...): DTensor refuses to
+    split a dimension its shards cut unevenly (JAX's GSPMD reshards
+    there by itself). A plain tensor, or a DTensor whose shards hold
+    whole groups, is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dim = dim % x.dim()
+    mesh = x.device_mesh
+    want = [Replicate() if p.is_shard(dim) and n % mesh.size(j) else p
+            for j, p in enumerate(x.placements)]
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, want)
+
+
+def foldable(x):
+    """``x`` with its leading dimensions foldable into one, as a matrix
+    product of an (..., K) tensor folds them: each of them but the first
+    replicated on the mesh dims that shard it. DTensor (torch 2.11)
+    refuses a view that merges a sharded dimension into an outer one;
+    JAX's GSPMD gathers there by itself (the sequence-parallel residual's
+    seq before attention and the MLP). A plain tensor, or one with
+    nothing to gather, is returned as it is."""
+    if not is_dtensor(x) or x.dim() < 3:
+        return x
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if p.is_shard() and 0 < p.dim < x.dim() - 1 else p
+            for p in x.placements]
+    if tuple(want) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+class _FoldableGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient ``foldable``: the
+    gradient of a product's output is folded as its output was."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return foldable(g)
+
+
+def fold_matmul(x, w):
+    """``x @ w`` for an (..., K) ``x`` and a (K, N) ``w``; on DTensors
+    with ``x`` made ``foldable``, and the product's gradient too."""
+    if not is_dtensor(x) and not is_dtensor(w):
+        return x @ w
+    return _FoldableGrad.apply(foldable(x) @ w)
+
+
+def gather_rows(table, ids):
+    """``table[ids]`` (rows of a (V, d) table). For a DTensor table whose
+    gradient is taken, each rank looks its own ids up in the table made
+    whole, and the table's gradient is the sum of the ranks'
+    (``Partial`` over the mesh dims that split the ids), as JAX's
+    sharded gather: DTensor's own rules for an index or an embedding
+    over a sharded table fail in the backward (torch 2.11's
+    ``index_put`` strategy; the embedding's mask-partial gradient).
+    Without a gradient, DTensor's index runs as it is."""
+    if not is_dtensor(table) or not (torch.is_grad_enabled()
+                                     and table.requires_grad):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    ids = as_dtensor(ids, mesh)
+    id_pl = list(ids.placements)
+    grad_pl = [Partial() if p.is_shard() else Replicate() for p in id_pl]
+    run = local_map(lambda t, i: t[i], out_placements=id_pl,
+                    in_placements=([Replicate()] * mesh.ndim, id_pl),
+                    in_grad_placements=(grad_pl, id_pl),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(table, ids)
+
+
 def _is_param(x) -> bool:
     from repro_torch.models.layers import Param
     return isinstance(x, Param)
@@ -286,22 +369,26 @@ def distribute_params(params: Any, schema: Any, mesh,
     """A parameter tree (whole on every rank) as DTensors placed by
     ``param_shardings`` on ``compat.sub_mesh`` of ``mesh`` (the mesh
     ``shard`` places on): each rank keeps its block, nothing moves."""
-    from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
     mesh = compat.sub_mesh(mesh, _axis_names(mesh))
     places = param_shardings(schema, mesh, rules)
 
     def put(x, pl):
         if isinstance(x, dict):
             return {k: put(x[k], pl[k]) for k in x}
-        shape, offset = compute_local_shape_and_global_offset(
-            x.shape, mesh, pl)
-        idx = tuple(slice(o, o + s) for o, s in zip(offset, shape))
-        return DTensor.from_local(x[idx].clone(), mesh, pl,
-                                  run_check=False, shape=x.shape,
-                                  stride=x.stride())
+        return place(x, mesh, pl)
     return put(params, places)
+
+
+def place(x: torch.Tensor, mesh, pl) -> torch.Tensor:
+    """``x`` (whole on every rank) as a DTensor with placements ``pl`` on
+    ``mesh``: this rank keeps a copy of its block, nothing moves."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(x.shape, mesh, pl)
+    idx = tuple(slice(o, o + s) for o, s in zip(offset, shape))
+    return DTensor.from_local(x[idx].clone(), mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def gather(tree: Any) -> Any:

@@ -48,7 +48,9 @@ def _split_microbatches(batch: Dict[str, Any], k: int) -> Dict[str, Any]:
         b = x.shape[0]
         if b % k:
             raise ValueError(f"batch {b} % microbatches {k}")
-        return x.reshape((k, b // k) + tuple(x.shape[1:]))
+        # a batch sharded wider than k: gathered before it is split
+        return shd.splittable(x, 0, k).reshape((k, b // k) +
+                                               tuple(x.shape[1:]))
     return {key: split(v) for key, v in batch.items()}
 
 

@@ -259,7 +259,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0,
         outs.append(o.to(q.dtype))
         ms.append(m)
         ls.append(l)
-    res = [torch.cat(outs, dim=1).transpose(1, 2)]
+    # the kernel's layout: callers then run the same operations after it
+    res = [torch.cat(outs, dim=1).transpose(1, 2).contiguous()]
     if with_probe:
         nk = _cdiv(Skv, block_k)
         counts = torch.tensor([[nk, n] for (_, _, n) in plan],
@@ -303,7 +304,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     ``kernels.ops.flash_attention`` resolves tuned ones).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16, D in ``HEAD_DIMS``, contiguous) or raise.
+    (bf16, D in ``HEAD_DIMS``, contiguous) or raise; ``meta`` tensors (a
+    dry run, ``launch.dryrun``) get the kernel's outputs, empty, and
+    launch nothing. Whatever the route, the region states one cost.
     """
     _check(q, k, v, q_offset, causal)
     flash_library(block_q, block_k)
@@ -385,38 +388,41 @@ def _flash(q, k, v, causal: bool, q_offset: int, with_probe: bool,
                                      q_offset=q_offset, with_probe=with_probe,
                                      with_stats=with_stats, block_q=block_q,
                                      block_k=block_k)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no flash-attention kernel for {q.device}")
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    smem = flash_smem_bytes(D, block_q, block_k)
-    if smem > _build.SMEM_OPTIN_BYTES:
-        raise ValueError(f"tiles ({block_q}, {block_k}) at head dim {D} need "
-                         f"{smem} bytes of shared memory, over the "
-                         f"{_build.SMEM_OPTIN_BYTES} a block may have")
+    if q.device.type == "cuda":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.dtype != torch.bfloat16:
+                raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{name} must be contiguous and 16-byte "
+                                 f"aligned")
+        if D not in HEAD_DIMS:
+            raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+        smem = flash_smem_bytes(D, block_q, block_k)
+        if smem > _build.SMEM_OPTIN_BYTES:
+            raise ValueError(f"tiles ({block_q}, {block_k}) at head dim {D} "
+                             f"need {smem} bytes of shared memory, over the "
+                             f"{_build.SMEM_OPTIN_BYTES} a block may have")
     out = torch.empty_like(q)
     probe = (torch.empty((B, H, _cdiv(Sq, block_q), 2), dtype=torch.int32,
                          device=q.device) if with_probe else None)
     stats = (torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
              if with_stats else None)
-    lib = _build.load(flash_library(block_q, block_k), _SIGNATURES)
-    code = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        probe.data_ptr() if with_probe else None,
-        stats.data_ptr() if with_stats else None,
-        B, H, Hkv, Sq, Skv, D, block_q, block_k, q_offset, int(causal),
-        1.0 / math.sqrt(D), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, code, "flash_attention_fwd")
-    flash_attention.launches += 1
-    flash_attention.tile_launches[(block_q, block_k)] += 1
+    if q.device.type == "cuda":     # meta: the outputs, nothing launched
+        lib = _build.load(flash_library(block_q, block_k), _SIGNATURES)
+        code = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            probe.data_ptr() if with_probe else None,
+            stats.data_ptr() if with_stats else None,
+            B, H, Hkv, Sq, Skv, D, block_q, block_k, q_offset, int(causal),
+            1.0 / math.sqrt(D), q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(lib, code, "flash_attention_fwd")
+        flash_attention.launches += 1
+        flash_attention.tile_launches[(block_q, block_k)] += 1
     res = [out]
     if with_probe:
         res.append(probe)

@@ -239,8 +239,9 @@ def paged_attention(q, pool_k, pool_v, pages, pos, *,
     ``kernels.ops.paged_attention`` resolves a tuned one).
 
     Returns (B, kv_heads, q_per_kv, head_dim) float32. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise. The
-    kernel clamps page ids into the pool.
+    the plain version; CUDA tensors launch the kernel or raise; ``meta``
+    tensors (a dry run) get the kernel's outputs, empty, and launch
+    nothing. The kernel clamps page ids into the pool.
     """
     _check(q, pool_k, pool_v, pages, pos, pages_per_step)
     paged_library(tile_slots)
@@ -319,34 +320,35 @@ def _paged(q, pool_k, pool_v, pages, pos, with_counts: bool = False,
     if q.device.type == "cpu":
         return paged_attention_plain(q, pool_k, pool_v, pages, pos,
                                      with_counts, tile_slots)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no paged-attention kernel for {q.device}")
     B, kv, g, hd = q.shape
     P, page_size = pool_k.shape[:2]
     n_pages = pages.shape[1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
-    if g > MAX_GROUP:
-        raise ValueError(f"{g} query rows per kv head > {MAX_GROUP}")
-    for name, t, dt in (("pool_k", pool_k, torch.bfloat16),
-                        ("pool_v", pool_v, torch.bfloat16),
-                        ("pages", pages, torch.int32),
-                        ("pos", pos, torch.int32)):
-        if t.dtype != dt:
-            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned (K rows are read "
-                         "as 16-byte vectors)")
-    smem = max(paged_smem_bytes(hd, g, tile_slots))
-    if smem > cm.STATIC_SMEM_BYTES:
-        raise ValueError(f"tile_slots {tile_slots} at head dim {hd} and {g} "
-                         f"query rows a kv head needs {smem} bytes of static "
-                         f"shared memory, over the {cm.STATIC_SMEM_BYTES} a "
-                         f"block may have")
+    if q.device.type == "cuda":
+        if hd not in HEAD_DIMS:
+            raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+        if g > MAX_GROUP:
+            raise ValueError(f"{g} query rows per kv head > {MAX_GROUP}")
+        for name, t, dt in (("pool_k", pool_k, torch.bfloat16),
+                            ("pool_v", pool_v, torch.bfloat16),
+                            ("pages", pages, torch.int32),
+                            ("pos", pos, torch.int32)):
+            if t.dtype != dt:
+                raise ValueError(f"{name} must be {dt}, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+            raise ValueError("pools must be 16-byte aligned (K rows are read "
+                             "as 16-byte vectors)")
+        smem = max(paged_smem_bytes(hd, g, tile_slots))
+        if smem > cm.STATIC_SMEM_BYTES:
+            raise ValueError(f"tile_slots {tile_slots} at head dim {hd} and "
+                             f"{g} query rows a kv head needs {smem} bytes of "
+                             f"static shared memory, over the "
+                             f"{cm.STATIC_SMEM_BYTES} a block may have")
     qb = q.to(torch.bfloat16).contiguous()
-    if qb.data_ptr() % 16:          # q rows are read as 16-byte vectors
+    if q.device.type == "cuda" and qb.data_ptr() % 16:   # 16-byte rows
         qb = qb.clone()
     s_max = n_pages * page_size
     nt = -(-s_max // tile_slots)
@@ -356,6 +358,8 @@ def _paged(q, pool_k, pool_v, pages, pos, with_counts: bool = False,
     out = torch.empty((B, kv, g, hd), dtype=torch.float32, device=q.device)
     counts = (torch.empty((B, kv, nt), dtype=torch.int32, device=q.device)
               if with_counts else None)
+    if q.device.type == "meta":     # a dry run: the outputs, no launch
+        return (out, counts) if with_counts else out
     lib = _build.load(paged_library(tile_slots), _SIGNATURES)
     code = lib.paged_attention_fwd(
         qb.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), pages.data_ptr(),

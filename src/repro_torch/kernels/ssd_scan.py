@@ -223,8 +223,9 @@ def ssd_scan(x, a, b, c, *, chunk: int, h_per_g: int, pipeline: int = 1,
     TPU kernel's ``pipeline`` does. Returns y (B, L, H, P) in x's dtype
     and, with ``return_final_state``, the f32 state after the last step,
     (B, H, P, N). CPU tensors take the plain version; CUDA tensors launch
-    the two kernels of ``KERNELS`` or raise. ``launches`` counts calls
-    that launched them.
+    the two kernels of ``KERNELS`` or raise; ``meta`` tensors (a dry run)
+    get the kernels' outputs, empty, and launch nothing. ``launches``
+    counts calls that launched them.
     """
     Q = _check(x, a, b, c, chunk, pipeline, h_per_g)
     with scope.kernel_region(
@@ -294,32 +295,33 @@ def _ssd(x, a, b, c, Q: int, chunk: int, h_per_g: int, pipeline: int,
                               pipeline=pipeline,
                               return_final_state=return_final_state,
                               with_counts=with_counts)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"no SSD-scan kernel for {x.device}")
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    if P not in HEAD_DIMS:
-        raise ValueError(f"head dim {P} not in {HEAD_DIMS}")
-    if N not in STATE_DIMS:
-        raise ValueError(f"state dim {N} not in {STATE_DIMS}")
-    if x.dtype not in DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
-        raise ValueError(f"x, b, c must share one of {list(DTYPES)}; got "
-                         f"{x.dtype}, {b.dtype}, {c.dtype}")
-    if a.dtype != torch.float32:
-        raise ValueError(f"a must be torch.float32, got {a.dtype}")
-    for name, t in (("x", x), ("b", b), ("c", c)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must be unit-stride in its last dim")
-        if (t.data_ptr() % 16 or any(
-                st * t.element_size() % 16
-                for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
-            raise ValueError(f"rows of {name} are not 16-byte aligned "
-                             f"(strides {t.stride()}): the kernels copy "
-                             f"them by 16-byte cp.async")
-    lib = _build.load("ssd_scan", _SIGNATURES)
-    if lib.ssd_scan_smem(DTYPES[x.dtype], N, Q) > _build.SMEM_OPTIN_BYTES:
-        raise ValueError(f"sub-chunk of {Q} steps does not fit in shared "
-                         f"memory")
+    if x.device.type == "cuda":
+        if P not in HEAD_DIMS:
+            raise ValueError(f"head dim {P} not in {HEAD_DIMS}")
+        if N not in STATE_DIMS:
+            raise ValueError(f"state dim {N} not in {STATE_DIMS}")
+        if x.dtype not in DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+            raise ValueError(f"x, b, c must share one of {list(DTYPES)}; got "
+                             f"{x.dtype}, {b.dtype}, {c.dtype}")
+        if a.dtype != torch.float32:
+            raise ValueError(f"a must be torch.float32, got {a.dtype}")
+        for name, t in (("x", x), ("b", b), ("c", c)):
+            if t.stride(-1) != 1:
+                raise ValueError(f"{name} must be unit-stride in its last dim")
+            if (t.data_ptr() % 16 or any(
+                    st * t.element_size() % 16
+                    for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+                raise ValueError(f"rows of {name} are not 16-byte aligned "
+                                 f"(strides {t.stride()}): the kernels copy "
+                                 f"them by 16-byte cp.async")
+        lib = _build.load("ssd_scan", _SIGNATURES)
+        if lib.ssd_scan_smem(DTYPES[x.dtype], N, Q) > _build.SMEM_OPTIN_BYTES:
+            raise ValueError(f"sub-chunk of {Q} steps does not fit in shared "
+                             f"memory")
     nc = L // Q
     dev = x.device
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
@@ -330,6 +332,10 @@ def _ssd(x, a, b, c, Q: int, chunk: int, h_per_g: int, pipeline: int,
                        device=dev)
     counts = (torch.zeros((B, H, L // chunk), dtype=torch.int32, device=dev)
               if with_counts else None)
+    res = [y] + ([state] if return_final_state else []) + (
+        [counts] if with_counts else [])
+    if dev.type == "meta":          # a dry run: the outputs, no launch
+        return res[0] if len(res) == 1 else tuple(res)
     code = lib.ssd_scan_fwd(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
         state.data_ptr() if state is not None else None, acs.data_ptr(),
@@ -339,8 +345,6 @@ def _ssd(x, a, b, c, Q: int, chunk: int, h_per_g: int, pipeline: int,
         dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, "ssd_scan_fwd")
     ssd_scan.launches += 1
-    res = [y] + ([state] if return_final_state else []) + (
-        [counts] if with_counts else [])
     return res[0] if len(res) == 1 else tuple(res)
 
 

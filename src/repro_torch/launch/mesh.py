@@ -11,12 +11,16 @@ product is not the world size raises with the factorizations that
 would fit. ``parse_mesh_arg`` and ``probe_axis_names`` are the JAX
 package's.
 
-No counterpart: ``make_production_mesh`` (16x16 TPU pods, two pods
-multi-pod) describes TPU slices that no card host has; a card mesh is
-``make_mesh`` over the ranks ``spawn`` starts.
+``make_production_mesh`` (16x16 = 256 devices, two pods 512) builds the
+production mesh for a dry run (``launch.dryrun``) that needs no card:
+rank 0 of a world of that size over PyTorch's ``fake`` process-group
+backend, whose collectives return at once and move nothing. It is a
+context manager, because the default process group it creates is
+destroyed on exit, so nothing leaks into the caller's process.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -81,6 +85,45 @@ def make_mesh(shape, axes, device_type: Optional[str] = None):
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """The default process group for the body: ``world_size`` ranks over
+    PyTorch's ``fake`` backend, this process ``rank``; destroyed on exit.
+    Raises if a process group exists already."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a fake world needs a process with no process "
+                           "group")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=int(world_size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def make_production_mesh(*, multi_pod: bool = False):
+    """``with make_production_mesh() as mesh``: the (16, 16) ("data",
+    "model") mesh of 256 devices, or with ``multi_pod`` the (2, 16, 16)
+    ("pod", "data", "model") mesh of 512, over a ``fake_world`` seen from
+    rank 0 (a ``DeviceMesh`` of device type cpu: its tensors may be
+    ``meta``). The world ends with the body."""
+    from repro_torch.distributed import compat
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for a in shape:
+        n *= a
+    with fake_world(n):
+        mesh = make_mesh(shape, axes, device_type="cpu")
+        try:
+            yield mesh
+        finally:
+            compat.forget_mesh(mesh)
 
 
 def probe_axis_names(shape) -> Tuple[str, ...]:

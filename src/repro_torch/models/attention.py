@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import is_dtensor, put, shard
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import _bf16
@@ -55,10 +56,28 @@ def attention_schema(cfg: ModelConfig) -> Dict[str, Param]:
     return s
 
 
+class _FlatHeads(torch.autograd.Function):
+    """(d, n, h) -> (d, n h) for a DTensor weight whose gradient's shards
+    may cut the heads: the backward makes them whole
+    (``sharding.splittable``) before it unflattens."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.shape = tuple(w.shape)
+        d, n, h = ctx.shape
+        return w.reshape(d, n * h)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, n, h = ctx.shape
+        return shd.splittable(g, 1, n).reshape(d, n, h)
+
+
 def _proj(x, w):
     """einsum('bsd,dnh->bsnh', x, w)."""
     d, n, h = w.shape
-    return (x @ w.reshape(d, n * h)).unflatten(-1, (n, h))
+    w2 = _FlatHeads.apply(w) if is_dtensor(w) else w.reshape(d, n * h)
+    return shd.splittable(shd.fold_matmul(x, w2), -1, n).unflatten(-1, (n, h))
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions):
@@ -98,7 +117,7 @@ def causal_attend(q, k, v, cfg: ModelConfig, q_offset: int = 0):
 def out_proj(o, wo):
     """einsum('bsnh,nhd->bsd', o, wo)."""
     n, h, d = wo.shape
-    return o.flatten(-2) @ wo.reshape(n * h, d)
+    return shd.fold_matmul(o.flatten(-2), wo.reshape(n * h, d))
 
 
 # --------------------------------------------- flash VJP (training)
@@ -283,7 +302,8 @@ def attn_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
         q, k_new, v_new = _project_qkv(params, x, cfg, positions)
         Hp, HD = q.shape[2], q.shape[3]
         H, kv = cfg.num_heads, cfg.num_kv_heads
-        qg = q[:, :, :H].reshape(B, 1, kv, cfg.q_per_kv, HD)
+        qg = shd.splittable(q[:, :, :H], 2, kv).reshape(B, 1, kv,
+                                                        cfg.q_per_kv, HD)
     with scope.named_scope("cache_update"):
         put(cache_k, (slice(None), pos), k_new[:, 0].to(cache_k.dtype))
         put(cache_v, (slice(None), pos), v_new[:, 0].to(cache_v.dtype))

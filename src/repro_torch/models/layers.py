@@ -15,7 +15,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import fold_matmul, shard
 
 
 class Param(NamedTuple):
@@ -65,6 +65,15 @@ def materialize(schema, gen: torch.Generator, dtype, device) -> Any:
         return _init_leaf(schema, gen, dtype, device)
     return {k: materialize(schema[k], gen, dtype, device)
             for k in sorted(schema)}
+
+
+def abstract(schema, dtype, device="meta") -> Any:
+    """Empty tensors of ``schema``'s shapes in ``dtype`` (JAX's
+    ``abstract``: on ``meta``, shapes and dtypes only), in
+    ``materialize``'s key order."""
+    if isinstance(schema, Param):
+        return torch.empty(schema.shape, dtype=dtype, device=device)
+    return {k: abstract(schema[k], dtype, device) for k in sorted(schema)}
 
 
 def stack_schema(schema, n: int, axis_name="layers"):
@@ -128,7 +137,8 @@ def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
     freqs = rope_freqs(hd, theta, x.device)                 # (half,)
     section_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))            # (half,)
+        torch.tensor(sections, device=x.device),
+        output_size=half)                                   # (half,)
     angles = positions3[..., None].float() * freqs          # (3, ..., seq, half)
     angles = torch.where(section_id == 0, angles[0],
                          torch.where(section_id == 1, angles[1], angles[2]))
@@ -156,15 +166,15 @@ def mlp_schema(d: int, ff: int, use_bias: bool) -> Dict[str, Param]:
 
 def mlp_apply(params, x):
     """SwiGLU MLP. x: (..., d)."""
-    h = x @ params["wi"]
-    g = x @ params["wg"]
+    h = fold_matmul(x, params["wi"])
+    g = fold_matmul(x, params["wg"])
     if "bi" in params:
         h = h + params["bi"]
         g = g + params["bg"]
     h = F.silu(g) * h
     if h.dim() == 3:
         h = shard(h, "batch", "seq", "ff")
-    out = h @ params["wo"]
+    out = fold_matmul(h, params["wo"])
     if "bo" in params:
         out = out + params["bo"]
     return out

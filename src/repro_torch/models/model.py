@@ -1,4 +1,4 @@
-"""Model facade: schema/init, train loss, prefill, decode.
+"""Model facade: schema/init, train loss, prefill, decode, dry specs.
 
 Port of ``repro.models.model``, every family of the registry. Models
 with a modality frontend (``frontend != "none"``) take precomputed
@@ -14,20 +14,30 @@ does the same, and a caller that runs many steps (the engine, the
 serving loop) casts once up front and passes the compute-dtype copy;
 casting a tensor that is already in the compute dtype returns it
 unchanged, so the result is the same and no step copies the weights.
+
+Dry specs (JAX's ``abstract_params``, ``logical_axes``, ``param_count``,
+``input_specs``, ``cache_specs``, ``init_cache``): JAX's
+``ShapeDtypeStruct`` stand-ins become tensors on the ``meta`` device,
+which carry a shape and a dtype and hold no data, so a dry run
+(``launch.dryrun``) traces a full-size step with nothing allocated.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import scope
-from repro_torch.distributed.sharding import is_dtensor, shard
+from repro_torch.distributed.sharding import (fold_matmul, gather_rows,
+                                               is_dtensor, shard)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.frontends import frontend_input_specs
-from repro_torch.models.layers import Param, materialize
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (Param, abstract, map_schema,
+                                      materialize)
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 Z_LOSS_WEIGHT = 1e-4
@@ -99,6 +109,24 @@ class Model:
         return materialize(self.schema(), gen,
                            getattr(torch, self.cfg.param_dtype), device)
 
+    def abstract_params(self, device="meta") -> Dict[str, Any]:
+        """The schema's tensors in ``param_dtype`` with nothing drawn
+        (JAX's ``abstract_params``): on ``meta``, shapes and dtypes
+        only."""
+        return abstract(self.schema(), getattr(torch, self.cfg.param_dtype),
+                        device)
+
+    def logical_axes(self) -> Dict[str, Any]:
+        return map_schema(lambda p: p.axes, self.schema())
+
+    def param_count(self) -> int:
+        n = [0]
+
+        def add(p):
+            n[0] += math.prod(p.shape)
+        map_schema(add, self.schema())
+        return n[0]
+
     # ------------------------------------------------------------ pieces
     def _compute_cast(self, params):
         cd = getattr(torch, self.cfg.compute_dtype)
@@ -115,7 +143,8 @@ class Model:
             x = batch["embeds"].to(cd)
         else:
             with scope.named_scope("embed"):
-                x = params["embed"][batch["tokens"].long()].to(cd)
+                x = gather_rows(params["embed"],
+                                batch["tokens"].long()).to(cd)
         return shard(x, "batch", "seq", None)
 
     def _positions(self, batch, seq: int, batch_size: int, device):
@@ -130,7 +159,7 @@ class Model:
                 pad = torch.arange(logits.shape[-1],
                                    device=logits.device) >= V
                 return logits.masked_fill(pad, float("-inf"))
-            logits[:, V:] = float("-inf")
+            logits[:, V:].fill_(float("-inf"))   # one op on every device
         return logits
 
     def _unembed_weight(self, params):
@@ -168,7 +197,7 @@ class Model:
 
         def body(x_, l_, w_):
             with scope.named_scope("logits"):
-                logits = x_.float() @ w_.to(x_.dtype).float()
+                logits = fold_matmul(x_.float(), w_.to(x_.dtype).float())
                 logits = logits.masked_fill(pad_mask, float("-inf"))
                 logits = shard(logits, "batch", "seq", "vocab")
             with scope.named_scope("xent"):
@@ -239,23 +268,73 @@ class Model:
             logits = self._logits(p, x[:, -1])
         return logits, cache, torch.argmax(logits, dim=-1).to(torch.int32)
 
-    # ------------------------------------------------------------ inputs
+    # --------------------------------------------------------- dry specs
+    def input_specs(self, shape: ShapeConfig, device="meta"
+                    ) -> Dict[str, torch.Tensor]:
+        """Stand-ins (empty tensors on ``device``) for every model input
+        of a cell, JAX's ``input_specs``: decode is one new token against
+        a cache of ``shape.seq_len``, its positions derived from the
+        scalar ``pos`` (the M-RoPE stream dropped)."""
+        cfg = self.cfg
+        cd = getattr(torch, cfg.compute_dtype)
+        B = shape.global_batch
+        S = 1 if shape.kind == "decode" else shape.seq_len
+        if cfg.frontend == "none":
+            specs = {"tokens": ((B, S), torch.int32)}
+        else:
+            specs = dict(frontend_input_specs(cfg, B, S, cd))
+        if shape.kind == "train":
+            specs["labels"] = ((B, S), torch.int32)
+        elif shape.kind == "decode":
+            specs.pop("positions", None)
+            specs["pos"] = ((), torch.int32)
+        return {k: torch.empty(s, dtype=dt, device=device)
+                for k, (s, dt) in specs.items()}
+
+    def cache_specs(self, shape: ShapeConfig, device="meta"
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, tuple]]:
+        """(tensors, logical axes) of the decode cache, JAX's
+        ``cache_specs``: {"k", "v"} (L, B, S, kv, hd) in
+        ``kv_cache_dtype``; the ssm family {"conv" (L, B, K-1, conv_dim)
+        in the compute dtype, "ssd" (L, B, h, p, n) f32}, the hybrid both,
+        its K/V one a shared-block call."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        kvd = getattr(torch, cfg.kv_cache_dtype)
+        cd = getattr(torch, cfg.compute_dtype)
+        kv, hd, L = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers
+        specs: Dict[str, Tuple[tuple, torch.dtype]] = {}
+        axes: Dict[str, tuple] = {}
+        kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        if cfg.family in ("ssm", "hybrid"):
+            d = ssm_mod.ssm_dims(cfg)
+            specs["conv"] = ((L, B, d["conv_kernel"] - 1, d["conv_dim"]), cd)
+            axes["conv"] = ("layers", "batch", None, "ssm_inner")
+            specs["ssd"] = ((L, B, d["heads"], d["head_dim"], d["d_state"]),
+                            torch.float32)
+            axes["ssd"] = ("layers", "batch", "ssm_heads", "ssm_head_dim",
+                           "ssm_state")
+            if cfg.family == "hybrid":
+                n_inv = cfg.num_layers // cfg.shared_attn_every
+                specs["k"] = specs["v"] = ((n_inv, B, S, kv, hd), kvd)
+                axes["k"] = axes["v"] = kv_axes
+        else:
+            specs["k"] = specs["v"] = ((L, B, S, kv, hd), kvd)
+            axes["k"] = axes["v"] = kv_axes
+        return ({k: torch.empty(s, dtype=dt, device=device)
+                 for k, (s, dt) in specs.items()}, axes)
+
+    def init_cache(self, shape: ShapeConfig, device=None
+                   ) -> Dict[str, torch.Tensor]:
+        """A zero decode cache of ``cache_specs``' shapes on ``device``."""
+        specs, _ = self.cache_specs(shape, device="meta")
+        device = resolve_device(device)
+        return {k: torch.zeros(t.shape, dtype=t.dtype, device=device)
+                for k, t in specs.items()}
+
     def input_shapes(self, kind: str, batch: int, seq: int
                      ) -> Dict[str, Tuple[tuple, torch.dtype]]:
         """name -> (shape, dtype) of every model input of a ``train``,
-        ``prefill`` or ``decode`` call (JAX's ``input_specs``; decode: one
-        new token against a cache of ``seq``)."""
-        cfg = self.cfg
-        cd = getattr(torch, cfg.compute_dtype)
-        S = 1 if kind == "decode" else seq
-        if cfg.frontend == "none":
-            specs = {"tokens": ((batch, S), torch.int32)}
-        else:
-            specs = dict(frontend_input_specs(cfg, batch, S, cd))
-        if kind == "train":
-            specs["labels"] = ((batch, S), torch.int32)
-        elif kind == "decode":
-            # decode positions derive from the scalar pos
-            specs.pop("positions", None)
-            specs["pos"] = ((), torch.int32)
-        return specs
+        ``prefill`` or ``decode`` call: a view of ``input_specs``."""
+        specs = self.input_specs(ShapeConfig("", seq, batch, kind))
+        return {k: (tuple(t.shape), t.dtype) for k, t in specs.items()}

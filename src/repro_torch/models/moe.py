@@ -65,11 +65,18 @@ def _route(x_flat, router_w, cfg: ModelConfig):
     top_p, top_i = torch.topk(probs, k, dim=-1)                  # (T, k)
     weights = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     T = x_flat.shape[0]
-    assign = torch.bincount(top_i.reshape(-1), minlength=E).float()
+    assign = _counts(top_i.reshape(-1), E).float()
     frac_assign = assign / (T * k)
     frac_prob = probs.mean(dim=0)
     aux = E * torch.sum(frac_assign * frac_prob)
     return weights, top_i, aux
+
+
+def _counts(idx, E: int):
+    """``torch.bincount(idx, minlength=E)`` for ids in [0, E), as a
+    scatter-add, which has a ``meta`` kernel (a dry run traces it)."""
+    return torch.zeros(E, dtype=torch.int64, device=idx.device) \
+        .scatter_add_(0, idx.long(), torch.ones_like(idx, dtype=torch.int64))
 
 
 class _GroupedMatmul(torch.autograd.Function):
@@ -84,6 +91,8 @@ class _GroupedMatmul(torch.autograd.Function):
     def forward(ctx, x, w, sizes):
         ctx.save_for_backward(x, w)
         ctx.sizes = sizes
+        if sizes is None:           # meta: one segment of all the rows
+            return x @ w[0]
         out = x.new_empty((x.shape[0], w.shape[2]))
         r = 0
         for e, n in enumerate(sizes):
@@ -94,8 +103,12 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dx = torch.empty_like(x)
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        if ctx.sizes is None:       # meta: the walk's products, in one
+            dw[0] = x.float().transpose(0, 1) @ dy.float()
+            return ((dy @ w[0].transpose(0, 1)).to(x.dtype), dw.to(w.dtype),
+                    None)
+        dx = torch.empty_like(x)
         r = 0
         for e, n in enumerate(ctx.sizes):
             dx[r:r + n] = (dy[r:r + n] @ w[e].transpose(0, 1)).to(x.dtype)
@@ -106,7 +119,14 @@ class _GroupedMatmul(torch.autograd.Function):
 
 def grouped_matmul(x, w, group_sizes):
     """x: (rows, d) sorted by group; w: (E, d, f); group_sizes: (E,) int
-    summing to rows -> (rows, f). Differentiable in x and w."""
+    summing to rows -> (rows, f). Differentiable in x and w.
+
+    On ``meta`` (a dry run) the sizes are unknown: the products run as
+    one segment of all the rows against ``w[0]``, which has the walk's
+    shapes and its FLOPs, ``sum_e 2 n_e d f = 2 rows d f`` (and the
+    backward's), and computes nothing."""
+    if x.device.type == "meta":
+        return _GroupedMatmul.apply(x, w, None)
     sizes = [int(n) for n in group_sizes.tolist()]
     if sum(sizes) != x.shape[0]:
         raise ValueError(f"group sizes sum to {sum(sizes)}, not the "
@@ -127,8 +147,7 @@ def _dispatch(top_i, E: int):
     expert)."""
     flat_expert = top_i.reshape(-1)                              # (T*k,)
     sort_idx = torch.argsort(flat_expert, stable=True)
-    return (sort_idx, flat_expert[sort_idx],
-            torch.bincount(flat_expert, minlength=E))
+    return (sort_idx, flat_expert[sort_idx], _counts(flat_expert, E))
 
 
 def _slot(expert_sorted, starts):

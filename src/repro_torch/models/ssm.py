@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import fold_matmul, shard
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import Param, rmsnorm
 
@@ -186,7 +186,8 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
     B, S, _ = x.shape
     di, g, n, h = d["d_inner"], d["groups"], d["d_state"], d["heads"]
     with scope.named_scope("in_proj"):
-        zxbcdt = shard(x @ params["in_proj"], "batch", "seq", "ssm_inner")
+        zxbcdt = shard(fold_matmul(x, params["in_proj"]), "batch", "seq",
+                       "ssm_inner")
     z, xbc_raw, dt = torch.split(zxbcdt, [di, d["conv_dim"], h], dim=-1)
     with scope.named_scope("conv"):
         xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"],
@@ -225,7 +226,7 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
         y = y + params["d_skip"][:, None].to(xs.dtype) * xs
         y = y.reshape(B, S, di)
         y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
-        out = y @ params["out_proj"]
+        out = fold_matmul(y, params["out_proj"])
     out = shard(out, "batch", "seq", None)
     if return_state:
         K = d["conv_kernel"]

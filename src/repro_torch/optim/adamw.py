@@ -168,7 +168,7 @@ def update(params, grads, state: AdamWState, cfg: TrainConfig,
         def upd_leaf(p, g, m, v, scanned):
             if scanned:
                 out = (torch.empty_like(p), empty_like(m), empty_like(v))
-                for i in scope.scan(p.shape[0]):
+                for i in scope.scan(p.shape[0], same_shapes=True):
                     for dst, src in zip(out, upd(p[i], g[i], at(m, i),
                                                  at(v, i))):
                         put(dst, i, src)

@@ -20,6 +20,9 @@ arrays):
 - ``sharded_int8``: the ``int8_ef`` train step on a ``pod`` mesh whose
   ``data`` / ``model`` axes are auto-sharded, beside the uncompressed
   sharded step.
+- ``dry_counts``: a dry-run cell (``launch.dryrun.analyze_cell``) of a
+  smoke config on real tensors, counted on this rank, to hold the fake
+  world's meta counts against.
 
 Each takes the mesh and the rank's device; ``checks_rank`` is the rank
 body ``spawn`` runs, several of them on one mesh. Params come from
@@ -381,3 +384,17 @@ def auto_axes_rank(rank: int, device) -> Dict[str, Any]:
     ok = (seen["placed"] and float(total.full_tensor()) == 28.0 and
           torch.equal(twice.full_tensor(), whole * 2))
     return dict(ok=bool(ok))
+
+
+def dry_counts(rank: int, dev, arch: str, kind: str, seq: int, batch: int,
+               mesh_shape=(2, 2)) -> Dict[str, Any]:
+    """This rank's counts (``hlo_cost.analyze``) of the smoke cell of
+    ``arch`` on a ("data", "model") mesh of ``mesh_shape``, on real
+    tensors (random from seed 0)."""
+    from repro_torch.launch.dryrun import analyze_cell
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    cost = analyze_cell(Model(smoke_config(arch)),
+                        ShapeConfig(kind, seq, batch, kind), mesh, dev)
+    return {k: cost[k] for k in ("flops", "bytes", "collectives",
+                                 "collective_wire_bytes")}
+

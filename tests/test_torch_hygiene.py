@@ -47,7 +47,8 @@ PORT_MODULES = (
     "repro_torch.tune", "repro_torch.distributed.compat",
     "repro_torch.launch.mesh", "repro_torch.launch.collectives",
     "repro_torch.core.meshprobe", "repro_torch.optim.compression",
-    "repro_torch.testing.mesh_ranks",
+    "repro_torch.testing.mesh_ranks", "repro_torch.launch.hlo_cost",
+    "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
 )
 
 

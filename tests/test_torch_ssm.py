@@ -167,8 +167,13 @@ def test_ssd_scan_rejects_bad_arguments():
     with pytest.raises(ValueError, match="does not match"):
         kssd.ssd_scan(x, a[:, :16], b, c, chunk=16, h_per_g=2)
     meta = [t.to("meta") for t in (x, a, b, c)]
-    with pytest.raises(ValueError, match="no SSD-scan kernel"):
-        kssd.ssd_scan(*meta, chunk=16, h_per_g=2)
+    with pytest.raises(ValueError, match="% chunk"):    # checked on meta
+        kssd.ssd_scan(*meta, chunk=24, h_per_g=2)
+    # meta (a dry run) routes to the kernels' outputs, empty, launching
+    # nothing (it raised "no SSD-scan kernel" before that route existed)
+    y = kssd.ssd_scan(*meta, chunk=16, h_per_g=2)
+    assert y.device.type == "meta" and y.shape == x.shape
+    assert y.dtype == x.dtype
     assert kssd.ssd_scan.launches == 0       # the plain version never counts
 
 
