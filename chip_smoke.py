@@ -239,24 +239,36 @@
    a run. It launches flash at shapes the kernels line has, so it adds no
    entry.
 19. the dry run and the roofline (``repro_torch.launch.{dryrun,
-   hlo_cost, roofline}``): (a) tinyllama-1.1b at full width, bf16 master
-   params, mesh "1" (one device, no process group): ``lower_cell`` on
-   the meta device for a train step (B 4 x S 512), a prefill (8 x 512)
-   and a decode step (B 8 at cache 544); then the same three steps on
-   the card (``dryrun.build_cell``, random from seed 0) under the same
-   counter (``hlo_cost.analyze``): FLOPs and bytes equal the meta
-   record's exactly, no collective, flash launches 44, 22 and 0, the
-   measured peak (``max_memory_allocated`` over the call, the arguments
-   resident) within ``DRY_MEM_RTOL`` of ``peak_estimate_bytes``, and the
-   roofline bound at most the measured wall of each step; prints the
-   roofline fraction and useful ratio, and for training
-   ``_train_flops`` beside ``model_flops`` and the counted FLOPs. (b) in
-   a subprocess, ``python -m repro_torch.launch.dryrun --arch
-   tinyllama-1.1b --shape train_4k --mesh 16x16 --force`` (256 fake
-   ranks, no card): rc 0 and a record with no error; prints its
-   per-device FLOPs, bytes, collective bytes by kind, peak GiB, dominant
-   term and trace seconds. It launches flash at shapes the kernels line
-   has, so it adds no entry.
+   hlo_cost, roofline}``): (a) six one-device cells at full width, bf16
+   master params, mesh "1" (no process group): tinyllama-1.1b's train
+   step (B 4 x S 512), prefill (8 x 512) and decode step (B 8 at cache
+   544); mamba2-370m's train step at full depth (B 4 x S 512, the plain
+   chunked SSD scan); zamba2-2.7b's at 12 of 54 layers (2 groups; B 2 x
+   S 512, flash at head dim 80 through the shared attention); qwen2-vl-
+   72b's at 1 of 80 layers in 2 microbatches (B 2 x S 512, the M-RoPE
+   positions split on their batch dim, flash at head dim 128, int8
+   moments). Each is traced by ``lower_cell`` on the meta device, then
+   run on the card (``dryrun.build_cell``, random from seed 0) under the
+   same counter (``hlo_cost.analyze``): FLOPs and bytes equal the meta
+   record's exactly, no collective, flash launches 44, 22, 0, 0, 4 and 4
+   (each the meta record's count of flash regions), the measured peak
+   (``max_memory_allocated`` over the call, the arguments resident)
+   within ``DRY_MEM_RTOL`` of ``peak_estimate_bytes``, and the roofline
+   bound at most the measured wall (tinyllama's the median of 3 steps,
+   the others' the warm-up step: AdamW's row scans of their embeddings
+   or unembeddings take seconds); prints the roofline fraction and
+   useful ratio, and for tinyllama's training ``_train_flops`` beside
+   ``model_flops`` and the counted FLOPs. Flash at the two new training
+   shapes is held against its plain version and timed (two kernels-line
+   entries). (b) ``python -m repro_torch.launch.dryrun --arch A --shape
+   S --mesh 16x16 --force`` (256 fake ranks, no card) for tinyllama's
+   train_4k and six cells of the ssm, hybrid, int8-moment and M-RoPE
+   archs (mamba2-370m and zamba2-2.7b train_4k and long_500k,
+   arctic-480b and qwen2-vl-72b train_4k), seven subprocesses started
+   together at the start of step 19, beside (a): each rc 0 and a record
+   with no error; one ``dryrun [...]`` line each with its per-
+   device FLOPs, bytes, wire bytes by kind, peak GiB, dominant term and
+   trace seconds.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -3667,10 +3679,29 @@ def sharding_phase(torch, fa, pa, ssd, dev, smi):
 
 
 # -------------------------------------------------------------- step 19
-# (label, seq_len, global_batch, kind): step 19's one-device cells
-DRY_CELLS = (("train_b4", 512, 4, "train"), ("prefill_b8", 512, 8, "prefill"),
-             ("decode_b8", 544, 8, "decode"))
-DRY_FLASH = {"train": 44, "prefill": 22, "decode": 0}
+# (arch, label, seq_len, global_batch, kind, config overrides, flash
+# launches): step 19's one-device cells, bf16 master params throughout.
+# zamba2 is cut to 12 of its 54 layers (2 groups of 6 ssm layers, each
+# followed by the shared attention); qwen2-vl to 1 of 80 layers, trained
+# in 2 microbatches (the M-RoPE split). Flash launches a layer call twice
+# in training (the forward and its remat recompute): 2 x 22 tinyllama, 2
+# x 2 zamba2 (head dim 80), 2 x 1 x 2 microbatches qwen2-vl (head dim
+# 128); mamba2 trains through the plain chunked SSD scan (no kernel)
+DRY_CELLS = (
+    (ARCH, "train_b4", 512, 4, "train", {}, 44),
+    (ARCH, "prefill_b8", 512, 8, "prefill", {}, 22),
+    (ARCH, "decode_b8", 544, 8, "decode", {}, 0),
+    (SSM_ARCH, "train_b4", 512, 4, "train", {}, 0),
+    (HYBRID, "train_b2", 512, 2, "train", {"num_layers": 12}, 4),
+    (VLM, "train_mb2", 512, 2, "train",
+     {"num_layers": 1, "train_microbatches": 2}, 4),
+)
+# step 19 (b): the production cells traced on the 16x16 fake world, all
+# at once, one subprocess each
+DRY_WORLD_CELLS = ((ARCH, "train_4k"), (SSM_ARCH, "train_4k"),
+                   (HYBRID, "train_4k"), (SSM_ARCH, "long_500k"),
+                   (HYBRID, "long_500k"), (BIG_MOE, "train_4k"),
+                   (VLM, "train_4k"))
 # the card's peak over a step (``max_memory_allocated`` above what was
 # allocated before it, plus the arguments) against the dry run's
 # live-bytes estimate: the caching allocator rounds each block up to 512
@@ -3680,10 +3711,15 @@ DRY_FLASH = {"train": 44, "prefill": 22, "decode": 0}
 # 700 W; the cuBLAS workspace is allocated by the warm-up, before the
 # measured call)
 DRY_MEM_RTOL = 1e-2
+# step 19 (b)'s subprocesses, from the start of step 19 (they run beside
+# (a); started together on the card's host they took 30-63 s)
+DRY_WORLD_TIMEOUT = 400.0
 
 
-def dryrun_phase(torch, fa, pa, ssd, dev, smi):
-    """Step 19: the dry run and the roofline (module docstring)."""
+def dryrun_phase(torch, F, fa, pa, ssd, dev, smi):
+    """Step 19: the dry run and the roofline (module docstring). Returns
+    the kernels-line entries of the flash shapes its training cells
+    launch."""
     import gc
 
     from repro_torch.configs.base import ShapeConfig
@@ -3694,14 +3730,30 @@ def dryrun_phase(torch, fa, pa, ssd, dev, smi):
     counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
     print(f"step 19, the dry run and the roofline, on {smi}")
     t0 = time.perf_counter()
-    extra = {"param_dtype": "bfloat16"}
-    cfg = get_config(ARCH).replace(**extra)
-    for label, S, B, kind in DRY_CELLS:
+    # (b)'s traces need no card: started first, they run beside (a)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape_name in DRY_WORLD_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape_name, "--mesh", "16x16", "--force"]
+        (dryrun.RESULTS_DIR / f"{arch}__{shape_name}__16x16.json").unlink(
+            missing_ok=True)
+        procs.append((arch, shape_name, cmd, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    flash_train = {}
+    for arch, label, S, B, kind, over, flash in DRY_CELLS:
+        extra = dict({"param_dtype": "bfloat16"}, **over)
+        cfg = get_config(arch).replace(**extra)
         shape = ShapeConfig(label, S, B, kind)
-        rec = dryrun.lower_cell(ARCH, shape, "1", extra_cfg=extra)
+        rec = dryrun.lower_cell(arch, shape, "1", extra_cfg=extra)
         model = Model(cfg)
         step, args = dryrun.build_cell(model, shape, device=dev, seed=0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         step(*args)                    # warm-up: kernels, cuBLAS workspace
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t]
         gc.collect()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -3714,23 +3766,28 @@ def dryrun_phase(torch, fa, pa, ssd, dev, smi):
         gc.collect()
         peak = (torch.cuda.max_memory_allocated() - base
                 + rec["memory"]["argument_bytes"])
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            step(*args)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
+        # tinyllama's wall is the median of 3 steps after the warm-up; the
+        # other archs' steps take seconds (AdamW's row scans of their
+        # embeddings or unembeddings), so theirs is the warm-up's
+        if arch == ARCH:
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(*args)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
         wall = statistics.median(walls)
         terms = roofline.cell_terms(rec, 1, shape=shape)
         est = rec["memory"]["peak_estimate_bytes"]
         mem_rel = (peak - est) / est
-        print(f"(a) {ARCH} {label} ({B} x {S}): meta flops "
-              f"{rec['flops_per_device']:.6e} bytes "
+        print(f"(a) {arch} {label} ({B} x {S}, {over or 'full depth'}): "
+              f"meta flops {rec['flops_per_device']:.6e} bytes "
               f"{rec['bytes_per_device']:.6e} (trace {rec['trace_s']} s); "
               f"card flops {card['flops']:.6e} bytes {card['bytes']:.6e}; "
               f"collectives {card['collectives']}; launches (flash, paged, "
-              f"ssd) {launches}")
+              f"ssd) {launches}, meta kernel regions "
+              f"{rec['kernel_regions']}")
         print(f"(a) {label}: peak measured {peak / 2**30:.3f} GiB vs "
               f"estimate {est / 2**30:.3f} GiB ({peak - est:+d} bytes, rel "
               f"{mem_rel:+.2e}; "
@@ -3743,7 +3800,7 @@ def dryrun_phase(torch, fa, pa, ssd, dev, smi):
               f"{terms['roofline_fraction']:.4f}, bound / wall "
               f"{terms['bound_step_s'] / wall:.4f}, useful ratio "
               f"{terms['useful_ratio']:.4f}")
-        if kind == "train":
+        if kind == "train" and arch == ARCH:
             print(f"(a) {label}: model_flops (6 N D) "
                   f"{terms['model_flops']:.6e}, _train_flops "
                   f"{_train_flops(cfg, B, S):.6e}, counted "
@@ -3751,46 +3808,81 @@ def dryrun_phase(torch, fa, pa, ssd, dev, smi):
         assert card["flops"] == rec["flops_per_device"], label
         assert card["bytes"] == rec["bytes_per_device"], label
         assert not card["collectives"] and not rec["collectives"], label
-        assert launches == (DRY_FLASH[kind], 0, 0), (label, launches)
-        assert abs(mem_rel) <= DRY_MEM_RTOL, (label, mem_rel)
+        assert launches == (flash, 0, 0), (arch, label, launches)
+        assert rec["kernel_regions"].get("flash_attention", 0) == flash
+        assert abs(mem_rel) <= DRY_MEM_RTOL, (arch, label, mem_rel)
         assert terms["bound_step_s"] <= wall, (label, terms, wall)
-        _dry_line(label, flops=rec["flops_per_device"], card_equal=True,
-                  flash=launches[0], peak_gib=round(peak / 2**30, 3),
-                  est_gib=round(est / 2**30, 3), wall_ms=round(wall * 1e3, 2),
+        if kind == "train" and arch != ARCH:
+            flash_train[arch] = launches[0]
+        _dry_line(f"{arch} {label}", flops=rec["flops_per_device"],
+                  card_equal=True, flash=launches[0],
+                  peak_gib=round(peak / 2**30, 3),
+                  est_gib=round(est / 2**30, 3), mem_rel=f"{mem_rel:+.2e}",
+                  wall_ms=round(wall * 1e3, 2),
                   bound_ms=round(terms["bound_step_s"] * 1e3, 3))
         del step, args, card
         gc.collect()
         torch.cuda.empty_cache()
     print(f"step 19 (a) done at {time.perf_counter() - t0:.1f} s")
+    hy, vl = get_config(HYBRID), get_config(VLM)
+    lines = [
+        _kernel_line("flash_attention D80 (zamba2-2.7b training, B 2, 32/32 "
+                     "heads, S 512)", *FLASH_SRC, flash_train[HYBRID],
+                     *_flash_line(flash_at(
+                         torch, F, fa, dev, 2, hy.num_heads,
+                         hy.num_kv_heads, 512, 80, 91,
+                         f"{HYBRID} training (step 19)", smi))),
+        _kernel_line("flash_attention D128 (qwen2-vl-72b training "
+                     "microbatch, B 1, 64/8 heads, S 512)", *FLASH_SRC,
+                     flash_train[VLM], *_flash_line(flash_at(
+                         torch, F, fa, dev, 1, vl.num_heads,
+                         vl.num_kv_heads, 512, 128, 92,
+                         f"{VLM} training (step 19)", smi)))]
 
-    t = time.perf_counter()
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
-           "--shape", "train_4k", "--mesh", "16x16", "--force"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=300)
-    sub_s = time.perf_counter() - t
-    out = dryrun.RESULTS_DIR / f"{ARCH}__train_4k__16x16.json"
-    print(f"(b) {' '.join(cmd[1:])}: rc {proc.returncode} in {sub_s:.1f} s")
-    if proc.returncode:
-        print(proc.stdout[-3000:], proc.stderr[-3000:])
-    assert proc.returncode == 0
-    rec = json.loads(out.read_text())
-    assert "error" not in rec, rec.get("error")
-    terms = roofline.cell_terms(rec, dryrun.CHIPS["16x16"])
-    coll = {k: v["wire_bytes"] for k, v in rec["collectives"].items()}
-    print(f"(b) {ARCH} train_4k on 16x16 (256 fake ranks): per device "
-          f"flops {rec['flops_per_device']:.6e}, bytes "
-          f"{rec['bytes_per_device']:.6e}, collective bytes {coll}, peak "
-          f"{rec['memory']['peak_estimate_bytes'] / 2**30:.3f} GiB, "
-          f"dominant {terms['dominant']} (compute {terms['compute_s']:.4f}"
-          f" s, memory {terms['memory_s']:.4f} s, collective "
-          f"{terms['collective_s']:.4f} s), useful ratio "
-          f"{terms['useful_ratio']:.4f}, trace_s {rec['trace_s']}")
-    _dry_line("train_4k 16x16", trace_s=rec["trace_s"],
-              subprocess_s=round(sub_s, 1), dominant=terms["dominant"],
-              peak_gib=round(rec["memory"]["peak_estimate_bytes"] / 2**30, 3))
+    # (b) the production cells on the 16x16 fake world, started above
+    failed = []
+    for arch, shape_name, cmd, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=max(
+                30.0, DRY_WORLD_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        sub_s = time.perf_counter() - t0
+        print(f"(b) {' '.join(cmd[1:])}: rc {proc.returncode} by "
+              f"{sub_s:.1f} s into step 19")
+        path = dryrun.RESULTS_DIR / f"{arch}__{shape_name}__16x16.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        if proc.returncode or "error" in rec or not rec:
+            print(out[-2000:], err[-2000:], rec.get("traceback", ""))
+            failed.append((arch, shape_name))
+            continue
+        terms = roofline.cell_terms(rec, dryrun.CHIPS["16x16"])
+        coll = {k: v["wire_bytes"] for k, v in rec["collectives"].items()}
+        print(f"(b) {arch} {shape_name} on 16x16 (256 fake ranks): per "
+              f"device flops {rec['flops_per_device']:.6e}, bytes "
+              f"{rec['bytes_per_device']:.6e}, collective bytes {coll}, "
+              f"peak {rec['memory']['peak_estimate_bytes'] / 2**30:.3f} "
+              f"GiB, dominant {terms['dominant']} (compute "
+              f"{terms['compute_s']:.4f} s, memory {terms['memory_s']:.4f} "
+              f"s, collective {terms['collective_s']:.4f} s), useful ratio "
+              f"{terms['useful_ratio']:.4f}, trace_s {rec['trace_s']}")
+        _dry_line(f"{arch} {shape_name} 16x16", trace_s=rec["trace_s"],
+                  flops=rec["flops_per_device"],
+                  bytes=rec["bytes_per_device"], wire=coll,
+                  dominant=terms["dominant"],
+                  peak_gib=round(rec["memory"]["peak_estimate_bytes"]
+                                 / 2**30, 3))
+    print(f"(b) {len(procs)} cells done {time.perf_counter() - t0:.1f} s "
+          f"into step 19")
+    assert not failed, failed
     print(f"step 19 took {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def _flash_line(r) -> tuple:
+    """``flash_at``'s result as ``_kernel_line``'s last arguments."""
+    return r["err"], r["ms"], r["plain_ms"], r["bound"], r["lib_ms"]
 
 
 def _dry_line(label, **kw):
@@ -3866,7 +3958,7 @@ def main() -> int:
     harness = harness_phase(torch, fa, pa, ssd, dev, smi)
     mesh = mesh_phase(torch, fa, pa, ssd, dev, smi)
     sharding_phase(torch, fa, pa, ssd, dev, smi)
-    dryrun_phase(torch, fa, pa, ssd, dev, smi)
+    dry = dryrun_phase(torch, F, fa, pa, ssd, dev, smi)
     done("14-19")
 
     q, k, v = flash["inputs"]
@@ -3962,7 +4054,7 @@ def main() -> int:
         train_kernel(torch, fa, tr),
         fold,
     ] + tile_lines(dse["tiles"], dse["serve_tiles"]) + fam["lines"] + \
-        harness + [mesh]
+        harness + [mesh] + dry
     for kn in kernels:
         print(f"{kn['name']}: {kn['ms'] * 1e3:.1f} us (bound "
               f"{kn['bound_ms'] * 1e3:.2f} us by {kn['bound_by']}), plain "

@@ -176,11 +176,59 @@ def sub_mesh(mesh, axes: Sequence[str]):
     return _SUBMESHES[key]
 
 
+# (mesh, axes) -> (mesh, the mesh with its dims in that order)
+_ORDERED: Dict[Tuple[Any, Tuple[str, ...]], Tuple[Any, Any]] = {}
+
+
+def ordered_mesh(mesh, axes: Sequence[str]):
+    """A ``DeviceMesh`` over the same ranks as ``mesh`` with its dims in
+    the order ``axes`` (a permutation of its names): rank r keeps its
+    coordinate on every named axis, and each dim's process groups span
+    the ranks they span on ``mesh``. Built once (every rank together:
+    it creates process groups) and cached."""
+    names, axes = tuple(mesh.mesh_dim_names), tuple(axes)
+    if axes == names:
+        return mesh
+    if sorted(axes) != sorted(names):
+        raise ValueError(f"{axes} is no order of the mesh axes {names}")
+    key = (mesh, axes)
+    held = _ORDERED.get(key)
+    if held is None or held[0] is not mesh:  # an equal mesh of a world gone
+        from torch.distributed.device_mesh import DeviceMesh
+        perm = [names.index(a) for a in axes]
+        held = _ORDERED[key] = (mesh, DeviceMesh(
+            mesh.device_type, mesh.mesh.permute(perm), mesh_dim_names=axes))
+    return held[1]
+
+
+def forget_dtensor_plans() -> None:
+    """Drop DTensor's cached sharding decisions (its Python caches and
+    its C++ dispatch's). They are keyed by op schemas whose meshes
+    compare equal across worlds, so a later world of the same shape
+    would get a gone world's mesh and process groups; and a decision
+    cached for one op is reused for a later op whose key is equal but
+    for which a fresh decision differs, so what a step runs (and a dry
+    run counts) would depend on what ran before it in the process."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for cached in (getattr(prop, "propagate_op_sharding", None),
+                   getattr(prop, "_propagate_tensor_meta_cached", None),
+                   getattr(_redistribute, "_gen_transform_infos", None)):
+        if hasattr(cached, "cache_clear"):
+            cached.cache_clear()
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                     None)
+    if native is not None:
+        native()
+
+
 def forget_mesh(mesh) -> None:
     """Drop ``sub_mesh``'s cached sub-meshes of ``mesh`` (its process
     group is going away)."""
-    for key in [k for k in _SUBMESHES if k[0] is mesh]:
-        del _SUBMESHES[key]
+    for cache in (_SUBMESHES, _ORDERED):
+        for key in [k for k in cache if k[0] is mesh]:
+            del cache[key]
 
 
 def placement_mesh():
@@ -250,9 +298,12 @@ def group_name(axis: Axes) -> str:
                 f"world")
         name = dist.group.WORLD.group_name
     else:
-        raise NotImplementedError(
-            f"a collective over the mesh axes {axes} (some, not all, of "
-            f"{env.axes}) needs a flattened sub-mesh group; not ported")
+        # some, not all, of the mesh's axes (a psum over ("pod", "data")
+        # on the 2x16x16 mesh): the group of the sub-mesh of those axes
+        # flattened into one (made once, every rank together), its ranks
+        # in the mesh's order, as the whole world's are above
+        sub = tuple(a for a in env.axes if a in axes)
+        name = env.mesh[sub]._flatten().get_group().group_name
     _GROUP_AXES[name] = axes
     return name
 
@@ -273,6 +324,16 @@ def is_permute() -> bool:
 def is_dtensor(x) -> bool:
     """Is ``x`` a DTensor? (Without importing ``torch.distributed``.)"""
     return type(x) is not torch.Tensor and hasattr(x, "placements")
+
+
+def contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (worked out, not
+    allocated: an allocation would be counted by a dry run)."""
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= int(n)
+    return tuple(reversed(out))
 
 
 def zeros_like(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

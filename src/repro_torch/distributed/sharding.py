@@ -17,9 +17,23 @@ dimension; a dimension its axes do not divide is replicated) and
 ``placements`` maps a spec onto the mesh: a dimension sharded over a
 tuple of axes is ``Shard(i)`` on each of them, the first the outermost
 (JAX's ``("pod", "data")`` is pod-major, and so is DTensor's order of
-mesh dims when the tuple follows the mesh's order; a tuple against the
-mesh's order, ``SERVE_LONG_RULES``' ``("model", "data")`` on a
-``("data", "model")`` mesh, raises).
+mesh dims when the tuple follows the mesh's order).
+
+A tuple against the mesh's order, ``SERVE_LONG_RULES``' ``kv_seq:
+("model", "data")`` on a ``("data", "model")`` mesh, is model-major in
+JAX: the sequence's block ``m * n_data + d`` sits at (data d, model m).
+DTensor orders a dimension's shards by mesh dim, so ``mesh_for`` gives
+such a rule set a mesh over the same ranks with its dims reordered
+(``compat.ordered_mesh``: ("model", "data"), or ("pod", "model",
+"data")), and the step runs there: every rank keeps its coordinate on
+each named axis, so every other spec places each block where it was.
+What it costs: one more set of process groups (one a mesh dim, over the
+same rank sets as the mesh's own; made once, by every rank together),
+and the step's DTensors live on that mesh alone, so its parameters,
+cache and batch are placed there, not on the mesh of the training rules.
+(DTensor's ``_StridedShard`` describes the same layout on the mesh as it
+is, but few of its operations' rules take it; ``placements`` still
+raises for a tuple against the order of the mesh it is given.)
 
 Plain tensors meet DTensors everywhere in the model (positions, masks,
 index tensors, the zeros of a cache): the port treats every plain tensor
@@ -197,6 +211,23 @@ def to_pspec(axes: Sequence[Any], rules: Dict[str, Any],
     return P(*parts)
 
 
+def mesh_for(mesh, rules: Optional[Dict[str, Any]]):
+    """``mesh`` (a ``DeviceMesh``) with its dims in an order every
+    multi-axis rule of ``rules`` follows (the module docstring): ``mesh``
+    itself when its own order does, or without rules or a mesh."""
+    if mesh is None or rules is None or isinstance(mesh, (dict,
+                                                          compat.MeshEnv)):
+        return mesh
+    names = _axis_names(mesh)
+    order = list(names)
+    for v in rules.values():
+        if isinstance(v, (tuple, list)):
+            axes = [a for a in v if a in names]
+            for i, a in zip(sorted(order.index(a) for a in axes), axes):
+                order[i] = a
+    return compat.ordered_mesh(mesh, order)
+
+
 def placements(spec: Optional[P], mesh, ndim: Optional[int] = None):
     """DTensor placements of ``spec`` on ``mesh`` (a ``DeviceMesh``): per
     mesh dim, ``Shard(i)`` for the tensor dim ``i`` its axis shards, else
@@ -211,7 +242,7 @@ def placements(spec: Optional[P], mesh, ndim: Optional[int] = None):
             raise NotImplementedError(
                 f"dimension {i} sharded over {axes}, against the mesh's "
                 f"order {names}: DTensor orders a dimension's shards by "
-                f"mesh dim")
+                f"mesh dim (place it on sharding.mesh_for's mesh)")
         for j in idx:
             if mesh.size(j) > 1:    # a size-1 axis splits nothing, and a
                 out[j] = Shard(i)   # Shard there blocks DTensor's views
@@ -273,6 +304,55 @@ def splittable(x, dim: int, n: int):
     return x.redistribute(mesh, want)
 
 
+def pad(x, pads):
+    """``F.pad(x, pads)`` with zeros. A DTensor is padded a block a rank:
+    the padded dims replicated first (a gather where one is sharded),
+    then each rank pads its block, the other placements kept. (Torch
+    2.11's DTensor rule for a pad plans a redistribution past the mesh's
+    dims and fails; a zero pad of a ``Partial`` block sums to the zero
+    pad of the sum.)"""
+    import torch.nn.functional as F
+    if not is_dtensor(x):
+        return F.pad(x, pads)
+    from torch.distributed.tensor import DTensor, Replicate
+    shape = list(x.shape)
+    for i in range(0, len(pads), 2):
+        shape[x.dim() - 1 - i // 2] += pads[i] + pads[i + 1]
+    shape = torch.Size(shape)
+    mesh = x.device_mesh
+    pl = [Replicate() if p.is_shard() and shape[p.dim] != x.shape[p.dim]
+          else p for p in x.placements]
+    if tuple(pl) != tuple(x.placements):
+        x = x.redistribute(mesh, pl)
+    return DTensor.from_local(F.pad(x.to_local(), pads), mesh, pl,
+                              run_check=False, shape=shape,
+                              stride=compat.contiguous_stride(shape))
+
+
+def split_leading(x, k: int):
+    """``x`` (b, ...) as (k, b // k, ...): JAX's microbatch split, each
+    microbatch spread over the mesh dims that spread the batch (as GSPMD
+    spreads it), so a microbatch's rows are split as the batch's were
+    and picking one moves nothing. A DTensor whose dim-0 shards hold
+    whole microbatches is resharded from the microbatch dim to the row
+    dim (an all-to-all); one whose shards cut microbatches is gathered
+    first (``splittable``) and each rank keeps its rows of every
+    microbatch (a slice, no communication)."""
+    b = x.shape[0]
+    shape = (k, b // k) + tuple(x.shape[1:])
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    y = splittable(x, 0, k).reshape(shape)
+    want = [Shard(1) if p.is_shard(0) and (b // k) % mesh.size(j) == 0
+            else yp
+            for j, (p, yp) in enumerate(zip(x.placements, y.placements))]
+    if tuple(want) == tuple(y.placements):
+        return y
+    return y.redistribute(mesh, want)
+
+
 def foldable(x):
     """``x`` with its leading dimensions foldable into one, as a matrix
     product of an (..., K) tensor folds them: each of them but the first
@@ -310,6 +390,34 @@ def fold_matmul(x, w):
     if not is_dtensor(x) and not is_dtensor(w):
         return x @ w
     return _FoldableGrad.apply(foldable(x) @ w)
+
+
+class _PlacedGrad(torch.autograd.Function):
+    """Identity whose backward places the gradient as the value was."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.pl = (y.device_mesh, y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, pl = ctx.pl
+        g = as_dtensor(g, mesh)
+        if tuple(g.placements) == tuple(pl):
+            return g
+        if all(p.is_replicate() for p in g.placements):
+            return place(g.to_local(), mesh, pl)    # its block alone, copied
+        return g.redistribute(mesh, pl)
+
+
+def placed_grad(y):
+    """``y``, whose gradient (a DTensor's) comes back placed as ``y`` is:
+    a reduction's gradient is its output's broadcast, replicated on the
+    mesh dims the reduction summed over, and DTensor would otherwise
+    make what it meets whole there (the loss's label pick over a sharded
+    vocab: a (B, chunk, V) f32 block a rank)."""
+    return _PlacedGrad.apply(y) if is_dtensor(y) else y
 
 
 def gather_rows(table, ids):

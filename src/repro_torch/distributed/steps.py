@@ -48,9 +48,7 @@ def _split_microbatches(batch: Dict[str, Any], k: int) -> Dict[str, Any]:
         b = x.shape[0]
         if b % k:
             raise ValueError(f"batch {b} % microbatches {k}")
-        # a batch sharded wider than k: gathered before it is split
-        return shd.splittable(x, 0, k).reshape((k, b // k) +
-                                               tuple(x.shape[1:]))
+        return shd.split_leading(x, k)
     return {key: split(v) for key, v in batch.items()}
 
 
@@ -108,15 +106,21 @@ def build_train_step(model: Model, tcfg: TrainConfig) -> Callable:
     def grads_of(params, batch):
         if k == 1:
             return value_and_grad(params, batch)
+        mrope = cfg.pos_emb == "mrope" and "positions" in batch
+        if mrope:       # (3, B, S) -> (B, 3, S): split on the batch dim
+            batch = dict(batch, positions=batch["positions"].movedim(0, 1))
         mb = _split_microbatches(batch, k)
         acc_dt = getattr(torch, cfg.grad_accum_dtype)
-        gsum = adamw.tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                                    device=p.device), params)
+        # a DTensor's accumulator is placed as its param (each rank its
+        # block), as JAX's zeros take the params' sharding
+        gsum = adamw.tree_map(lambda p: compat.zeros_like(p, acc_dt), params)
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=adamw.tree_leaves(params)[0].device)
         with scope.named_scope("microbatches"):
-            for i in scope.scan(k):
+            for i in scope.scan(k, same_shapes=True):
                 micro = {key: v[i] for key, v in mb.items()}
+                if mrope:                        # back to (3, B / k, S)
+                    micro["positions"] = micro["positions"].movedim(1, 0)
                 loss, _, g = value_and_grad(params, micro)
                 gsum = adamw.tree_unflatten(gsum, [
                     a + b.to(acc_dt) for a, b in zip(adamw.tree_leaves(gsum),

@@ -222,6 +222,10 @@ def analyze_cell(model: Model, shape: ShapeConfig, mesh=None,
     ``fold_scans``: nothing is computed there)."""
     rules = (shd.filter_rules(_rules_for(shape.name, shape.kind), mesh)
              if mesh is not None else None)
+    mesh = shd.mesh_for(mesh, rules)
+    if mesh is not None:
+        # a cell's count must not depend on the cells traced before it
+        compat.forget_dtensor_plans()
     step, args = build_cell(model, shape, mesh, rules, device, seed)
     meta = torch.device(device).type == "meta"
     with compat.mesh_context(mesh, device=device if meta else None), \
@@ -257,6 +261,7 @@ def lower_cell(arch: str, shape, mesh: str = "16x16",
         "raw_cost_analysis": {"flops": float(cost["raw_flops"]),
                               "bytes_accessed": None},
         "memory": cost["memory"],
+        "kernel_regions": cost["kernel_regions"],
         "param_count": model.param_count(),
     }
 

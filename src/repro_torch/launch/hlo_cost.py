@@ -22,11 +22,27 @@ function once under a counting ``TorchDispatchMode``:
   operations and the collectives of its redistributions, which the mode
   counts. The operations DTensor's sharding propagation runs on fake
   tensors are not counted.
+  Sharding propagation runs operations of its own: on fake tensors
+  (skipped as such), and, for an operation DTensor has no rule for, its
+  decomposition on a one-rank mesh (torch 2.13's
+  ``DecompShardingStrategy``), once per decision it has not cached. Those
+  run quiet (``_quiet_propagation``): counted, they would make a count
+  depend on what ran before it in the process.
 - **Collectives** (the counterpart of ``collectives.parse_collective_bytes``,
   which reads them from HLO text): each functional collective
   (``_c10d_functional``, and the in-place ``c10d`` ones) is priced by
   ``collectives.ring_wire_bytes`` from its result bytes and the size G of
   its process group.
+- **All-to-all.** DTensor moves a dimension's shards to another
+  dimension (``Shard(i)`` -> ``Shard(j)``) by one all-to-all
+  (``_collective_utils.shard_dim_alltoall``); on a mesh of device type
+  cpu (gloo, and the dry run's fake world) it falls back to an
+  all-gather of the whole dimension and a chunk of it, about G times the
+  all-to-all's wire bytes. ``analyze`` recognises the call, whichever
+  route it takes: what runs inside is not counted, and the call counts
+  as the one ``all-to-all`` a card mesh runs (its block's bytes in and
+  out, ring wire bytes ``bytes * (G-1)/G``), so the fake world, a gloo
+  world and a card mesh count it alike.
 - **Loops.** Eager loops run every iteration, so JAX's multiplication by
   ``known_trip_count`` is built in. With ``fold_scans`` (the dry run's,
   on ``meta``, where nothing is computed) a ``scope.scan(n,
@@ -44,11 +60,14 @@ function once under a counting ``TorchDispatchMode``:
 
 ``analyze`` returns JAX's keys, ``flops``, ``bytes``, ``collectives``
 ({kind: {"count", "wire_bytes"}}) and ``collective_wire_bytes``, plus
-``matmul_flops`` (the products' share of ``flops``), ``raw_flops`` and
-``memory``.
+``matmul_flops`` (the products' share of ``flops``), ``raw_flops``,
+``memory`` and ``kernel_regions`` ({wrapper name: calls}: the kernel
+launches the same step makes on the card, where each call launches).
 """
 from __future__ import annotations
 
+import contextlib
+import sys
 import weakref
 from collections import defaultdict
 from typing import Any, Callable, Dict, Tuple
@@ -134,14 +153,32 @@ class _Counter(TorchDispatchMode):
         self.coll: Dict[str, Dict[str, float]] = defaultdict(
             lambda: {"count": 0, "wire_bytes": 0.0})
         self.depth = 0                   # inside a kernel region
+        self.quiet = False               # inside an all-to-all: no count
         self.live = _Live()
+        self.regions: Dict[str, int] = defaultdict(int)   # kernel calls
         from torch.distributed.tensor import DTensor
         from torch._subclasses.fake_tensor import FakeTensor
         from torch.utils.flop_counter import flop_registry
         self._dtensor, self._fake, self._raw = DTensor, FakeTensor, \
             flop_registry
 
+    def alltoall(self, x: torch.Tensor, out: torch.Tensor,
+                 group_size: int) -> None:
+        """One all-to-all of this rank's block ``x`` into ``out``."""
+        self.live.add(out)
+        if self.depth:
+            return
+        n_in, n_out = (t.numel() * t.element_size() for t in (x, out))
+        self.flops += self.mult * out.numel()
+        self.bytes += self.mult * (n_in + n_out)
+        rec = self.coll["all-to-all"]
+        rec["count"] += self.mult
+        rec["wire_bytes"] += self.mult * ring_wire_bytes(
+            "all-to-all", n_out, group_size)
+
     def kernel(self, name, cost, plan=None):
+        if not self.depth:
+            self.regions[name] += self.mult
         return _Region(self, cost)
 
     def _fold_scan(self, n: int):
@@ -160,6 +197,8 @@ class _Counter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.quiet:
+            return func(*args, **kwargs)
         if any(issubclass(t, self._dtensor) for t in types):
             return NotImplemented        # DTensor runs the local ops
         out = func(*args, **kwargs)
@@ -221,11 +260,83 @@ class _Region:
         return False
 
 
+@contextlib.contextmanager
+def _one_alltoall(counter: _Counter):
+    """DTensor's ``shard_dim_alltoall``, wherever it is bound, counted as
+    one all-to-all (the module docstring)."""
+    from torch.distributed.tensor import _collective_utils as cu
+    orig = cu.shard_dim_alltoall
+
+    def counted(*args, **kwargs):
+        # (input, gather_dim, shard_dim, mesh, mesh_dim), by position or
+        # by name
+        x = kwargs.get("input", args[0] if args else None)
+        mesh = kwargs.get("mesh", args[3] if len(args) > 3 else None)
+        mesh_dim = kwargs.get("mesh_dim", args[4] if len(args) > 4 else None)
+        quiet, counter.quiet = counter.quiet, True
+        try:
+            out = orig(*args, **kwargs)
+            if out.untyped_storage().nbytes() > \
+                    out.numel() * out.element_size():
+                out = out.clone()    # the fallback's chunk of its gather:
+        finally:                     # the card's output holds its block
+            counter.quiet = quiet
+        if not quiet:
+            counter.alltoall(x, out, mesh.size(mesh_dim))
+        return out
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("torch.distributed.tensor")
+            and getattr(m, "shard_dim_alltoall", None) is orig]
+    for m in mods:
+        m.shard_dim_alltoall = counted
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.shard_dim_alltoall = orig
+
+
+@contextlib.contextmanager
+def _quiet_propagation(counter: _Counter):
+    """DTensor's sharding propagation, where it runs operations (the
+    output's tensor meta; a decomposition-based rule), counts nothing."""
+    import importlib
+    sites = []
+    for mod, cls, name in (
+            ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+             "_propagate_tensor_meta_non_cached"),
+            ("torch.distributed.tensor._decompositions",
+             "DecompShardingStrategy", "propagate_strategy")):
+        try:
+            owner = getattr(importlib.import_module(mod), cls)
+        except (ImportError, AttributeError):
+            continue                         # not in this torch
+        orig = owner.__dict__.get(name)
+        if orig is None:
+            continue
+
+        def quiet(*args, _orig=orig, **kwargs):
+            was, counter.quiet = counter.quiet, True
+            try:
+                return _orig(*args, **kwargs)
+            finally:
+                counter.quiet = was
+        setattr(owner, name, quiet)
+        sites.append((owner, name, orig))
+    try:
+        yield
+    finally:
+        for owner, name, orig in sites:
+            setattr(owner, name, orig)
+
+
 def analyze(fn: Callable, *args, fold_scans: bool = False,
             **kwargs) -> Dict[str, Any]:
     """Run ``fn(*args, **kwargs)`` once and count it, per device (see the
     module docstring; ``fold_scans`` there). Returns {"flops", "bytes", "collectives",
-    "collective_wire_bytes", "matmul_flops", "raw_flops", "memory":
+    "collective_wire_bytes", "matmul_flops", "raw_flops",
+    "kernel_regions", "memory":
     {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
     "peak_estimate_bytes"}, "result"}: ``result`` is what ``fn``
     returned."""
@@ -233,7 +344,7 @@ def analyze(fn: Callable, *args, fold_scans: bool = False,
     arg_st = _Live.storages((args, kwargs))
     for t in _leaves((args, kwargs)):
         counter.live.add(t)
-    with counter:
+    with counter, _one_alltoall(counter), _quiet_propagation(counter):
         result = fn(*args, **kwargs)
     out_st = _Live.storages(result)
     argument = sum(arg_st.values())
@@ -249,6 +360,7 @@ def analyze(fn: Callable, *args, fold_scans: bool = False,
                                            for v in coll.values())),
         "matmul_flops": int(counter.matmul_flops),
         "raw_flops": int(counter.raw_flops),
+        "kernel_regions": dict(sorted(counter.regions.items())),
         "memory": {
             "argument_bytes": int(argument),
             "output_bytes": int(output),

@@ -94,6 +94,8 @@ def fake_world(world_size: int, rank: int = 0):
     Raises if a process group exists already."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.distributed import compat
     if dist.is_initialized():
         raise RuntimeError("a fake world needs a process with no process "
                            "group")
@@ -103,6 +105,7 @@ def fake_world(world_size: int, rank: int = 0):
         yield
     finally:
         dist.destroy_process_group()
+        compat.forget_dtensor_plans()
 
 
 @contextlib.contextmanager

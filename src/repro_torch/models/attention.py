@@ -110,7 +110,7 @@ def causal_attend(q, k, v, cfg: ModelConfig, q_offset: int = 0):
                              v.transpose(1, 2).contiguous(),
                              causal=True, q_offset=q_offset).transpose(1, 2)
     if Hp != H:
-        o = F.pad(o, (0, 0, 0, Hp - H))
+        o = shd.pad(o, (0, 0, 0, Hp - H))
     return o
 
 
@@ -266,7 +266,7 @@ def attn_train(params, x, positions, cfg: ModelConfig):
         H, Hp = cfg.num_heads, q.shape[2]
         o = causal_flash(q[:, :, :H], k, v, cfg.attn_chunk, cfg.attn_chunk)
         if Hp != H:
-            o = F.pad(o, (0, 0, 0, Hp - H))
+            o = shd.pad(o, (0, 0, 0, Hp - H))
     with scope.named_scope("out_proj"):
         o = shard(o.to(x.dtype), "batch", "seq", "q_heads", "head_dim")
         out = out_proj(o, params["wo"])
@@ -328,6 +328,6 @@ def attn_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig):
     with scope.named_scope("out_proj"):
         o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H, HD).to(x.dtype)
         if Hp != H:
-            o = F.pad(o, (0, 0, 0, Hp - H))
+            o = shd.pad(o, (0, 0, 0, Hp - H))
         out = out_proj(o, params["wo"])
     return shard(out, "batch", "seq", None), cache_k, cache_v

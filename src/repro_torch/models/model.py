@@ -32,7 +32,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import scope
 from repro_torch.distributed.sharding import (fold_matmul, gather_rows,
-                                               is_dtensor, shard)
+                                               is_dtensor, placed_grad,
+                                               shard)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.frontends import frontend_input_specs
 from repro_torch.models import ssm as ssm_mod
@@ -206,10 +207,12 @@ class Model:
                     + m[..., 0]
                 if is_dtensor(logits):
                     # vocab-sharded: each rank picks the label's column
-                    # from its block, the others add exact zeros
-                    hit = torch.arange(V, device=x_.device) == \
-                        l_.long()[..., None]
-                    ll = torch.where(hit, logits, 0.0).sum(-1)
+                    # from its block, the others add exact zeros; the
+                    # iota is sharded as the vocab is, so the one-hot is
+                    # made a block a rank
+                    iota = shard(torch.arange(V, device=x_.device), "vocab")
+                    hit = iota == l_.long()[..., None]
+                    ll = placed_grad(torch.where(hit, logits, 0.0)).sum(-1)
                 else:
                     ll = torch.gather(logits, -1, l_.long()[..., None])[..., 0]
                 return torch.sum(logz - ll), torch.sum(torch.square(logz))
@@ -266,7 +269,11 @@ class Model:
                                     self.cfg)
         with scope.named_scope("last_logits"):
             logits = self._logits(p, x[:, -1])
-        return logits, cache, torch.argmax(logits, dim=-1).to(torch.int32)
+        # the vocab dim counted from the front: DTensor's argmax over a
+        # sharded dim fails for dim=-1 at one row a rank (torch 2.13's
+        # all-gather reshapes a negative gather dim wrongly)
+        nxt = torch.argmax(logits, dim=logits.dim() - 1)
+        return logits, cache, nxt.to(torch.int32)
 
     # --------------------------------------------------------- dry specs
     def input_specs(self, shape: ShapeConfig, device="meta"

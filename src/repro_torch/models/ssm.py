@@ -28,7 +28,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
-from repro_torch.distributed.sharding import fold_matmul, shard
+from repro_torch.distributed.sharding import (axis_rules, fold_matmul,
+                                              is_dtensor, pad, placed_grad,
+                                              shard)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import Param, rmsnorm
 
@@ -66,7 +68,7 @@ def _causal_conv(x, w, b):
     K = w.shape[0]
     out = x * w[-1]
     for k in range(1, K):
-        shifted = F.pad(x, (0, 0, k, 0))[:, :-k]
+        shifted = pad(x, (0, 0, k, 0))[:, :-k]
         out = out + shifted * w[-1 - k]
     return out + b
 
@@ -134,6 +136,35 @@ def ssd_chunked(x, a, b, c, chunk: int, h_per_g: int):
     x: (B, L, h, p), already discretized (x * dt); a: (B, L, h) f32, <= 0;
     b, c: (B, L, g, n) with h = g * h_per_g. Returns (y (B, L, h, p) in
     x's dtype, final state (B, g, e, p, n) f32)."""
+    y, final = _ssd_heads(x, a, b, c, chunk, h_per_g)
+    return y, final.reshape(x.shape[0], b.shape[2], h_per_g,
+                            *final.shape[2:])
+
+
+def _ssd_heads(x, a, b, c, chunk: int, h_per_g: int):
+    """``ssd_chunked`` with the final state as (B, h, p, n). On DTensors
+    (under sharding rules) it runs per rank through ``kernels.ops.
+    local_call``, batch and heads sharded as the inputs are, each rank
+    passed the B / C groups its heads read: the scan's math is
+    independent across sequences and heads, and DTensor's einsum cannot
+    view the head dimension its shards cut (JAX's GSPMD keeps it sharded
+    through all four products)."""
+    if not any(is_dtensor(t) for t in (x, a, b, c)):
+        return _ssd_local(x, a, b, c, chunk, h_per_g)
+    # heads split over their axis as JAX's constraints split them (DTensor
+    # may bring them here whole: torch 2.11 gathers the in_proj's split)
+    x = shard(x, "batch", "seq", "ssm_heads", "ssm_head_dim")
+    a = shard(a, "batch", "seq", "ssm_heads")
+
+    def body(x, a, b, c):
+        with axis_rules(None):               # plain blocks: no placements
+            return _ssd_local(x, a, b, c, chunk, x.shape[2] // b.shape[2])
+    return kops.local_call(body, (x, a, b, c),
+                           [(0, 2, False), (0, 2, False), (0, 2, True),
+                            (0, 2, True)], [(0, 2), (0, 1)], ratio=h_per_g)
+
+
+def _ssd_local(x, a, b, c, chunk: int, h_per_g: int):
     B, L, H, Pd = x.shape
     G, N = b.shape[2], b.shape[3]
     E, dt = h_per_g, x.dtype
@@ -169,7 +200,7 @@ def ssd_chunked(x, a, b, c, chunk: int, h_per_g: int):
         y_off = _dot("bcqgn,bcgepn,bgecq->bcqgep", ce, prev_states.to(dt),
                      state_decay_out.to(dt), dtype=dt)
 
-    return (y_diag + y_off).reshape(B, L, H, Pd), final
+    return (y_diag + y_off).reshape(B, L, H, Pd), final.reshape(B, H, Pd, N)
 
 
 def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
@@ -186,8 +217,10 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
     B, S, _ = x.shape
     di, g, n, h = d["d_inner"], d["groups"], d["d_state"], d["heads"]
     with scope.named_scope("in_proj"):
-        zxbcdt = shard(fold_matmul(x, params["in_proj"]), "batch", "seq",
-                       "ssm_inner")
+        # the gradient comes back split as the product is (torch 2.11
+        # would take the in_proj's gradient from a whole one)
+        zxbcdt = placed_grad(shard(fold_matmul(x, params["in_proj"]),
+                                   "batch", "seq", "ssm_inner"))
     z, xbc_raw, dt = torch.split(zxbcdt, [di, d["conv_dim"], h], dim=-1)
     with scope.named_scope("conv"):
         xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"],
@@ -205,22 +238,20 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
         chunk = (kops.resolve_ssd_chunk(S, d["chunk"],
                                         args=(x_disc, a_disc, b, c))
                  if use_kernel else min(d["chunk"], S))
-        pad = (-S) % chunk
-        if pad:
+        n_pad = (-S) % chunk
+        if n_pad:
             # zero-pad: a=0 (decay 1) with x=0 leaves state/output intact
-            x_disc = F.pad(x_disc, (0, 0, 0, 0, 0, pad))
-            a_disc = F.pad(a_disc, (0, 0, 0, pad))
-            b = F.pad(b, (0, 0, 0, 0, 0, pad))
-            c = F.pad(c, (0, 0, 0, 0, 0, pad))
+            x_disc = pad(x_disc, (0, 0, 0, 0, 0, n_pad))
+            a_disc = pad(a_disc, (0, 0, 0, n_pad))
+            b = pad(b, (0, 0, 0, 0, 0, n_pad))
+            c = pad(c, (0, 0, 0, 0, 0, n_pad))
         if use_kernel:
             y, final_state = kops.ssd_scan(x_disc, a_disc, b, c,
                                            chunk=chunk, h_per_g=h // g,
                                            return_final_state=True)
         else:
-            y, final_state = ssd_chunked(x_disc, a_disc, b, c, chunk,
-                                         h // g)
-            final_state = final_state.reshape(B, h, d["head_dim"], n)
-        if pad:
+            y, final_state = _ssd_heads(x_disc, a_disc, b, c, chunk, h // g)
+        if n_pad:
             y = y[:, :S]
     with scope.named_scope("out"):
         y = y + params["d_skip"][:, None].to(xs.dtype) * xs
@@ -232,7 +263,7 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
         K = d["conv_kernel"]
         # the last K-1 conv inputs; a prompt shorter than that is
         # preceded by the conv's zero history
-        hist = F.pad(xbc_raw, (0, 0, max(0, K - 1 - S), 0))
+        hist = pad(xbc_raw, (0, 0, max(0, K - 1 - S), 0))
         conv_state = hist[:, hist.shape[1] - (K - 1):]
         return out, conv_state, final_state
     return out

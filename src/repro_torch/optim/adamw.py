@@ -28,6 +28,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import scope
 from repro_torch.distributed import compat
 from repro_torch.optim.quantized import (QTensor, dequantize, quantize,
+                                         scale_placements, scales_of,
                                          zeros_like_q)
 
 SCAN_THRESHOLD_BYTES = 128 * 2**20
@@ -83,9 +84,9 @@ def _load_moment(m):
     return m.to(torch.float32)
 
 
-def _store_moment(m32, like):
+def _store_moment(m32, like, row_max=None):
     if isinstance(like, QTensor):
-        return quantize(m32)
+        return quantize(m32, row_max)
     return m32.to(like.dtype)
 
 
@@ -109,17 +110,45 @@ def _blockwise(upd, p, g, m, v):
     so each rank updates its own block of p, g, m and v laid out alike
     (scanning its block's leading axis when the whole leaf is over the
     threshold, as the one-device rule says), and the blocks are the new
-    leaf's. A slice of a sharded dimension would be a gather."""
+    leaf's. A slice of a sharded dimension would be a gather.
+
+    int8 moments: a block's values are placed as p, its scales (one a
+    row) with the last dim replicated (``quantized.scale_placements``).
+    A row of a leaf whose last dim is sharded spans ranks, so each
+    block's max |m| a row is all-reduced (max) over the mesh dims that
+    shard that dim before it becomes the scale, as XLA's sharded
+    reduction does: every rank holds the whole row's scale."""
     from torch.distributed.tensor import DTensor
     mesh, pl = p.device_mesh, p.placements
-    if isinstance(m, QTensor):
-        raise NotImplementedError("int8 moments of a DTensor leaf")
-    blocks = [t.redistribute(mesh, pl).to_local() for t in (p, g, m, v)]
+    spl = scale_placements(p)
+
+    def block(t):
+        if isinstance(t, QTensor):
+            return QTensor(t.q.redistribute(mesh, pl).to_local(),
+                           t.s.redistribute(mesh, spl).to_local())
+        return t.redistribute(mesh, pl).to_local()
+
+    def whole(t):
+        if isinstance(t, QTensor):
+            return QTensor(whole(t.q), scales_of(p, t.s))
+        return DTensor.from_local(t, mesh, pl, run_check=False,
+                                  shape=p.shape, stride=p.stride())
+
+    row_dims = [j for j, q in enumerate(pl)
+                if p.dim() and q.is_shard(p.dim() - 1)]
+
+    def row_max(amax):
+        from torch.distributed import _functional_collectives as funcol
+        for j in row_dims:
+            amax = funcol.wait_tensor(funcol.all_reduce(amax, "max",
+                                                        (mesh, j)))
+        return amax
+
     big = p.dim() >= 2 and p.numel() * p.element_size() > \
         SCAN_THRESHOLD_BYTES
-    return tuple(DTensor.from_local(t, mesh, pl, run_check=False,
-                                    shape=p.shape, stride=p.stride())
-                 for t in upd(*blocks, scanned=big))
+    return tuple(whole(t) for t in upd(
+        *[block(t) for t in (p, g, m, v)], scanned=big,
+        row_max=row_max if row_dims else None))
 
 
 def update(params, grads, state: AdamWState, cfg: TrainConfig,
@@ -134,7 +163,7 @@ def update(params, grads, state: AdamWState, cfg: TrainConfig,
         bc1 = 1.0 - torch.pow(b1, step32)
         bc2 = 1.0 - torch.pow(b2, step32)
 
-        def upd(p, g, m, v):
+        def upd(p, g, m, v, row_max=None):
             g32 = g.to(torch.float32)
             m32 = b1 * _load_moment(m) + (1 - b1) * g32
             v32 = b2 * _load_moment(v) + (1 - b2) * torch.square(g32)
@@ -142,8 +171,8 @@ def update(params, grads, state: AdamWState, cfg: TrainConfig,
             vhat = v32 / bc2
             p32 = p.to(torch.float32)
             p_new = p32 - lr * (mhat / (torch.sqrt(vhat) + eps) + wd * p32)
-            return (p_new.to(p.dtype), _store_moment(m32, m),
-                    _store_moment(v32, v))
+            return (p_new.to(p.dtype), _store_moment(m32, m, row_max),
+                    _store_moment(v32, v, row_max))
 
         def empty_like(x):
             if isinstance(x, QTensor):
@@ -165,15 +194,15 @@ def update(params, grads, state: AdamWState, cfg: TrainConfig,
             return upd_leaf(p, g, m, v, p.dim() >= 2 and p.numel() *
                             p.element_size() > SCAN_THRESHOLD_BYTES)
 
-        def upd_leaf(p, g, m, v, scanned):
+        def upd_leaf(p, g, m, v, scanned, row_max=None):
             if scanned:
                 out = (torch.empty_like(p), empty_like(m), empty_like(v))
                 for i in scope.scan(p.shape[0], same_shapes=True):
                     for dst, src in zip(out, upd(p[i], g[i], at(m, i),
-                                                 at(v, i))):
+                                                 at(v, i), row_max)):
                         put(dst, i, src)
                 return out
-            return upd(p, g, m, v)
+            return upd(p, g, m, v, row_max)
 
         with scope.named_scope("adamw"):
             flat_p = tree_leaves(params)

@@ -12,17 +12,18 @@ arrays):
   metrics of both (the unsharded ones on rank 0 alone), and this rank's
   local blocks of the placed params;
 - ``sharded_decode``: ``build_prefill_step`` + ``build_decode_step``
-  under ``SERVE_RULES`` beside the unsharded steps (logits of every
-  step);
+  under ``SERVE_RULES`` (or ``SERVE_LONG_RULES``, on
+  ``sharding.mesh_for``'s mesh) beside the unsharded steps (logits of
+  every step, this rank's cache blocks);
 - ``sharded_moe``: ``Model.loss_fn`` of a MoE arch with the sharded MoE
   (``moe_apply`` under ``compat.shard_map``) beside the local path, and
   its train step beside the local one;
 - ``sharded_int8``: the ``int8_ef`` train step on a ``pod`` mesh whose
   ``data`` / ``model`` axes are auto-sharded, beside the uncompressed
   sharded step.
-- ``dry_counts``: a dry-run cell (``launch.dryrun.analyze_cell``) of a
-  smoke config on real tensors, counted on this rank, to hold the fake
-  world's meta counts against.
+- ``dry_counts`` / ``dry_counts_many``: dry-run cells
+  (``launch.dryrun.analyze_cell``) of smoke configs on real tensors,
+  counted on this rank, to hold the fake world's meta counts against.
 
 Each takes the mesh and the rank's device; ``checks_rank`` is the rank
 body ``spawn`` runs, several of them on one mesh. Params come from
@@ -48,13 +49,21 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
-RULES = {"train": shd.TRAIN_RULES, "serve": shd.SERVE_RULES}
+RULES = {"train": shd.TRAIN_RULES, "serve": shd.SERVE_RULES,
+         "serve_long": shd.SERVE_LONG_RULES}
 
 
 def _np(tree) -> list:
-    """Leaves (tree order) as numpy (f32 for floats)."""
-    return [t.detach().float().cpu().numpy() if t.is_floating_point()
-            else t.detach().cpu().numpy() for t in adamw.tree_leaves(tree)]
+    """Leaves (tree order) as numpy (f32 for floats); an int8 moment
+    (``QTensor``) gives its values, then its scales."""
+    from repro_torch.optim.quantized import QTensor
+    out = []
+    for t in adamw.tree_leaves(tree):
+        for x in (tuple(t) if isinstance(t, QTensor) else (t,)):
+            x = x.detach().cpu()
+            out.append(x.float().numpy() if x.is_floating_point()
+                       else x.numpy())
+    return out
 
 
 def _batch(cfg, B: int, S: int, seed: int, device) -> Dict[str, Any]:
@@ -141,12 +150,16 @@ def sharded_train(mesh, dev, *, arch: str = "tinyllama-1.1b", B: int = 8,
 
 def sharded_decode(mesh, dev, *, arch: str = "granite-3-2b", B: int = 8,
                    prompt: int = 16, steps: int = 4, cache_len: int = 32,
-                   params_np=None, over: Dict[str, Any] = None
-                   ) -> Dict[str, Any]:
+                   params_np=None, over: Dict[str, Any] = None,
+                   rules: str = "serve") -> Dict[str, Any]:
     """``build_prefill_step`` then ``steps`` greedy steps of
-    ``build_decode_step``, under ``SERVE_RULES`` on ``mesh`` and
-    unsharded: every step's logits (the sharded ones gathered), the ids,
-    the caches compared and their placements."""
+    ``build_decode_step``, under ``rules`` ("serve" or "serve_long", on
+    ``sharding.mesh_for``'s mesh) on ``mesh`` and unsharded: every
+    step's logits (the sharded ones gathered), the ids, the caches
+    compared and their placements, and this rank's block of each cache
+    leaf (with where it starts) and its coordinate on each mesh axis."""
+    rs = RULES[rules]
+    mesh = shd.mesh_for(mesh, shd.filter_rules(rs, mesh))
     model = smoke_model(arch, **dict(dict(kv_cache_dtype="float32"),
                                      **(over or {})))
     cfg = model.cfg
@@ -159,7 +172,7 @@ def sharded_decode(mesh, dev, *, arch: str = "granite-3-2b", B: int = 8,
     def serve(p):
         logits, cache = prefill(p, {"tokens": toks})
         out = [logits]
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.argmax(logits, dim=1).to(torch.int32)   # as decode_step
         ids = [nxt]
         for i in range(steps):
             logits, cache, nxt = decode(
@@ -169,15 +182,18 @@ def sharded_decode(mesh, dev, *, arch: str = "granite-3-2b", B: int = 8,
         return out, ids, cache
 
     with torch.no_grad():
-        with compat.mesh_context(mesh), shd.axis_rules(shd.SERVE_RULES,
-                                                        mesh):
-            p2 = shd.distribute_params(params, model.schema(), mesh,
-                                       shd.SERVE_RULES)
+        with compat.mesh_context(mesh), shd.axis_rules(rs, mesh):
+            p2 = shd.distribute_params(params, model.schema(), mesh, rs)
             l2, i2, c2 = serve(p2)
             placed = {k: str(tuple(v.placements)) for k, v in c2.items()}
+            blocks = {k: (shd.local(v).float().cpu().numpy(),
+                          _offset(v)) for k, v in c2.items()}
             l2, i2, c2 = shd.gather((l2, i2, c2))
+        coords = dict(zip(mesh.mesh_dim_names,
+                          (int(c) for c in mesh.get_coordinate())))
         if not _reference():
-            return dict(placements=placed)
+            return dict(placements=placed, local_cache=blocks,
+                        axis_coords=coords)
         l1, i1, c1 = serve(params)
     V = cfg.vocab_size
     return dict(logits=[[t[:, :V].float().cpu().numpy() for t in l1],
@@ -186,7 +202,10 @@ def sharded_decode(mesh, dev, *, arch: str = "granite-3-2b", B: int = 8,
                      [t.cpu().numpy() for t in i2]],
                 cache_max_diff=max(float((c1[k] - c2[k]).abs().max())
                                    for k in c1),
-                placements=placed)
+                cache_rel={k: float((c1[k] - c2[k]).abs().max() /
+                                    c1[k].abs().max().clamp_min(1e-30))
+                           for k in c1},
+                placements=placed, local_cache=blocks, axis_coords=coords)
 
 
 def sharded_moe(mesh, dev, *, arch: str = "granite-moe-1b-a400m",
@@ -318,6 +337,14 @@ def sharded_kernels(mesh, dev, seed: int = 5) -> Dict[str, Any]:
     return out
 
 
+def _offset(x) -> tuple:
+    """Where this rank's block of a DTensor starts in the whole tensor."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    return tuple(int(o) for o in compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)[1])
+
+
 def _block(x, mesh, pl):
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
@@ -387,14 +414,26 @@ def auto_axes_rank(rank: int, device) -> Dict[str, Any]:
 
 
 def dry_counts(rank: int, dev, arch: str, kind: str, seq: int, batch: int,
-               mesh_shape=(2, 2)) -> Dict[str, Any]:
+               mesh_shape=(2, 2), name: str = None,
+               over: Dict[str, Any] = None) -> Dict[str, Any]:
     """This rank's counts (``hlo_cost.analyze``) of the smoke cell of
-    ``arch`` on a ("data", "model") mesh of ``mesh_shape``, on real
-    tensors (random from seed 0)."""
+    ``arch`` (its config replaced by ``over``) on a ("data", "model")
+    mesh of ``mesh_shape``, on real tensors (random from seed 0).
+    ``name`` is the cell's shape name (the rule set follows it:
+    "long_500k" decodes under ``SERVE_LONG_RULES``), ``kind`` by
+    default."""
     from repro_torch.launch.dryrun import analyze_cell
     mesh = make_mesh(mesh_shape, ("data", "model"))
-    cost = analyze_cell(Model(smoke_config(arch)),
-                        ShapeConfig(kind, seq, batch, kind), mesh, dev)
+    cost = analyze_cell(Model(smoke_config(arch).replace(**(over or {}))),
+                        ShapeConfig(name or kind, seq, batch, kind), mesh, dev)
     return {k: cost[k] for k in ("flops", "bytes", "collectives",
                                  "collective_wire_bytes")}
+
+
+def dry_counts_many(rank: int, dev, cells) -> list:
+    """``dry_counts`` of each cell of ``cells`` [(arch, kind, seq, batch,
+    name, over), ...], in order, one thread a rank."""
+    torch.set_num_threads(1)
+    return [dry_counts(rank, dev, a, k, s, b, name=n, over=o)
+            for a, k, s, b, n, o in cells]
 

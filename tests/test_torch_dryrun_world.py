@@ -64,7 +64,7 @@ def test_fake_world_counts_what_a_gloo_world_runs():
                             mesh)
     assert not dist.is_initialized()
     assert set(fake["collectives"]) == {"all-gather", "all-reduce",
-                                        "reduce-scatter"}
+                                        "all-to-all", "reduce-scatter"}
     ranks = spawn(sharded_ranks.dry_counts, (2, 2),
                   args=("tinyllama-1.1b", "train", 32, 4))
     for r in ranks:
