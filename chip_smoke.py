@@ -16,7 +16,9 @@
    chunk scan) against their plain version (y and the final state) at
    the mamba2-370m serving shape, with two groups and a pipeline of 2,
    and, padded as ssm_apply pads, against the exact recurrence; checks
-   that each row is bitwise invariant to batching;
+   that each row is bitwise invariant to batching, and that the shared
+   memory the SSD search space declares to the DSE budget
+   (``ssd_scan.ssd_smem_bytes``) is the kernels' ``ssd_scan_smem``;
 6. serves tinyllama-1.1b at full width (random weights from a seed)
    through the engine: whole-prompt prefill with the decode kernel,
    chunked prefill, dense decode, and the legacy loop; the launch
@@ -235,9 +237,21 @@
    world of 2 on this card, one DTensor ``Shard(0)`` -> ``Replicate``
    redistribute (an all-gather) of the card's tensors, reported; only if
    it runs, the smoke auto-sharded train step at (1, 2) (head dim 64)
-   against the unsharded one (loss rel 2e-3). One ``sharding [...]`` line
-   a run. It launches flash at shapes the kernels line has, so it adds no
-   entry.
+   against the unsharded one (loss rel 2e-3). (f), after (a): minicpm-
+   2b (36 of 48 q heads real, the pad heads zero) at full width and 2 of
+   40 layers, B 4 x S 512, bf16 master params: the auto-sharded train
+   step under ``TRAIN_RULES`` at (1, 1) against the unsharded step,
+   bitwise (loss, grad norm, params, moments), flash 4 on both (AdamW's
+   scan threshold raised for both, so the embedding is updated whole:
+   (f) holds the step with whole-leaf AdamW only). (g), after (f): what a
+   model rank runs for its own block of arctic-480b's padded q heads on
+   the 16x16 mesh (4 of 64 a rank, B 2 x S 4096, head dim 128): the
+   training flash with its VJP and the prefill's flash, for the block
+   of heads 4-7 (kv heads 0, 1, 1, 1) against the unsharded path with
+   the flash's plain version (FLASH_ATOL, BWD_RTOL), flash launched once
+   each, and for a block of pad heads: zeros, no launch.
+   One ``sharding [...]`` line a run. It launches flash at shapes the
+   kernels line has, so it adds no entry.
 19. the dry run and the roofline (``repro_torch.launch.{dryrun,
    hlo_cost, roofline}``): (a) six one-device cells at full width, bf16
    master params, mesh "1" (no process group): tinyllama-1.1b's train
@@ -264,11 +278,14 @@
    S --mesh 16x16 --force`` (256 fake ranks, no card) for tinyllama's
    train_4k and six cells of the ssm, hybrid, int8-moment and M-RoPE
    archs (mamba2-370m and zamba2-2.7b train_4k and long_500k,
-   arctic-480b and qwen2-vl-72b train_4k), seven subprocesses started
-   together at the start of step 19, beside (a): each rc 0 and a record
-   with no error; one ``dryrun [...]`` line each with its per-
-   device FLOPs, bytes, wire bytes by kind, peak GiB, dominant term and
-   trace seconds.
+   arctic-480b and qwen2-vl-72b train_4k) and of the padded-head minicpm-
+   2b (train_4k, prefill_32k), nine subprocesses started together at the
+   start of step 19, beside (a): each rc 0 and a record with no error,
+   its per-device FLOPs and peak within ``DRY_JAX_FACTOR`` (1.25) of
+   JAX's (``JAX_16X16``: JAX's ``lower_cell`` of the same cell on a CPU
+   host; mamba2's long_500k FLOPs at most JAX's); one ``dryrun [...]``
+   line each with its per-device FLOPs, bytes, wire bytes by kind, peak
+   GiB, both ratios to JAX's, dominant term and trace seconds.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device it exits 1 before printing any result. The last line is
@@ -587,9 +604,26 @@ def rel_err(got, want) -> float:
             / want.float().abs().max()).item()
 
 
+def check_ssd_smem(torch, ssd):
+    """The shared memory the SSD search space declares to the DSE budget
+    (``ssd_scan.ssd_smem_bytes``) against the kernels' own formula
+    (``ssd_scan_smem`` of the built library), for both dtypes, both
+    state dims and chunks of 16 to 4096 steps."""
+    from repro_torch.kernels import _build
+    lib = _build.load("ssd_scan", ssd._SIGNATURES)
+    diff = [(dt, N, Q) for dt, code in ssd.DTYPES.items()
+            for N in (64, 128, 32) for Q in (16, 64, 100, 256, 1024, 4096)
+            if lib.ssd_scan_smem(code, N, Q) != ssd.ssd_smem_bytes(
+                torch.empty((), dtype=dt).element_size(), N, Q)]
+    print(f"ssd shared memory declared to the DSE budget == the kernels' "
+          f"ssd_scan_smem: {not diff} ({diff or 'every case'})")
+    assert not diff, diff
+
+
 def check_ssd(torch, ssd, ssd_ref, dev):
     """The mamba2-370m prefill shape: B=8, L=1024, 32 heads of P=64, one
     group, N=128, chunk 256, bf16."""
+    check_ssd_smem(torch, ssd)
     B, L, H, P, G, N, chunk = 8, 1024, 32, 64, 1, 128, 256
     x, a, b, c = ssd_inputs(torch, dev, B, L, H, P, G, N, seed=2)
     y, st = ssd.ssd_scan(x, a, b, c, chunk=chunk, h_per_g=H // G,
@@ -3376,6 +3410,176 @@ def _sharding_line(label, **kw):
                                                kw.items()), flush=True)
 
 
+# step 18 (f): a config with padded q heads (minicpm-2b: 36 of 48 real),
+# full width at 2 of its 40 layers
+PADDED, PADDED_LAYERS = "minicpm-2b", 2
+
+
+def padded_world1(torch, fa, pa, ssd, dev, smi, batch, mesh, on,
+                  sync_wall):
+    """Step 18 (f): the auto-sharded train step of ``PADDED`` at world 1
+    against its unsharded step, bitwise, with the flash kernel launched
+    (2 a layer: the forward and its remat recompute). At world 1 nothing
+    splits the padded heads, so the step takes the unsharded attention
+    (the kernel over the 36 real heads, the pad heads zero), the path the
+    (1, 1) contract holds; a mesh that splits them runs each rank's real
+    heads alone (``models.attention._rank_heads``, held on 4 gloo ranks
+    in ``tests/test_torch_mesh_contracts.py``). AdamW's scan threshold is
+    raised for both steps, so the 122,753-row embedding is updated whole
+    (a row at a time it would take minutes); the same update on both
+    sides."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.steps import build_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+    cfg = get_config(PADDED).replace(num_layers=PADDED_LAYERS,
+                                     param_dtype="bfloat16")
+    assert cfg.resolved_padded_heads > cfg.num_heads
+    model = Model(cfg)
+    step = build_train_step(model, TrainConfig(total_steps=10,
+                                               warmup_steps=1))
+    params = model.init(0, dev)
+    tokens = {k: v % cfg.vocab_size for k, v in batch.items()}
+    threshold = adamw.SCAN_THRESHOLD_BYTES
+    adamw.SCAN_THRESHOLD_BYTES = 1 << 40
+    try:
+        opt = adamw.init(params, cfg.moment_dtype)
+        step(params, opt, tokens)                           # warm-up
+        _zero(counters)
+        (p1, o1, m1), wall1, _ = sync_wall(lambda: step(params, opt, tokens))
+        plain_launches = _launches(counters)
+        ctx = on(shd.TRAIN_RULES)
+        with ctx[0], ctx[1]:
+            dp = shd.distribute_params(params, model.schema(), mesh,
+                                       shd.TRAIN_RULES)
+            dopt = adamw.init(dp, cfg.moment_dtype)
+            step(dp, dopt, tokens)                          # warm-up
+            _zero(counters)
+            (p2, o2, m2), wall2, _ = sync_wall(lambda: step(dp, dopt, tokens))
+            launches = _launches(counters)
+            p2, o2, m2 = shd.gather((p2, o2, m2))
+    finally:
+        adamw.SCAN_THRESHOLD_BYTES = threshold
+    same = (bool(torch.equal(m1["loss"], m2["loss"])) and
+            bool(torch.equal(m1["grad_norm"], m2["grad_norm"])) and
+            _tree_equal(torch, p1, p2) and _tree_equal(torch, o1.mu, o2.mu)
+            and _tree_equal(torch, o1.nu, o2.nu))
+    want = (2 * cfg.num_layers, 0, 0)
+    print(f"(f) auto-sharded train step {PADDED} full width ({cfg.num_heads}"
+          f" of {cfg.resolved_padded_heads} q heads real), "
+          f"{PADDED_LAYERS} of 40 layers, B {MESH_B} S {MESH_S}, bf16 master "
+          f"params, TRAIN_RULES on (1, 1): loss {float(m2['loss']):.6f}, grad "
+          f"norm {float(m2['grad_norm']):.6f}; == the unsharded step's "
+          f"bitwise: {same}; flash launches {launches}, unsharded "
+          f"{plain_launches} (want {want}); walls: unsharded "
+          f"{wall1 * 1e3:.1f} ms, sharded {wall2 * 1e3:.1f} ms ({smi})")
+    assert same, "the padded-head sharded step differs at world 1"
+    assert launches == plain_launches == want, (launches, plain_launches)
+    _sharding_line(f"train {PADDED} padded heads TRAIN_RULES (1,1)",
+                   wall_ms=round(wall2 * 1e3, 1),
+                   plain_ms=round(wall1 * 1e3, 1), flash=launches[0],
+                   bitwise=same)
+
+
+# step 18 (g): one model rank's blocks of arctic-480b's padded q heads on
+# the 16x16 mesh (56 real of 64, 4 a rank, 7 q heads a kv head): the
+# rank of heads 4-7 (kv heads 0, 1, 1, 1) and a rank of pad heads, at
+# its train_4k microbatch (B 256 / 16 data ranks / 8 microbatches)
+RANK_ARCH, RANK_FIRSTS, RANK_B, RANK_S = "arctic-480b", (4, 56), 2, 4096
+
+
+def padded_rank_blocks(torch, fa, pa, ssd, dev, smi):
+    """Step 18 (g): what a model rank runs for its own block of padded q
+    heads under a mesh that splits them (``models.attention._rank_heads``
+    hands these bodies each rank's block), on the card's tensors: the
+    training flash with its VJP (``_CausalFlash`` with ``heads``) and the
+    prefill's (``_attend_real``), for a block of real heads and a block
+    of pad heads. Held against attention's plain computation on the same
+    inputs: the unsharded path (``causal_flash`` / the flash over all
+    real heads, kv not repeated) with the flash's plain version, its
+    output's heads of the block, and its gradients from a cotangent that
+    is zero outside the block (so kv takes the block's heads' part
+    alone; the other heads add exact zeros). Forward within FLASH_ATOL,
+    gradients within BWD_RTOL of their largest value; the pad block's
+    output and gradients exactly zero. Launches: one a real block's
+    forward, none for a block of pad heads."""
+    from unittest import mock
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention as attn
+    counters = (fa.flash_attention, pa.paged_attention, ssd.ssd_scan)
+    cfg = get_config(RANK_ARCH)
+    H, Hp, n_kv, D = (cfg.num_heads, cfg.resolved_padded_heads,
+                      cfg.num_kv_heads, cfg.resolved_head_dim)
+    n, S, plan = Hp // 16, RANK_S, (cfg.attn_chunk, cfg.attn_chunk)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    q_all, k, v = rnd(RANK_B, S, H, D), rnd(RANK_B, S, n_kv, D), \
+        rnd(RANK_B, S, n_kv, D)
+    dout = rnd(RANK_B, S, n, D)
+    for first in RANK_FIRSTS:
+        real = max(0, min(n, H - first))
+        q = torch.cat([q_all[:, :, first:first + real],
+                       rnd(RANK_B, S, n - real, D)], dim=2)
+        heads = (first, H, cfg.q_per_kv)
+        qk, kk, vk = (t.clone().requires_grad_() for t in (q, k, v))
+        _zero(counters)
+        out = attn._CausalFlash.apply(qk, kk, vk, *plan, heads)
+        train_launches = _launches(counters)
+        got = torch.autograd.grad(out, (qk, kk, vk), dout)
+        _zero(counters)
+        pre = attn._attend_real(q, k, v, heads)[0]
+        pre_launches = _launches(counters)
+        torch.cuda.synchronize()
+        if not real:
+            zero = all(not t.any() for t in (out, pre, *got))
+            print(f"(g) {RANK_ARCH} rank block of pad heads {first}-"
+                  f"{first + n - 1}: output and gradients zero: {zero}; "
+                  f"flash launches train {train_launches}, prefill "
+                  f"{pre_launches} (want 0)")
+            assert zero and train_launches == pre_launches == (0, 0, 0)
+            continue
+        # the plain reference over every real head, the cotangent zero
+        # outside the block
+        d_all = torch.zeros((RANK_B, S, H, D), dtype=dout.dtype, device=dev)
+        d_all[:, :, first:first + real] = dout[:, :, :real]
+        qa = q_all.clone()
+        qa[:, :, first:first + real] = q[:, :, :real]
+        qr, kr, vr = (t.clone().requires_grad_() for t in (qa, k, v))
+        with mock.patch.object(attn.kops, "flash_attention",
+                               fa.flash_attention_plain):
+            ref = attn.causal_flash(qr, kr, vr, *plan)
+            want = torch.autograd.grad(ref, (qr, kr, vr), d_all)
+            ref_pre = attn.causal_attend(qa, k, v, cfg)
+        blk = slice(first, first + real)
+        want = (want[0][:, :, blk], want[1], want[2])
+        err = max((out[:, :, :real].float() - ref[:, :, blk].float())
+                  .abs().max().item(),
+                  (pre[:, :, :real].float() - ref_pre[:, :, blk].float())
+                  .abs().max().item())
+        pads = all(not t[:, :, real:].any() for t in (out, pre, got[0]))
+        g_err = max((a.float() - b.float()).abs().max().item() /
+                    b.float().abs().max().item()
+                    for a, b in zip((got[0][:, :, :real], got[1], got[2]),
+                                    want))
+        kv_of = sorted({(first + i) // cfg.q_per_kv for i in range(real)})
+        print(f"(g) {RANK_ARCH} rank block of q heads {first}-"
+              f"{first + n - 1} (kv heads {kv_of}), B {RANK_B} S {S} D {D}"
+              f": max |kernel - plain| out {err:.3e} (atol {FLASH_ATOL}), "
+              f"gradients max |d| / max |grad| {g_err:.3e} (rtol "
+              f"{BWD_RTOL}); pad heads zero: {pads}; flash launches train "
+              f"{train_launches}, prefill {pre_launches} (want 1 each) "
+              f"({smi})")
+        assert err <= FLASH_ATOL and g_err <= BWD_RTOL and pads, (err, g_err)
+        assert train_launches == pre_launches == (1, 0, 0)
+        assert all(torch.isfinite(g.float()).all() for g in got)
+
+
 def sharding_phase(torch, fa, pa, ssd, dev, smi):
     """Step 18: logical-axis sharding over DTensor. World 1 over NCCL in
     this process, mesh ("data", "model") = (1, 1): (a) the auto-sharded
@@ -3510,6 +3714,15 @@ def sharding_phase(torch, fa, pa, ssd, dev, smi):
         gc.collect()                 # DTensors in cycles: free them now
         torch.cuda.empty_cache()
         print(f"step 18 (a) done at {time.perf_counter() - t0:.1f} s")
+        padded_world1(torch, fa, pa, ssd, dev, smi, batch, mesh, on,
+                      sync_wall)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"step 18 (f) done at {time.perf_counter() - t0:.1f} s")
+        padded_rank_blocks(torch, fa, pa, ssd, dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"step 18 (g) done at {time.perf_counter() - t0:.1f} s")
         # (e) starts now, in its own processes, beside (b)-(d)
         world2 = threading.Thread(target=gloo_world2)
         world2.start()
@@ -3701,7 +3914,26 @@ DRY_CELLS = (
 DRY_WORLD_CELLS = ((ARCH, "train_4k"), (SSM_ARCH, "train_4k"),
                    (HYBRID, "train_4k"), (SSM_ARCH, "long_500k"),
                    (HYBRID, "long_500k"), (BIG_MOE, "train_4k"),
-                   (VLM, "train_4k"))
+                   (VLM, "train_4k"), (PADDED, "train_4k"),
+                   (PADDED, "prefill_32k"))
+# JAX's per-device (FLOPs, peak estimate bytes) of the same cells on the
+# 16x16 mesh: ``repro.launch.dryrun.lower_cell`` (jax 0.9.0 on a CPU host,
+# 512 forced host devices; the JAX package does not run on the card's
+# machine), and the factor each record of (b) must lie within: 1.25 for
+# FLOPs and peaks, mamba2's long_500k decode at most JAX's FLOPs
+JAX_16X16 = {
+    (ARCH, "train_4k"): (4.2246531428079e13, 5762898412),
+    (SSM_ARCH, "train_4k"): (1.6731768919317e13, 3430453676),
+    (HYBRID, "train_4k"): (1.36779747994554e14, 7409552820),
+    (SSM_ARCH, "long_500k"): (2.2621436e7, 18352208),
+    (HYBRID, "long_500k"): (3.612885854e9, 787292052),
+    (BIG_MOE, "train_4k"): (6.51040166292818e14, 36663263068),
+    (VLM, "train_4k"): (2.339773657333781e15, 29571940420),
+    (PADDED, "train_4k"): (1.1471637702012e14, 9578968044),
+    (PADDED, "prefill_32k"): (1.21328954530572e14, 53564926352),
+}
+DRY_JAX_FACTOR = 1.25
+DRY_JAX_FLOPS_FACTOR = {(SSM_ARCH, "long_500k"): 1.0}
 # the card's peak over a step (``max_memory_allocated`` above what was
 # allocated before it, plus the arguments) against the dry run's
 # live-bytes estimate: the caching allocator rounds each block up to 512
@@ -3867,12 +4099,23 @@ def dryrun_phase(torch, F, fa, pa, ssd, dev, smi):
               f"{terms['compute_s']:.4f} s, memory {terms['memory_s']:.4f} "
               f"s, collective {terms['collective_s']:.4f} s), useful ratio "
               f"{terms['useful_ratio']:.4f}, trace_s {rec['trace_s']}")
+        jax_flops, jax_peak = JAX_16X16[(arch, shape_name)]
+        f_max = DRY_JAX_FLOPS_FACTOR.get((arch, shape_name), DRY_JAX_FACTOR)
+        peak = rec["memory"]["peak_estimate_bytes"]
+        vs_jax = (rec["flops_per_device"] / jax_flops, peak / jax_peak)
+        print(f"(b) {arch} {shape_name}: per device flops / JAX's "
+              f"{vs_jax[0]:.4f} (limit {f_max}), peak / JAX's "
+              f"{vs_jax[1]:.4f} (limit {DRY_JAX_FACTOR}); JAX "
+              f"{jax_flops:.6e} FLOP, {jax_peak / 2**30:.3f} GiB")
         _dry_line(f"{arch} {shape_name} 16x16", trace_s=rec["trace_s"],
                   flops=rec["flops_per_device"],
                   bytes=rec["bytes_per_device"], wire=coll,
                   dominant=terms["dominant"],
-                  peak_gib=round(rec["memory"]["peak_estimate_bytes"]
-                                 / 2**30, 3))
+                  peak_gib=round(peak / 2**30, 3),
+                  flops_vs_jax=round(vs_jax[0], 4),
+                  peak_vs_jax=round(vs_jax[1], 4))
+        if vs_jax[0] > f_max or vs_jax[1] > DRY_JAX_FACTOR:
+            failed.append((arch, shape_name, vs_jax))
     print(f"(b) {len(procs)} cells done {time.perf_counter() - t0:.1f} s "
           f"into step 19")
     assert not failed, failed

@@ -216,8 +216,10 @@ class _WriteGuard:
                     self._save(t)
 
     def _save(self, t: torch.Tensor) -> None:
+        ptr = _data_ptr(t)
+        if ptr is None:
+            return
         st = t.untyped_storage()
-        ptr = st.data_ptr()
         if st.nbytes() == 0 or ptr in self.fresh or ptr in self.saved:
             return
         view = torch.empty(0, dtype=torch.uint8, device=t.device).set_(st)
@@ -228,8 +230,8 @@ class _WriteGuard:
         outs = out if isinstance(out, (list, tuple)) else (out,)
         for r, t in zip(func._schema.returns, outs):
             if r.alias_info is None and isinstance(t, torch.Tensor):
-                ptr = t.untyped_storage().data_ptr()
-                if ptr not in self.saved:
+                ptr = _data_ptr(t)
+                if ptr is not None and ptr not in self.saved:
                     self.fresh.add(ptr)
 
     def restore(self) -> None:
@@ -237,6 +239,22 @@ class _WriteGuard:
             view.copy_(copy)
         self.saved.clear()
         self.fresh.clear()
+
+
+def _data_ptr(t: torch.Tensor):
+    """The address of ``t``'s storage; None for a wrapper subclass with
+    no storage of its own (a DTensor, which ``_OpMode`` hands on to
+    DTensor's dispatch, made by an operation it sees)."""
+    try:
+        return t.untyped_storage().data_ptr()
+    except RuntimeError:
+        return None
+
+
+try:
+    from torch.distributed.tensor import DTensor as _DTENSOR
+except ImportError:                      # a torch built without distributed
+    _DTENSOR = None
 
 
 class _OpMode(TorchDispatchMode):
@@ -248,9 +266,18 @@ class _OpMode(TorchDispatchMode):
         super().__init__()
         self.rec = rec
         self.guard = _WriteGuard()
+        self.quiet = False       # inside DTensor's sharding propagation
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.quiet:
+            return func(*args, **kwargs)
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
+                                        for t in types):
+            # a DTensor operation: DTensor's dispatch runs this rank's
+            # local operations (and its redistributions' collectives),
+            # which come back here to be recorded
+            return NotImplemented
         self.guard.before(func, args, kwargs)
         out = self.rec._bind(func, args, kwargs)
         self.guard.after(func, out)
@@ -313,12 +340,16 @@ class OpTracker(sc.Tracker):
 
     def __enter__(self):
         super().__enter__()
+        from repro_torch.distributed.compat import quiet_propagation
         self._mode = _OpMode(self)
+        self._quiet = quiet_propagation(self._mode)
+        self._quiet.__enter__()
         self._mode.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         self._mode.__exit__(exc_type, exc, tb)
+        self._quiet.__exit__(exc_type, exc, tb)
         self._mode.guard.restore()
         return super().__exit__(exc_type, exc, tb)
 

@@ -197,9 +197,21 @@ class ShardOracle(Oracle):
 
     def run(self, fn, *args, **kwargs) -> OracleCounters:
         sizes = dict(zip(self.mesh_axes, self.mesh_shape))
-        with compat.replay_context(self.mesh_axes, self.mesh_shape,
-                                   self.coords, self.device), \
-                cm.collective_axis_sizes(sizes):
+        env = compat.current()
+        if env is not None and env.mesh is not None and any(
+                compat.is_dtensor(a)
+                for a in compat.tree_leaves((args, kwargs))):
+            # DTensor arguments hold this device's blocks: the replay is
+            # of this device, on its mesh, so the program places its
+            # values as it did (collectives still stubbed, in ``_bind``)
+            if tuple(env.coords) != self.coords:
+                raise ValueError("a program over DTensors replays the "
+                                 "device it runs on only")
+            ctx = compat.mesh_context(env)
+        else:
+            ctx = compat.replay_context(self.mesh_axes, self.mesh_shape,
+                                        self.coords, self.device)
+        with ctx, cm.collective_axis_sizes(sizes):
             return super().run(fn, *args, **kwargs)
 
     def _bind(self, func, args, kwargs):
@@ -209,6 +221,8 @@ class ShardOracle(Oracle):
         x = args[0]
         if name == WAIT:
             return x.clone()
+        if name == "_c10d_functional._wrap_tensor_autograd":
+            return func(*args, **kwargs)     # autograd's wrapper, no peer
         kind = PRIMITIVE_KINDS.get(name)
         if kind == "all-to-all" and compat.is_permute():
             kind = "collective-permute"

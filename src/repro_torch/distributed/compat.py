@@ -368,6 +368,7 @@ class _Psum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, axis):
+        ctx.axis = axis
         return _all_reduce(x, axis)
 
     @staticmethod
@@ -619,13 +620,54 @@ def host_gather(x: torch.Tensor, axes: Tuple[str, ...], dim: int):
     return torch.cat(parts, dim=dim).to(x.device)
 
 
+@contextlib.contextmanager
+def quiet_propagation(mode):
+    """``mode.quiet`` is True while DTensor's sharding propagation runs
+    operations of its own (the output's tensor meta; torch 2.13's
+    decomposition-based rules, on a one-rank mesh, once per decision it
+    has not cached), so a dispatch mode that records operations can
+    leave them out: they are no operation of the rank's, and recorded,
+    the first call of a placement would differ from the next."""
+    import importlib
+    sites = []
+    for mod, cls, name in (
+            ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+             "_propagate_tensor_meta_non_cached"),
+            ("torch.distributed.tensor._decompositions",
+             "DecompShardingStrategy", "propagate_strategy")):
+        try:
+            owner = getattr(importlib.import_module(mod), cls)
+        except (ImportError, AttributeError):
+            continue                         # not in this torch
+        orig = owner.__dict__.get(name)
+        if orig is None:
+            continue
+
+        def quiet(*args, _orig=orig, **kwargs):
+            was, mode.quiet = mode.quiet, True
+            try:
+                return _orig(*args, **kwargs)
+            finally:
+                mode.quiet = was
+        setattr(owner, name, quiet)
+        sites.append((owner, name, orig))
+    try:
+        yield
+    finally:
+        for owner, name, orig in sites:
+            setattr(owner, name, orig)
+
+
 def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None):
     """``f`` run on this device's shard of its global arguments; the
     outputs ``out_specs`` shard are gathered, the rest are this device's
     (replicated by contract). ``axis_names`` restricts the manual axes;
     the others are auto-sharded, which takes DTensor arguments (see the
     module docstring): then every tensor output comes back a DTensor on
-    the whole mesh, its manual axes placed by ``out_specs``."""
+    the whole mesh, its manual axes placed by ``out_specs``. An output
+    replicated over a manual axis that takes a gradient must be psum'd,
+    pmean'd or all-gathered over it in the body; otherwise the call
+    raises (``_check_replicated``)."""
     env = (current() if mesh is None else
            mesh if isinstance(mesh, MeshEnv) else env_of(mesh))
     if env is None:
@@ -651,10 +693,68 @@ def shard_map(f, *, mesh, in_specs, out_specs, axis_names=None):
         with mesh_context(env):
             out = f(*tree_unflatten(args, leaves))
             ospecs = flat_specs(out_specs, out, "out_specs")
+            _check_replicated(out, ospecs, manual,
+                              _sources(leaves, specs, manual))
             return tree_unflatten(out, [
                 gather_shard(o, s)
                 for o, s in zip(tree_leaves(out), ospecs)])
     return run
+
+
+def _varies(t: torch.Tensor, axis: str, sources) -> bool:
+    """Whether ``t`` (an output of a ``shard_map`` body, in an autograd
+    graph) may differ across the devices of manual ``axis``: some path
+    back from it reaches an argument split over ``axis`` (``sources``:
+    an argument's autograd node -> the manual axes it is split over)
+    without passing a psum or all-gather over ``axis`` (pmean is a
+    psum), whose result every device of the axis shares."""
+    stack, seen = [t.grad_fn], set()
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if node in sources:
+            if axis in sources[node]:
+                return True
+            continue
+        reduced = getattr(node, "axis", None)
+        if reduced is not None and axis in _axes(reduced):
+            continue
+        stack.extend(f for f, _ in node.next_functions)
+    return False
+
+
+def _check_replicated(out, ospecs, manual, sources) -> None:
+    """Raise where an output ``out_specs`` replicates over a manual axis
+    takes a gradient but is not reduced over that axis. The cotangent of
+    such an output passes into the body as it is on every device (the
+    transpose of a psum), which is JAX's gradient only where the output
+    is the same on every device of the axis (JAX's ``check_vma``)."""
+    for o, spec in zip(tree_leaves(out), ospecs):
+        if not isinstance(o, torch.Tensor) or not o.requires_grad:
+            continue
+        split = {a for axes in spec_axes(spec, o.dim()) for a in axes}
+        for a in manual:
+            if a not in split and _varies(o, a, sources):
+                raise ValueError(
+                    f"shard_map: an output of shape {tuple(o.shape)} is "
+                    f"replicated over manual axis {a!r} by out_specs "
+                    f"({spec}) but varies over it: psum or pmean it over "
+                    f"{a!r}, or shard it there")
+
+
+def _sources(leaves, specs, manual):
+    """The autograd nodes of the body's arguments that take a gradient ->
+    the manual axes their specs split them over."""
+    out = {}
+    for loc, spec in zip(leaves, specs):
+        if isinstance(loc, torch.Tensor) and loc.grad_fn is not None:
+            axes = {a for ax in spec_axes(spec, loc.dim()) for a in ax
+                    if a in manual}
+            if axes:
+                out[loc.grad_fn] = axes
+    return out
 
 
 def _manual_placements(x, spec: Optional[P], manual: Tuple[str, ...]):
@@ -718,6 +818,7 @@ def _dtensor_shard_map(f, env: MeshEnv, manual, args, flat, specs,
     with mesh_context(body_env):
         out = f(*tree_unflatten(args, leaves))
     ospecs = flat_specs(out_specs, out, "out_specs")
+    _check_replicated(out, ospecs, manual, _sources(leaves, specs, manual))
 
     def back(o, spec):
         if not isinstance(o, torch.Tensor):

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -285,6 +286,27 @@ def shard(x, *axes):
     return x.redistribute(mesh, want)
 
 
+def zeros(shape, *axes, dtype, device):
+    """``shard(torch.zeros(shape), *axes)`` made a block a rank: each rank
+    allocates its own block only (the whole tensor first would be the
+    whole cache on every rank, however it is split after)."""
+    rules = _ACTIVE_RULES.get()
+    mesh = compat.placement_mesh() if rules is not None else None
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape = torch.Size(shape)
+    spec = to_pspec(axes, rules, shape=tuple(shape), mesh=mesh,
+                    manual=compat.manual_axes())
+    pl = placements(spec, mesh, len(shape))
+    local_shape, _ = compute_local_shape_and_global_offset(shape, mesh, pl)
+    return DTensor.from_local(
+        torch.zeros(local_shape, dtype=dtype, device=device), mesh, pl,
+        run_check=False, shape=shape, stride=compat.contiguous_stride(shape))
+
+
 def splittable(x, dim: int, n: int):
     """``x`` with dimension ``dim`` replicated on each mesh dim whose
     shards would not hold whole groups of ``x.shape[dim] // n``, so that
@@ -299,6 +321,12 @@ def splittable(x, dim: int, n: int):
     mesh = x.device_mesh
     want = [Replicate() if p.is_shard(dim) and n % mesh.size(j) else p
             for j, p in enumerate(x.placements)]
+    g = 1
+    for j, p in enumerate(want):
+        if p.is_shard(dim):
+            g *= mesh.size(j)
+    if n % g:            # mesh dims that divide alone but cut together
+        want = [Replicate() if p.is_shard(dim) else p for p in want]
     if tuple(want) == tuple(x.placements):
         return x
     return x.redistribute(mesh, want)
@@ -335,15 +363,27 @@ def split_leading(x, k: int):
     spreads it), so a microbatch's rows are split as the batch's were
     and picking one moves nothing. A DTensor whose dim-0 shards hold
     whole microbatches is resharded from the microbatch dim to the row
-    dim (an all-to-all); one whose shards cut microbatches is gathered
+    dim (an all-to-all); one whose shards cut microbatches but split
+    each of them evenly has its rows sent to the ranks that own them in
+    the split (``_MovedRows``, one all-to-all); any other is gathered
     first (``splittable``) and each rank keeps its rows of every
-    microbatch (a slice, no communication)."""
+    microbatch (a slice, no communication). Microbatch i is always the
+    rows i * b // k .. (i + 1) * b // k - 1, as in JAX: which rows share
+    a microbatch decides the tokens a MoE drops at capacity and its aux
+    loss."""
     b = x.shape[0]
     shape = (k, b // k) + tuple(x.shape[1:])
     if not is_dtensor(x):
         return x.reshape(shape)
     from torch.distributed.tensor import Shard
     mesh = x.device_mesh
+    dims = [j for j, p in enumerate(x.placements)
+            if p.is_shard(0) and mesh.size(j) > 1]
+    g = math.prod(mesh.size(j) for j in dims)
+    if k % g and b % (k * g) == 0 and \
+            not any(p.is_partial() for p in x.placements):
+        # gathering the batch first would hold all of it on every rank
+        return _MovedRows.apply(x, k, tuple(dims))
     y = splittable(x, 0, k).reshape(shape)
     want = [Shard(1) if p.is_shard(0) and (b // k) % mesh.size(j) == 0
             else yp
@@ -352,6 +392,79 @@ def split_leading(x, k: int):
         return y
     return y.redistribute(mesh, want)
 
+
+
+def _row_plan(r: int, g: int, k: int):
+    """Rank ``r`` of the ``g`` that split a batch of k microbatches,
+    each rank's block k units of b // (k g) rows: unit t = r k + c of
+    the batch lies in microbatch t // g, and there on rank t % g.
+    Returns this rank's units in the
+    order it sends them (by the rank they go to), the units it sends to
+    each rank and the units it receives from each, which arrive in
+    microbatch order."""
+    to = [(r * k + c) % g for c in range(k)]
+    order = sorted(range(k), key=lambda c: (to[c], c))
+    send = [to.count(s) for s in range(g)]
+    recv = [sum((q * k + c) % g == r for c in range(k)) for q in range(g)]
+    return order, send, recv
+
+
+def _exchange(units, out_units, in_units, group: str):
+    """One all-to-all of (n, u, ...) ``units`` over ``group``: ``in_units``
+    of them to each rank in turn, ``out_units`` from each."""
+    f = torch.ops._c10d_functional
+    u, rest = units.shape[1], tuple(units.shape[2:])
+    y = f.wait_tensor(f.all_to_all_single(
+        units.reshape((-1,) + rest).contiguous(),
+        [n * u for n in out_units], [n * u for n in in_units], group))
+    return y.reshape((-1, u) + rest)
+
+
+class _MovedRows(torch.autograd.Function):
+    """``split_leading`` of a DTensor whose dim-0 shards cut its k
+    microbatches (over mesh dims ``dims``, g ranks in all) but split
+    each evenly: each rank sends every unit of b // (k g) rows to the
+    rank that holds it in the microbatch split (``_row_plan``), one
+    all-to-all over the flattened group of ``dims``, and holds b / g
+    rows throughout; the gradient goes back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, k: int, dims: Tuple[int, ...]):
+        from torch.distributed.tensor import DTensor, Shard
+        mesh = x.device_mesh
+        coord = mesh.get_coordinate()
+        r = 0
+        for j in dims:
+            r = r * mesh.size(j) + coord[j]
+        order, send, recv = _row_plan(r, math.prod(mesh.size(j)
+                                                   for j in dims), k)
+        if len(dims) == 1:
+            group = mesh.get_group(dims[0]).group_name
+        else:
+            group = mesh[tuple(mesh.mesh_dim_names[j] for j in dims)] \
+                ._flatten().get_group().group_name
+        local = x.to_local()
+        units = local.reshape((k, local.shape[0] // k) +
+                              tuple(local.shape[1:]))
+        idx = torch.tensor(order, device=local.device)
+        y = _exchange(units.index_select(0, idx), recv, send, group)
+        pl = tuple(Shard(p.dim + 1) if p.is_shard() else p
+                   for p in x.placements)
+        shape = torch.Size((k, x.shape[0] // k) + tuple(x.shape[1:]))
+        ctx.back = (mesh, tuple(x.placements), pl, x.shape, x.stride(),
+                    torch.argsort(idx), send, recv, group)
+        return DTensor.from_local(y, mesh, pl, run_check=False, shape=shape,
+                                  stride=compat.contiguous_stride(shape))
+
+    @staticmethod
+    def backward(ctx, gy):
+        from torch.distributed.tensor import DTensor
+        mesh, x_pl, pl, shape, stride, inv, send, recv, group = ctx.back
+        units = _exchange(_placed(gy, mesh, pl).to_local(), send, recv,
+                          group).index_select(0, inv)
+        gx = units.reshape((-1,) + tuple(units.shape[2:]))
+        return DTensor.from_local(gx, mesh, x_pl, run_check=False,
+                                  shape=shape, stride=stride), None, None
 
 def foldable(x):
     """``x`` with its leading dimensions foldable into one, as a matrix
@@ -372,24 +485,60 @@ def foldable(x):
 
 
 class _FoldableGrad(torch.autograd.Function):
-    """Identity whose backward makes the gradient ``foldable``: the
-    gradient of a product's output is folded as its output was."""
+    """Identity whose backward places the gradient of a product's output
+    as the output was (``foldable`` with it)."""
 
     @staticmethod
     def forward(ctx, y):
+        from torch.distributed.tensor import Replicate
+        # a partial sum's gradient is its broadcast: replicated there
+        ctx.pl = (y.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                       for p in y.placements))
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
-        return foldable(g)
+        return foldable(_placed(g, *ctx.pl))
+
+
+def fsdp_weight(x, w):
+    """``w`` (K, N) gathered over each mesh dim that splits both its K
+    rows and ``x``'s leading (row) dim, as FSDP gathers a weight before
+    its product, so the product keeps ``x``'s rows split. DTensor picks
+    the strategy that moves the fewest bytes, which for a wide product
+    (the loss's logits) can be to move ``x`` and contract over the split
+    K instead: every rank then holds an output partial over all the
+    rows, the batch's worth of f32 logits."""
+    if not is_dtensor(x) or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if p.is_shard(0) and xp.is_shard(0) else p
+            for p, xp in zip(w.placements, x.placements)]
+    if tuple(want) == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, want)
 
 
 def fold_matmul(x, w):
     """``x @ w`` for an (..., K) ``x`` and a (K, N) ``w``; on DTensors
-    with ``x`` made ``foldable``, and the product's gradient too."""
+    with ``x`` made ``foldable``, and the product's gradient placed as
+    the product (a gradient that came back replicated where the product
+    was split would make DTensor run the weight's gradient whole on
+    every rank)."""
     if not is_dtensor(x) and not is_dtensor(w):
         return x @ w
     return _FoldableGrad.apply(foldable(x) @ w)
+
+
+def _placed(g, mesh, pl):
+    """``g`` as a DTensor with placements ``pl`` on ``mesh``: a replicated
+    one keeps its block (a copy, nothing moves)."""
+    g = as_dtensor(g, mesh)
+    if tuple(g.placements) == tuple(pl):
+        return g
+    if all(p.is_replicate() for p in g.placements):
+        return place(g.to_local(), mesh, pl)        # its block alone, copied
+    return g.redistribute(mesh, pl)
 
 
 class _PlacedGrad(torch.autograd.Function):
@@ -402,13 +551,7 @@ class _PlacedGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mesh, pl = ctx.pl
-        g = as_dtensor(g, mesh)
-        if tuple(g.placements) == tuple(pl):
-            return g
-        if all(p.is_replicate() for p in g.placements):
-            return place(g.to_local(), mesh, pl)    # its block alone, copied
-        return g.redistribute(mesh, pl)
+        return _placed(g, *ctx.pl)
 
 
 def placed_grad(y):
@@ -421,26 +564,61 @@ def placed_grad(y):
 
 
 def gather_rows(table, ids):
-    """``table[ids]`` (rows of a (V, d) table). For a DTensor table whose
-    gradient is taken, each rank looks its own ids up in the table made
-    whole, and the table's gradient is the sum of the ranks'
-    (``Partial`` over the mesh dims that split the ids), as JAX's
-    sharded gather: DTensor's own rules for an index or an embedding
-    over a sharded table fail in the backward (torch 2.11's
-    ``index_put`` strategy; the embedding's mask-partial gradient).
-    Without a gradient, DTensor's index runs as it is."""
-    if not is_dtensor(table) or not (torch.is_grad_enabled()
-                                     and table.requires_grad):
+    """``table[ids]`` (rows of a (V, d) table). For a DTensor table split
+    over its vocab on mesh dims the ids are whole on, each rank looks up
+    the ids its block holds, zeros for the others, and the rows are the
+    sum over those dims (``Partial``; Megatron's vocab-parallel
+    embedding, where making the table whole would hold all of it on
+    every rank). For one whose gradient is taken otherwise, each rank
+    looks its own ids up in the table made whole. Either way the table's
+    gradient is the sum of the ranks' (``Partial`` over the mesh dims
+    that split the ids), as JAX's sharded gather: DTensor's own rules
+    for an index or an embedding over a sharded table fail in the
+    backward (torch 2.11's ``index_put`` strategy; the embedding's
+    mask-partial gradient). Without a gradient or a vocab split,
+    DTensor's index runs as it is."""
+    if not is_dtensor(table):
         return table[ids]
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
     from torch.distributed.tensor.experimental import local_map
     mesh = table.device_mesh
+    id_pl = list(as_dtensor(ids, mesh).placements)
+    vocab = [j for j, p in enumerate(table.placements)
+             if p.is_shard(0) and mesh.size(j) > 1 and id_pl[j].is_replicate()]
+    if not vocab and not (torch.is_grad_enabled() and table.requires_grad):
+        return table[ids]
     ids = as_dtensor(ids, mesh)
-    id_pl = list(ids.placements)
     grad_pl = [Partial() if p.is_shard() else Replicate() for p in id_pl]
-    run = local_map(lambda t, i: t[i], out_placements=id_pl,
-                    in_placements=([Replicate()] * mesh.ndim, id_pl),
-                    in_grad_placements=(grad_pl, id_pl),
+    if not vocab:
+        run = local_map(lambda t, i: t[i], out_placements=id_pl,
+                        in_placements=([Replicate()] * mesh.ndim, id_pl),
+                        in_grad_placements=(grad_pl, id_pl),
+                        device_mesh=mesh, redistribute_inputs=True)
+        return run(table, ids)
+    # the embed dim stays split where the ids are whole too: each rank
+    # looks up its columns
+    cols = [j for j, p in enumerate(table.placements)
+            if p.is_shard(1) and j not in vocab and id_pl[j].is_replicate()]
+    tab_pl = [Shard(0) if j in vocab else Shard(1) if j in cols else
+              Replicate() for j in range(mesh.ndim)]
+    tab_grad = [p if j in vocab or j in cols else g
+                for j, (p, g) in enumerate(zip(tab_pl, grad_pl))]
+    out_pl = [Partial() if j in vocab else Shard(ids.dim()) if j in cols
+              else p for j, p in enumerate(id_pl)]
+    (nv, _), (v0, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, tab_pl)
+
+    def look(t, i):
+        at = i.long() - v0
+        hit = (at >= 0) & (at < nv)
+        rows = t[at.clamp(0, nv - 1)]
+        return torch.where(hit[..., None], rows, torch.zeros((), dtype=t.dtype,
+                                                             device=t.device))
+    run = local_map(look, out_placements=out_pl,
+                    in_placements=(tab_pl, id_pl),
+                    in_grad_placements=(tab_grad, id_pl),
                     device_mesh=mesh, redistribute_inputs=True)
     return run(table, ids)
 
@@ -523,11 +701,13 @@ def put(dst: torch.Tensor, index: tuple, value: torch.Tensor) -> None:
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
     mesh = dst.device_mesh
+    shape, off = compute_local_shape_and_global_offset(
+        dst.shape, mesh, dst.placements)
+    if _put_block(dst, index, value, off):
+        return
     if is_dtensor(value):
         value = value.redistribute(mesh, [Replicate()] * mesh.ndim) \
             .to_local()
-    shape, off = compute_local_shape_and_global_offset(
-        dst.shape, mesh, dst.placements)
     idx = tuple(index) + (slice(None),) * (dst.dim() - len(index))
     at, of_value = [], []
     for d, (e, o, n) in enumerate(zip(idx, off, shape)):
@@ -545,3 +725,46 @@ def put(dst: torch.Tensor, index: tuple, value: torch.Tensor) -> None:
         at.append(slice(lo - o, hi - o))
         of_value.append(slice(lo - a, hi - a))
     dst.to_local()[tuple(at)] = value[tuple(of_value)].to(dst.dtype)
+
+
+def _put_block(dst, index: tuple, value, off) -> bool:
+    """``put`` of a DTensor ``value`` split as ``dst`` is at ``index``
+    (a layer's state or K/V rows into a stacked cache): each rank copies
+    its own block, nothing moves. It needs every dimension ``dst`` splits
+    to be taken whole by ``index`` and split alike in ``value`` (or, an
+    int index's, kept whole in ``value``). False where the blocks do not
+    line up (the caller makes ``value`` whole)."""
+    if not is_dtensor(value) or value.device_mesh != dst.device_mesh:
+        return False
+    idx = tuple(index) + (slice(None),) * (dst.dim() - len(index))
+    vdim: Dict[int, Tuple[int, int, int]] = {}
+    for d, e in enumerate(idx):
+        if isinstance(e, int):
+            continue
+        a, b, step = e.indices(dst.shape[d])
+        if step != 1 or len(vdim) >= value.dim() or \
+                value.shape[len(vdim)] != b - a:
+            return False
+        vdim[d] = (len(vdim), a, b)
+    if len(vdim) != value.dim():
+        return False
+    for p, vp in zip(dst.placements, value.placements):
+        if p.is_shard() and p.dim in vdim:
+            vd, a, b = vdim[p.dim]
+            if (a, b) != (0, dst.shape[p.dim]) or \
+                    not (vp.is_shard() and vp.dim == vd):
+                return False
+        elif p.is_partial() or not vp.is_replicate():
+            return False
+    block = dst.to_local()
+    at = []
+    for d, (e, o, n) in enumerate(zip(idx, off, block.shape)):
+        if isinstance(e, int):
+            if not o <= e < o + n:
+                return True                      # another rank's rows
+            at.append(e - o)
+        else:
+            a, b = vdim[d][1:]
+            at.append(slice(max(a, o) - o, min(b, o + n) - o))
+    block[tuple(at)] = value.to_local().to(dst.dtype)
+    return True

@@ -18,8 +18,9 @@ like the paper's per-design DSE). The JAX package's axes map so:
   chunk the axis spans.
 
 Each space states its candidates' resources where the kernel declares
-them (``flash_resources``, ``paged_resources``), so the budget prunes a
-tile the card cannot hold before it is ever launched. The ``bind``
+them (``flash_resources``, ``paged_resources``, ``ssd_resources``), so
+the budget prunes a tile (an SSD chunk) the card cannot hold before it
+is ever launched. The ``bind``
 closures call the kernel wrappers with explicit tiles (not the ``ops``
 wrappers' tuned defaults). Inputs come from a seeded ``torch.Generator``
 on the space's device (the GPU unless ``device="cpu"``).
@@ -116,7 +117,9 @@ def ssd_scan_space(*, B: int = 1, H: int = 4, G: int = 2, L: int = 256,
     return SearchSpace(
         kernel_id="ssd_scan", axes={"chunk": tuple(chunks)},
         bind=bind, args=(x, a, b, c), default={"chunk": min(256, L)},
-        is_valid=is_valid)
+        is_valid=is_valid,
+        resources=lambda cfg: _ssd.ssd_resources(x.element_size(), N,
+                                                 cfg["chunk"]))
 
 
 def paged_attention_space(*, B: int = 4, KV: int = 4, G: int = 2,

@@ -272,6 +272,41 @@ def ssd_plan(x, b, chunk: int, pipeline: int):
         counter_shape=(B, H, nc), expected=expected, mirror=expected)
 
 
+def _ld(width: int, itemsize: int) -> int:
+    """A staged row's padded length (``ld<E, W>`` of the source)."""
+    return width + 16 // itemsize
+
+
+def ssd_smem_bytes(itemsize: int, N: int, Q: int) -> int:
+    """Dynamic shared memory of the larger of the two kernels' CTAs for
+    sub-chunks of ``Q`` steps (``ssd_scan_smem`` of the source, term for
+    term): 0 for a (dtype, N) the kernels do not take. The state kernel
+    stages two tiles of b and of two heads' x halves (bf16 inputs also
+    three bf16 parts of the decayed x) and four chunks of a for its two
+    heads; the scan kernel a c tile, the union of the prev states and a
+    stage of b and x tiles, the decay block and a for its four heads."""
+    if N not in STATE_DIMS or itemsize not in (2, 4):
+        return 0
+    T, P, PH, SH, HB, NKB = 64, 64, 32, 2, 4, 4
+    tiles = -(-Q // T) * T
+    state = (2 * T * (_ld(N, itemsize) + SH * _ld(PH, itemsize)) * itemsize
+             + (0 if itemsize == 4 else SH * 3 * T * _ld(PH, 2) * 2)
+             + SH * 4 * tiles * 4)
+    stage = T * (_ld(N, itemsize) + HB * _ld(P, itemsize))
+    scan = ((T * _ld(N, itemsize) + max(HB * P * _ld(N, itemsize), stage))
+            * itemsize + (T * (T + 4) + HB * tiles + HB * T * (NKB + 1)) * 4)
+    return max(state, scan)
+
+
+def ssd_resources(itemsize: int, N: int, chunk: int, pipeline: int = 1):
+    """What one CTA of the kernels needs of the card at this chunk
+    (``costmodel.KernelResources``): ``ssd_smem_bytes`` of its
+    sub-chunk and the kernels' 256 threads."""
+    return cm.KernelResources(
+        smem_bytes=ssd_smem_bytes(itemsize, N, chunk // pipeline),
+        threads=256)
+
+
 def ssd_cost(x, a, b, c, chunk: int, return_final_state: bool):
     """(FLOPs, bytes) of one call, as its bound counts them: c . b once
     per group and chunk and (L o decay) x over the causal triangle of

@@ -26,7 +26,7 @@ function once under a counting ``TorchDispatchMode``:
   (skipped as such), and, for an operation DTensor has no rule for, its
   decomposition on a one-rank mesh (torch 2.13's
   ``DecompShardingStrategy``), once per decision it has not cached. Those
-  run quiet (``_quiet_propagation``): counted, they would make a count
+  run quiet (``compat.quiet_propagation``): counted, they would make a count
   depend on what ran before it in the process.
 - **Collectives** (the counterpart of ``collectives.parse_collective_bytes``,
   which reads them from HLO text): each functional collective
@@ -76,6 +76,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import costmodel as cm
+from repro_torch.distributed.compat import quiet_propagation
 from repro_torch.launch.collectives import (PRIMITIVE_KINDS, op_name,
                                             ring_wire_bytes)
 
@@ -297,40 +298,6 @@ def _one_alltoall(counter: _Counter):
             m.shard_dim_alltoall = orig
 
 
-@contextlib.contextmanager
-def _quiet_propagation(counter: _Counter):
-    """DTensor's sharding propagation, where it runs operations (the
-    output's tensor meta; a decomposition-based rule), counts nothing."""
-    import importlib
-    sites = []
-    for mod, cls, name in (
-            ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
-             "_propagate_tensor_meta_non_cached"),
-            ("torch.distributed.tensor._decompositions",
-             "DecompShardingStrategy", "propagate_strategy")):
-        try:
-            owner = getattr(importlib.import_module(mod), cls)
-        except (ImportError, AttributeError):
-            continue                         # not in this torch
-        orig = owner.__dict__.get(name)
-        if orig is None:
-            continue
-
-        def quiet(*args, _orig=orig, **kwargs):
-            was, counter.quiet = counter.quiet, True
-            try:
-                return _orig(*args, **kwargs)
-            finally:
-                counter.quiet = was
-        setattr(owner, name, quiet)
-        sites.append((owner, name, orig))
-    try:
-        yield
-    finally:
-        for owner, name, orig in sites:
-            setattr(owner, name, orig)
-
-
 def analyze(fn: Callable, *args, fold_scans: bool = False,
             **kwargs) -> Dict[str, Any]:
     """Run ``fn(*args, **kwargs)`` once and count it, per device (see the
@@ -344,7 +311,7 @@ def analyze(fn: Callable, *args, fold_scans: bool = False,
     arg_st = _Live.storages((args, kwargs))
     for t in _leaves((args, kwargs)):
         counter.live.add(t)
-    with counter, _one_alltoall(counter), _quiet_propagation(counter):
+    with counter, _one_alltoall(counter), quiet_propagation(counter):
         result = fn(*args, **kwargs)
     out_st = _Live.storages(result)
     argument = sum(arg_st.values())

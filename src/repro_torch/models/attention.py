@@ -13,7 +13,15 @@ masks to zero (``_head_mask``); here attention runs over the real heads
 only and the pad heads' outputs are zeros, the same values. The kernel
 maps q head h to kv head h // q_per_kv, so nothing repeats kv
 (``_repeat_kv``) outside the flash kernel's plain version and the
-backward.
+backward. Under a mesh that splits the padded heads (``q_heads`` on
+``model``), q and the output stay split: each rank runs the flash over
+its own real heads alone, against the kv heads they read (picked to
+them), writes zeros for its pad heads, and a rank of pad heads computes
+nothing (``_rank_heads``; the flash VJP likewise, ``_CausalFlash``'s
+``heads``), where JAX's layout repeats and pads kv to every padded head
+and attends over the pad heads too. The decode attends against a cache
+split over its sequence on ``model``, so its q is made whole there
+(a (B, 1, Hp, hd) gather), as JAX's decode drops the pad heads.
 
 Training (``attn_train``) takes the gradient through a hand-written
 flash VJP, as the JAX package's ``causal_flash_xla`` does: the forward
@@ -26,7 +34,7 @@ the JAX package has a backward, so neither has the port's kernel.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,6 +94,11 @@ def _project_qkv(params, x, cfg: ModelConfig, positions):
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])
+    if is_dtensor(q) and any(p.is_partial() for p in q.placements):
+        # DTensor may contract over the FSDP-split embed dim, leaving q
+        # a partial sum over the batch's mesh dims: summed into its rows
+        # here, so RoPE and what follows run a block of rows a rank
+        q = shard(q, "batch", "seq", "q_heads", "head_dim")
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -105,6 +118,12 @@ def causal_attend(q, k, v, cfg: ModelConfig, q_offset: int = 0):
     q: (B,Sq,Hp,hd); k, v: (B,Skv,kv,hd), not repeated. Returns
     (B,Sq,Hp,hd) in q.dtype, pad heads zero."""
     H, Hp = cfg.num_heads, q.shape[2]
+    j = _head_mesh_dim(q) if Hp != H else None
+    if j is not None:
+        return _rank_heads(
+            lambda ql, kl, vl, first: _attend_real(
+                ql, kl, vl, (first, H, cfg.q_per_kv), q_offset=q_offset)[0],
+            q, k, v, j)
     o = kops.flash_attention(q[:, :, :H].transpose(1, 2).contiguous(),
                              k.transpose(1, 2).contiguous(),
                              v.transpose(1, 2).contiguous(),
@@ -112,6 +131,42 @@ def causal_attend(q, k, v, cfg: ModelConfig, q_offset: int = 0):
     if Hp != H:
         o = shd.pad(o, (0, 0, 0, Hp - H))
     return o
+
+
+def _real_heads(q, k, v, first: int, real: int, q_per_kv: int):
+    """The real heads of a block of padded q heads (B,S,n,hd), those of
+    index ``first ..`` in the padded set (the ones below ``real``), and
+    kv (B,S,kv,hd) picked to them, q head ``first + i`` reading kv head
+    ``(first + i) // q_per_kv``: (q, k, v, the kv head each reads), or
+    None for a block of pad heads."""
+    nr = max(0, min(q.shape[2], real - first))
+    if not nr:
+        return None
+    kv_of = [(first + i) // q_per_kv for i in range(nr)]
+    idx = torch.tensor(kv_of, device=k.device)
+    return q[:, :, :nr], k.index_select(2, idx), v.index_select(2, idx), \
+        kv_of
+
+
+def _attend_real(q, k, v, heads: Tuple[int, int, int], q_offset: int = 0,
+                 with_stats: bool = False):
+    """The flash over one block of padded q heads (B,S,n,hd), ``heads`` =
+    (first, real, q_per_kv) as ``_real_heads`` takes them: its real heads
+    against the kv heads they read, pad heads zero, nothing computed for
+    a block of pad heads. Returns (B,S,n,hd) in q.dtype, ``_real_heads``'
+    pick (None for pad heads) and, ``with_stats``, the (B,nr,S) row
+    statistics (m, l)."""
+    picked = _real_heads(q, k, v, *heads)
+    if picked is None:
+        return torch.zeros_like(q), None, None
+    qr, kr, vr, _ = picked
+    o = kops.flash_attention(qr.transpose(1, 2).contiguous(),
+                             kr.transpose(1, 2).contiguous(),
+                             vr.transpose(1, 2).contiguous(), causal=True,
+                             q_offset=q_offset, with_stats=with_stats)
+    o, stats = (o[0], o[1:]) if with_stats else (o, None)
+    o = o.transpose(1, 2)
+    return F.pad(o, (0, 0, 0, q.shape[2] - qr.shape[2])), picked, stats
 
 
 def out_proj(o, wo):
@@ -200,48 +255,96 @@ def _flash_bwd(q_block: int, kv_chunk: int, res, dout):
     return torch.cat(dq_rows, dim=1), dk, dv
 
 
-def _sum_groups(g, n_kv: int):
-    """(B,S,H,hd) cotangent of kv repeated to H heads -> (B,S,n_kv,hd):
-    the sum over each kv head's q heads, in f32, in ascending q head
-    order, rounded once to g's dtype (the transpose of ``_repeat_kv``)."""
-    B, S, H, HD = g.shape
-    grp = g.view(B, S, n_kv, H // n_kv, HD)
-    acc = grp[:, :, :, 0].float()
-    for j in range(1, H // n_kv):
-        acc = acc + grp[:, :, :, j].float()
-    return acc.to(g.dtype)
+def _sum_heads(g, kv_of: List[int], n_kv: int):
+    """(B,S,n,hd) cotangent of kv picked per q head (q head i read kv head
+    ``kv_of[i]``, ascending) -> (B,S,n_kv,hd): each kv head's sum over
+    its q heads in f32, in ascending q head order, rounded once to g's
+    dtype; a kv head no q head read gets zeros (the transpose of
+    ``_repeat_kv`` and of ``_real_heads``' pick). Where every kv head
+    has its r q heads in a row (kv repeated to n heads), all kv heads
+    are summed at once: the same values in r - 1 additions."""
+    B, S, n, HD = g.shape
+    r = n // n_kv
+    if n == r * n_kv and list(kv_of) == [i // r for i in range(n)]:
+        grp = g.view(B, S, n_kv, r, HD)
+        acc = grp[:, :, :, 0].float()
+        for j in range(1, r):
+            acc = acc + grp[:, :, :, j].float()
+        return acc.to(g.dtype)
+    heads = []
+    for c in range(n_kv):
+        members = [i for i, h in enumerate(kv_of) if h == c]
+        if not members:
+            heads.append(g.new_zeros(g.shape[:2] + g.shape[3:]))
+            continue
+        acc = g[:, :, members[0]].float()
+        for i in members[1:]:
+            acc = acc + g[:, :, i].float()
+        heads.append(acc.to(g.dtype))
+    return torch.stack(heads, dim=2)
 
 
 class _CausalFlash(torch.autograd.Function):
     """Causal GQA flash attention with the JAX package's flash VJP.
 
-    q: (B,S,H,hd) (real heads only); k, v: (B,S,kv,hd), not repeated.
-    Returns (B,S,H,hd) in q.dtype. The forward is the flash wrapper
-    (kernel on the card, plain version on the CPU) with its row
-    statistics; the backward repeats kv per q head, runs ``_flash_bwd``
-    and sums each kv head's gradient over its q heads (``_sum_groups``)."""
+    q: (B,S,H,hd); k, v: (B,S,kv,hd), not repeated. Returns (B,S,H,hd)
+    in q.dtype. The forward is the flash wrapper (kernel on the card,
+    plain version on the CPU) with its row statistics; the backward
+    repeats kv per q head, runs ``_flash_bwd`` and sums each kv head's
+    gradient over its q heads (``_sum_heads``).
+
+    ``heads`` = (first, real, q_per_kv) makes q a block of padded heads
+    (``_attend_real``): its real heads attend against the kv heads they
+    read (picked to them, so the kernel runs them as one kv head each),
+    its pad heads give zeros and take no gradient, and a block of pad
+    heads computes nothing."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_block: int, kv_chunk: int):
+    def forward(ctx, q, k, v, q_block: int, kv_chunk: int, heads=None):
+        ctx.plan = (q_block, kv_chunk)
+        ctx.heads = heads
+        if heads is not None:
+            ctx.like = (q.new_zeros(()).expand(q.shape),
+                        k.new_zeros(()).expand(k.shape))
+            out, picked, stats = _attend_real(q, k, v, heads,
+                                              with_stats=True)
+            ctx.kv_of = picked[3] if picked is not None else []
+            if picked is not None:
+                ctx.save_for_backward(*picked[:3], out, *stats)
+            return out
         out, m, l = kops.flash_attention(q.transpose(1, 2).contiguous(),
                                          k.transpose(1, 2).contiguous(),
                                          v.transpose(1, 2).contiguous(),
                                          causal=True, with_stats=True)
         out = out.transpose(1, 2)
         ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.plan = (q_block, kv_chunk)
         return out
 
     @staticmethod
     def backward(ctx, dout):
+        if ctx.heads is not None and not ctx.kv_of:
+            q0, k0 = ctx.like
+            return (torch.zeros_like(q0), torch.zeros_like(k0),
+                    torch.zeros_like(k0), None, None, None)
         q, k, v, out, m, l = ctx.saved_tensors
+        if ctx.heads is not None:
+            nr = len(ctx.kv_of)
+            res = (q, k, v, out[:, :, :nr], m, l)
+            dq, dk, dv = _flash_bwd(*ctx.plan, res,
+                                    dout[:, :, :nr].to(q.dtype))
+            q0, k0 = ctx.like
+            n_kv = k0.shape[2]
+            return (F.pad(dq, (0, 0, 0, q0.shape[2] - nr)),
+                    _sum_heads(dk, ctx.kv_of, n_kv),
+                    _sum_heads(dv, ctx.kv_of, n_kv), None, None, None)
         rep = q.shape[2] // k.shape[2]
         kr = k.repeat_interleave(rep, dim=2)
         vr = v.repeat_interleave(rep, dim=2)
         dq, dk, dv = _flash_bwd(*ctx.plan, (q, kr, vr, out, m, l),
                                 dout.to(q.dtype))
-        n_kv = k.shape[2]
-        return dq, _sum_groups(dk, n_kv), _sum_groups(dv, n_kv), None, None
+        n_kv, kv_of = k.shape[2], [i // rep for i in range(q.shape[2])]
+        return (dq, _sum_heads(dk, kv_of, n_kv), _sum_heads(dv, kv_of, n_kv),
+                None, None, None)
 
 
 def causal_flash(q, k, v, q_block: int, kv_chunk: int):
@@ -254,6 +357,55 @@ def causal_flash(q, k, v, q_block: int, kv_chunk: int):
         ratio=q.shape[2] // k.shape[2])
 
 
+def _head_mesh_dim(q) -> Optional[int]:
+    """The mesh dim that splits the heads of a (B,S,Hp,hd) DTensor q, or
+    None (a plain tensor, or heads whole on every rank)."""
+    if not is_dtensor(q):
+        return None
+    for j, p in enumerate(q.placements):
+        if p.is_shard(2) and q.device_mesh.size(j) > 1:
+            return j
+    return None
+
+
+def _rank_heads(fn, q, k, v, j: int):
+    """``fn(q_l, k_l, v_l, first)`` per rank on its own block of q's
+    padded heads (split over mesh dim ``j``; ``first`` the block's first
+    head), against every kv head, on its batch rows: q and the
+    output stay split over the heads, nothing gathers them. kv is
+    replicated over ``j`` (a gather where it is split there) and its
+    gradient summed over the ranks of ``j`` (``Partial``), as JAX's
+    repeated and padded kv is a reshard of kv and its gradient the sum
+    over the heads; every other dimension is made whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    k = shd.as_dtensor(k, mesh)
+    q_pl, kv_pl, kv_grad = [], [], []
+    for m, p in enumerate(q.placements):
+        if m == j:
+            q_pl.append(Shard(2))
+            kv_pl.append(Replicate())
+            kv_grad.append(Partial())
+        elif p.is_shard(0) or p.is_partial() or k.placements[m].is_shard(0):
+            # rows split where q's or kv's are (a partial q, the product
+            # of an FSDP-split weight, is summed into its rows' ranks)
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+            kv_grad.append(Shard(0))
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    first = mesh.get_local_rank(j) * (q.shape[2] // mesh.size(j))
+    run = local_map(lambda ql, kl, vl: fn(ql, kl, vl, first),
+                    out_placements=q_pl,
+                    in_placements=(q_pl, kv_pl, kv_pl),
+                    in_grad_placements=(q_pl, kv_grad, kv_grad),
+                    device_mesh=mesh, redistribute_inputs=True)
+    return run(q, k, shd.as_dtensor(v, mesh))
+
+
 # ----------------------------------------------------------- public ops
 
 def attn_train(params, x, positions, cfg: ModelConfig):
@@ -264,9 +416,17 @@ def attn_train(params, x, positions, cfg: ModelConfig):
         q, k, v = _project_qkv(params, x, cfg, positions)
     with scope.named_scope("flash"):
         H, Hp = cfg.num_heads, q.shape[2]
-        o = causal_flash(q[:, :, :H], k, v, cfg.attn_chunk, cfg.attn_chunk)
-        if Hp != H:
-            o = shd.pad(o, (0, 0, 0, Hp - H))
+        j = _head_mesh_dim(q) if Hp != H else None
+        if j is not None:
+            plan = (cfg.attn_chunk, cfg.attn_chunk)
+            o = _rank_heads(
+                lambda ql, kl, vl, first: _CausalFlash.apply(
+                    ql, kl, vl, *plan, (first, H, cfg.q_per_kv)), q, k, v, j)
+        else:
+            o = causal_flash(q[:, :, :H], k, v, cfg.attn_chunk,
+                             cfg.attn_chunk)
+            if Hp != H:
+                o = shd.pad(o, (0, 0, 0, Hp - H))
     with scope.named_scope("out_proj"):
         o = shard(o.to(x.dtype), "batch", "seq", "q_heads", "head_dim")
         out = out_proj(o, params["wo"])

@@ -31,8 +31,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import scope
-from repro_torch.distributed.sharding import (fold_matmul, gather_rows,
-                                               is_dtensor, placed_grad,
+from repro_torch.distributed.sharding import (fold_matmul, fsdp_weight,
+                                               gather_rows, is_dtensor,
+                                               placed_grad,
                                                shard)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.frontends import frontend_input_specs
@@ -198,7 +199,8 @@ class Model:
 
         def body(x_, l_, w_):
             with scope.named_scope("logits"):
-                logits = fold_matmul(x_.float(), w_.to(x_.dtype).float())
+                logits = fold_matmul(x_.float(), fsdp_weight(
+                    x_, w_.to(x_.dtype).float()))
                 logits = logits.masked_fill(pad_mask, float("-inf"))
                 logits = shard(logits, "batch", "seq", "vocab")
             with scope.named_scope("xent"):

@@ -203,6 +203,50 @@ def _ssd_local(x, a, b, c, chunk: int, h_per_g: int):
     return (y_diag + y_off).reshape(B, L, H, Pd), final.reshape(B, H, Pd, N)
 
 
+def _width_split(w) -> bool:
+    """Whether the in_proj's output columns are split over a mesh dim."""
+    return is_dtensor(w) and any(p.is_shard(1) and w.device_mesh.size(j) > 1
+                                 for j, p in enumerate(w.placements))
+
+
+def _split_front(params, x, d):
+    """The in_proj and the conv by column blocks (z, x, B, C, dt), for an
+    in_proj split over the model axis: each block's weight is cut from
+    the weight gathered over that axis once and split over it again, so
+    every product and the depthwise conv keep their columns split there.
+    (DTensor cannot split a dimension its shards cut, so splitting the
+    whole product would gather it, a (B, S, d_in_proj) block a rank, and
+    the conv would run at full width on every rank.) The weights'
+    gradients come back placed as the weights are. Returns (z, the
+    conv's input's (x, B, C), dt, its silu'd output's (x, B, C))."""
+    from torch.distributed.tensor import Replicate
+    di, gn, h = d["d_inner"], d["groups"] * d["d_state"], d["heads"]
+
+    def blocks(w, axes, sizes):
+        w = placed_grad(w)
+        w = w.redistribute(w.device_mesh, [
+            Replicate() if p.is_shard(w.dim() - 1) else p
+            for p in w.placements])
+        out, at = [], 0
+        for size in sizes:
+            out.append(shard(w[..., at:at + size], *axes))
+            at += size
+        return out
+
+    with scope.named_scope("in_proj"):
+        ws = blocks(params["in_proj"], ("embed", "ssm_inner"),
+                    (di, di, gn, gn, h))
+        z, xr, br, cr, dt = [shard(fold_matmul(x, w), "batch", "seq",
+                                   "ssm_inner") for w in ws]
+    with scope.named_scope("conv"):
+        sizes = (di, gn, gn)
+        convs = [F.silu(_causal_conv(r, w, bias)) for r, w, bias in zip(
+            (xr, br, cr), blocks(params["conv_w"], ("conv", "ssm_inner"),
+                                 sizes),
+            blocks(params["conv_b"], ("ssm_inner",), sizes))]
+    return z, (xr, br, cr), dt, convs
+
+
 def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
               return_state: bool = False):
     """Full-sequence Mamba2 block forward. x: (B, S, d_model).
@@ -216,16 +260,20 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
     d = ssm_dims(cfg)
     B, S, _ = x.shape
     di, g, n, h = d["d_inner"], d["groups"], d["d_state"], d["heads"]
-    with scope.named_scope("in_proj"):
-        # the gradient comes back split as the product is (torch 2.11
-        # would take the in_proj's gradient from a whole one)
-        zxbcdt = placed_grad(shard(fold_matmul(x, params["in_proj"]),
-                                   "batch", "seq", "ssm_inner"))
-    z, xbc_raw, dt = torch.split(zxbcdt, [di, d["conv_dim"], h], dim=-1)
-    with scope.named_scope("conv"):
-        xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"],
-                                  params["conv_b"]))
-    xs, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
+    if _width_split(params["in_proj"]):
+        z, xbc_raw, dt, (xs, b, c) = _split_front(params, x, d)
+    else:
+        with scope.named_scope("in_proj"):
+            # the gradient comes back split as the product is (torch 2.11
+            # would take the in_proj's gradient from a whole one)
+            zxbcdt = placed_grad(shard(fold_matmul(x, params["in_proj"]),
+                                       "batch", "seq", "ssm_inner"))
+        z, xbc_raw, dt = torch.split(zxbcdt, [di, d["conv_dim"], h],
+                                     dim=-1)
+        with scope.named_scope("conv"):
+            xbc = F.silu(_causal_conv(xbc_raw, params["conv_w"],
+                                      params["conv_b"]))
+        xs, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
     xs = xs.reshape(B, S, h, d["head_dim"])
     b = b.reshape(B, S, g, n)
     c = c.reshape(B, S, g, n)
@@ -263,6 +311,10 @@ def ssm_apply(params, x, cfg: ModelConfig, *, use_kernel: bool = True,
         K = d["conv_kernel"]
         # the last K-1 conv inputs; a prompt shorter than that is
         # preceded by the conv's zero history
+        if isinstance(xbc_raw, tuple):
+            # column blocks: their last K - 1 rows joined (a small gather)
+            xbc_raw = torch.cat([r[:, max(0, S - (K - 1)):]
+                                 for r in xbc_raw], dim=-1)
         hist = pad(xbc_raw, (0, 0, max(0, K - 1 - S), 0))
         conv_state = hist[:, hist.shape[1] - (K - 1):]
         return out, conv_state, final_state
@@ -304,4 +356,8 @@ def ssm_decode(params, x, conv_state, ssd_state, cfg: ModelConfig):
         y = y.reshape(B, di)
         y = rmsnorm(y, params["norm"], cfg.norm_eps) * F.silu(z)
         out = (y @ params["out_proj"])[:, None]
+    # summed over the model axis here, as after the prefill's out_proj: a
+    # residual left partial makes the next layer's in_proj run at full
+    # width on every rank
+    out = shard(out, "batch", "seq", None)
     return out, new_conv_state, new_state

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scope
-from repro_torch.distributed.sharding import current_rules, put, shard
+from repro_torch.distributed.sharding import (current_rules, placed_grad,
+                                              put, shard, zeros)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -77,9 +78,13 @@ def n_groups(cfg: ModelConfig) -> int:
 def unbind_tree(tree, n: int):
     """The ``n`` layers of a stacked parameter tree, as views: one
     ``unbind`` a leaf, so the backward stacks each leaf's gradients once
-    (indexing layer by layer would add a full-size gradient per layer)."""
+    (indexing layer by layer would add a full-size gradient per layer).
+    A DTensor layer's gradient comes back placed as the layer is
+    (``sharding.placed_grad``): reduce-scattered layer by layer, as JAX's
+    transposed scan does, where the stacked gradient would otherwise
+    hold every layer's partial sums whole over the FSDP axes."""
     if isinstance(tree, torch.Tensor):
-        return tree.unbind(0)
+        return tuple(placed_grad(t) for t in tree.unbind(0))
     parts = {k: unbind_tree(v, n) for k, v in tree.items()}
     return [{k: parts[k][i] for k in parts} for i in range(n)]
 
@@ -126,6 +131,10 @@ def stack_apply(params, x, positions, cfg: ModelConfig):
     """Run the full layer stack (training forward). Returns (x,
     aux_loss_sum): the MoE layers' auxiliary losses, zero for the other
     families."""
+    # placed as every layer leaves the residual, so that each iteration
+    # of the layer loop runs the same operations (as a scan's carry is
+    # one layout; the first layer would otherwise meet another)
+    x = shard(x, "batch", "act_seq", None)
     if cfg.family in ("ssm", "hybrid"):
         return _stack_apply_ssm(params, x, cfg, positions)
 
@@ -156,7 +165,8 @@ def _shared_views(shared, n: int):
     its gradient summed inside the loop, which a probe's capture
     refuses)."""
     if isinstance(shared, torch.Tensor):
-        return shared.expand((n,) + tuple(shared.shape)).unbind(0)
+        return tuple(placed_grad(t) for t in
+                     shared.expand((n,) + tuple(shared.shape)).unbind(0))
     parts = {k: _shared_views(v, n) for k, v in shared.items()}
     return [{k: parts[k][i] for k in parts} for i in range(n)]
 
@@ -227,8 +237,8 @@ def kv_cache(cfg: ModelConfig, n: int, B: int, cache_len: int, device):
     sharded by the active rules (sequence-sharded for serving)."""
     shape = (n, B, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     kvd = getattr(torch, cfg.kv_cache_dtype)
-    return (shard(torch.zeros(shape, dtype=kvd, device=device), *_CACHE_AXES),
-            shard(torch.zeros(shape, dtype=kvd, device=device), *_CACHE_AXES))
+    return (zeros(shape, *_CACHE_AXES, dtype=kvd, device=device),
+            zeros(shape, *_CACHE_AXES, dtype=kvd, device=device))
 
 
 def stack_prefill(params, x, positions, cfg: ModelConfig, cache_len: int):

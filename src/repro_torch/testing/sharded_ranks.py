@@ -20,7 +20,14 @@ arrays):
   its train step beside the local one;
 - ``sharded_int8``: the ``int8_ef`` train step on a ``pod`` mesh whose
   ``data`` / ``model`` axes are auto-sharded, beside the uncompressed
-  sharded step.
+  sharded step;
+- ``moe_microbatches``: a MoE train step in microbatches that the
+  batch's shards cut, at a capacity that drops tokens with the aux
+  loss, and at one that drops none without it beside the unsharded step;
+- ``probed_train``: a ``TRAIN_RULES`` step under ``core.mesh_probe``,
+  record against ``ShardOracle``, outputs against ``unprobed()``;
+- ``shard_map_contract``: ``compat.shard_map`` bodies whose replicated
+  output is psum'd, pmean'd, all-gathered, or left as it is (raises);
 - ``dry_counts`` / ``dry_counts_many``: dry-run cells
   (``launch.dryrun.analyze_cell``) of smoke configs on real tensors,
   counted on this rank, to hold the fake world's meta counts against.
@@ -257,6 +264,47 @@ def sharded_moe(mesh, dev, *, arch: str = "granite-moe-1b-a400m",
     return out
 
 
+def moe_microbatches(mesh, dev, *, arch: str = "granite-moe-1b-a400m",
+                     B: int = 12, S: int = 32, k: int = 3, seed: int = 4,
+                     capacity: float = 1.0,
+                     params_np=None) -> Dict[str, Any]:
+    """The ``TRAIN_RULES`` train step of ``arch`` in ``k`` microbatches
+    of ``B // k`` rows, the batch given split over ``data`` as the dry
+    run gives it, so that each rank's rows cut microbatches: at ``capacity`` with the aux loss
+    (tokens drop per shard; for JAX's sharded step), and at capacity
+    C = T without it beside the unsharded step (the two paths one
+    function there). Losses, grad norms, gathered params and moments
+    (the unsharded ones on rank 0 alone)."""
+    import dataclasses
+    model = smoke_model(arch)
+    model = Model(model.cfg.replace(moe=dataclasses.replace(
+        model.cfg.moe, capacity_factor=capacity)))
+    params = _params(model, dev, params_np)
+    batch = _batch(model.cfg, B, S, seed, dev)
+    tcfg = TrainConfig(total_steps=10, warmup_steps=1, microbatches=k)
+    runs = []
+    with compat.mesh_context(mesh), shd.axis_rules(shd.TRAIN_RULES, mesh):
+        p2 = shd.distribute_params(params, model.schema(), mesh,
+                                   shd.TRAIN_RULES)
+        # the batch placed as the dry run places it: its rows over data
+        placed = {key: shd.place(v, mesh, shd.placements(shd.to_pspec(
+            ("batch", None), shd.current_rules(), shape=v.shape, mesh=mesh),
+            mesh, v.dim())) for key, v in batch.items()}
+        for m in (model, no_drop_moe(model, False)):
+            runs.append(shd.gather(build_train_step(m, tcfg)(
+                p2, adamw.init(p2, m.cfg.moment_dtype), placed)))
+    if not _reference():
+        return {}
+    m = no_drop_moe(model, False)
+    runs.append(build_train_step(m, tcfg)(
+        params, adamw.init(params, m.cfg.moment_dtype), batch))
+    return dict(loss=[float(r[2]["loss"]) for r in runs],
+                grad_norm=[float(r[2]["grad_norm"]) for r in runs],
+                params=[_np(r[0]) for r in runs],
+                mu=[_np(r[1].mu) for r in runs],
+                nu=[_np(r[1].nu) for r in runs])
+
+
 def no_drop_moe(model: Model, aux: bool = True) -> Model:
     """``model`` at capacity C = T, which no expert exceeds (top-k picks
     an expert at most once a token), with or without its aux loss."""
@@ -352,6 +400,65 @@ def _block(x, mesh, pl):
     return x[tuple(slice(o, o + n) for o, n in zip(off, shape))].clone()
 
 
+def probed_train(mesh, dev, *, arch: str = "tinyllama-1.1b", B: int = 8,
+                 S: int = 32, max_probes: int = 16) -> Dict[str, Any]:
+    """A ``TRAIN_RULES`` train step under ``core.mesh_probe`` (no manual
+    axis: specs ``P()``, the step's DTensors placed by the rules): this
+    device's record against ``ShardOracle``'s replay of it, and the
+    outputs against ``unprobed()``'s, bit for bit."""
+    from repro_torch.core.meshprobe import mesh_probe
+    from repro_torch.core.pragma import ProbeConfig
+    from repro_torch.testing.mesh_ranks import _oracle_matches, _same
+    model = smoke_model(arch)
+    params = _params(model, dev)
+    batch = _batch(model.cfg, B, S, 1, dev)
+    step = build_train_step(model, TrainConfig(total_steps=10,
+                                               warmup_steps=1))
+    rank = int(torch.distributed.get_rank())
+    with compat.mesh_context(mesh), shd.axis_rules(shd.TRAIN_RULES, mesh):
+        p2 = shd.distribute_params(params, model.schema(), mesh,
+                                   shd.TRAIN_RULES)
+        o2 = adamw.init(p2, model.cfg.moment_dtype)
+        mpf = mesh_probe(step, mesh, (P(), P(), P()), (P(), P(), P()),
+                         ProbeConfig(max_probes=max_probes), device=dev)
+        probed, state = mpf(p2, o2, batch)
+        ref = mpf.unprobed()(p2, o2, batch)
+        rec = mpf.decode(state)
+        oc = mpf.oracle(p2, o2, batch, device=rank)
+        local = [shd.local(t) for t in compat.tree_leaves((probed, ref))]
+    n = len(local) // 2
+    return dict(oracle_ok=_oracle_matches(rec, oc, rank),
+                bit_ok=_same(local[:n], local[n:]),
+                n_probes=len(rec.paths), paths=list(rec.paths),
+                cycle=float(rec.device(rank)["cycle"]))
+
+
+def shard_map_contract(mesh, dev) -> Dict[str, Any]:
+    """``compat.shard_map`` over the mesh's axes with a gradient taken:
+    an output ``out_specs`` replicates over a manual axis passes when the
+    body psums or pmeans it there (or all-gathers it), and raises when it
+    is left as each device's own part."""
+    axes = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(axes, mesh.shape))
+    x = torch.arange(8 * sizes[axes[0]], dtype=torch.float32,
+                     device=dev).reshape(-1, 2).requires_grad_(True)
+    out = {}
+    bodies = {"psum": lambda t: compat.psum((t * t).sum(0), axes[0]),
+              "pmean": lambda t: compat.pmean(t.sum(0), axes[0]) * 2,
+              "gather": lambda t: compat.all_gather(t, axes[0]).sum(0),
+              "local": lambda t: (t * t).sum(0)}
+    with compat.mesh_context(mesh):
+        for name, body in bodies.items():
+            try:
+                y = compat.shard_map(body, mesh=mesh, in_specs=P(axes[0]),
+                                     out_specs=P())(x)
+                (g,) = torch.autograd.grad(y.sum(), x)
+                out[name] = "ok"
+            except ValueError as e:
+                out[name] = str(e)
+    return out
+
+
 def checks_rank(rank: int, device, meshes) -> Dict[str, Any]:
     """The checks of ``meshes`` [(shape, axes, {"train" | "decode" |
     "moe" | "int8" | "kernels" (a suffix after "/" free): kwargs}), ...],
@@ -362,7 +469,8 @@ def checks_rank(rank: int, device, meshes) -> Dict[str, Any]:
     dev = torch.device(device)
     run = {"train": sharded_train, "decode": sharded_decode,
            "moe": sharded_moe, "int8": sharded_int8,
-           "kernels": sharded_kernels}
+           "kernels": sharded_kernels, "probed": probed_train,
+           "contract": shard_map_contract, "moe_mb": moe_microbatches}
     out: Dict[str, Any] = {"coords": []}
     for shape, axes, checks in meshes:
         mesh = make_mesh(shape, axes)
@@ -427,7 +535,7 @@ def dry_counts(rank: int, dev, arch: str, kind: str, seq: int, batch: int,
     cost = analyze_cell(Model(smoke_config(arch).replace(**(over or {}))),
                         ShapeConfig(name or kind, seq, batch, kind), mesh, dev)
     return {k: cost[k] for k in ("flops", "bytes", "collectives",
-                                 "collective_wire_bytes")}
+                                 "collective_wire_bytes", "memory")}
 
 
 def dry_counts_many(rank: int, dev, cells) -> list:
